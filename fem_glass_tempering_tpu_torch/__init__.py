@@ -1,0 +1,31 @@
+"""fem_glass_tempering_tpu_torch — the PyTorch + CUDA port of
+fem_glass_tempering_tpu, the coupled thermo-viscoelastic glass-tempering
+FEM framework.
+
+The JAX package beside it is the reference this package is tested
+against. Layout mirrors it, so each module's counterpart sits at the same
+path:
+  - fem/      mesh, element tabulation, function spaces (numpy)
+  - ops/      heat operator, stencil and grid operators, interpolation,
+              and the hand-written CUDA kernels (cuda_kernels.py,
+              cuda_stencil.py; sources under csrc/)
+  - solver/   Newton, preconditioned CG, geometric multigrid
+  - models/   thermal + viscoelastic physics, the problem driver
+  - io/       npz time series
+
+Entry points run on the GPU (`device="cuda"`, the default) and raise when
+no GPU is visible, unless the caller asks for `device="cpu"`, where every
+kernel runs as its plain PyTorch twin.
+"""
+
+__version__ = "0.1.0"
+
+from fem_glass_tempering_tpu_torch.config import (  # noqa: F401
+    FEConfig,
+    ModelParams,
+    OutputConfig,
+    RunConfig,
+    SolverConfig,
+    TimeConfig,
+    default_model_params,
+)

@@ -1,0 +1,1 @@
+"""fem layer of the PyTorch port (counterpart of fem_glass_tempering_tpu/fem)."""

@@ -1,0 +1,1 @@
+"""models layer of the PyTorch port (counterpart of fem_glass_tempering_tpu/models)."""

@@ -1,0 +1,95 @@
+"""Hand-written CUDA kernel for the variable-coefficient 3^d-point stencil
+matvec, beside its plain PyTorch twin (counterpart of
+fem_glass_tempering_tpu/ops/pallas_stencil.py).
+
+stencil_matvec — y_i = sum_o vals[o]_i * x_{i+offset_o} on the CG-1 node
+grid flattened to (gx, M), M = prod(grid[1:]) (kernel source
+csrc/stencil_matvec.cu). It replaces
+fem_glass_tempering_tpu/ops/pallas_stencil.py:stencil_matvec_pallas and is
+the Jacobian action of every CG iteration and of every smoother and
+residual apply of the multigrid V-cycle. Bound by device-memory bytes:
+the 27 value tables plus x and y, ~123 MB per fine-level apply in f32 at
+1,062,761 dofs; one thread per output, loads coalesced along the flat
+axis, x read through L1/L2.
+
+The wrapper takes the plain version for tensors on the CPU and launches
+the kernel for CUDA tensors; anything the kernel does not take raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from fem_glass_tempering_tpu_torch.ops import kernel_lib
+
+
+def flat_shifts(grid_shape) -> list:
+    """(row_shift, flat_column_shift) per lattice offset, lexicographic to
+    match StencilMatrix's value ordering."""
+    d = len(grid_shape)
+    out = []
+    for off in np.ndindex(*([3] * d)):
+        sft = 0
+        for a in range(1, d):
+            sft = sft * grid_shape[a] + (int(off[a]) - 1)
+        out.append((int(off[0]), sft))
+    return out
+
+
+def stencil_matvec_reference(vals2: torch.Tensor, x: torch.Tensor,
+                             grid_shape) -> torch.Tensor:
+    """Plain PyTorch version: pad by one row and by the widest flat shift,
+    then 3^d shifted slices summed in offset order (the form of
+    StencilMatrix.matvec_flat). vals2 (3^d, gx, M), x (gx*M,) -> (gx*M,)."""
+    gx = grid_shape[0]
+    M = vals2.shape[-1]
+    shifts = flat_shifts(grid_shape)
+    P = max(abs(s) for _, s in shifts) if len(grid_shape) > 1 else 1
+    xp = F.pad(x.reshape(gx, M), (P, P, 1, 1))
+    acc = torch.zeros((gx, M), dtype=x.dtype, device=x.device)
+    for o, (dx, s) in enumerate(shifts):
+        acc = acc + vals2[o] * xp[dx:dx + gx, P + s:P + s + M]
+    return acc.reshape(-1)
+
+
+def stencil_matvec(vals2: torch.Tensor, x: torch.Tensor,
+                   grid_shape) -> torch.Tensor:
+    """y = A x for stencil values vals2 (3^d, gx, M) and flat x (gx*M,).
+    Kernel on CUDA tensors (d = 2 or 3), plain version on CPU tensors."""
+    grid_shape = tuple(int(g) for g in grid_shape)
+    d = len(grid_shape)
+    gx = grid_shape[0]
+    M = int(np.prod(grid_shape[1:])) if d > 1 else 1
+    if vals2.shape != (3 ** d, gx, M) or x.shape != (gx * M,):
+        raise ValueError(f"stencil_matvec: grid {grid_shape} needs vals "
+                         f"({3 ** d}, {gx}, {M}) and x ({gx * M},), got "
+                         f"{tuple(vals2.shape)} and {tuple(x.shape)}")
+    if vals2.device.type == "cpu" and x.device.type == "cpu":
+        return stencil_matvec_reference(vals2, x, grid_shape)
+    if vals2.device.type != "cuda" or vals2.device != x.device:
+        raise ValueError("stencil_matvec: vals and x must lie on one CUDA "
+                         f"device or both on the CPU, got {vals2.device} "
+                         f"and {x.device}")
+    if d not in (2, 3):
+        raise ValueError(f"stencil_matvec: the kernel takes d = 2 or 3, "
+                         f"got {d}")
+    code = kernel_lib.dtype_code(vals2.dtype)
+    if x.dtype != vals2.dtype:
+        raise TypeError(f"stencil_matvec: vals {vals2.dtype} vs x {x.dtype}")
+    if not (vals2.is_contiguous() and x.is_contiguous()):
+        raise ValueError("stencil_matvec: inputs must be contiguous")
+    y = torch.empty_like(x)
+    lib = kernel_lib.library().cdll
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.fgt_stencil_matvec(code, d, vals2.data_ptr(), x.data_ptr(),
+                                    y.data_ptr(), gx, M, grid_shape[-1],
+                                    stream)
+    kernel_lib.check(rc, "stencil_matvec")
+    stencil_matvec.launches += 1
+    return y
+
+
+stencil_matvec.launches = 0

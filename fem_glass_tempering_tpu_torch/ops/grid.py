@@ -1,0 +1,321 @@
+"""Gather-free heat operator for CG-1 on uniform box meshes.
+
+Counterpart of fem_glass_tempering_tpu/ops/grid.py (GridHeatOperator). The
+residual, the Jacobi diagonal and the per-Newton boundary-linearization
+update of the stencil values are static slice / elementwise arithmetic on
+the (nx+1, ny+1, nz+1) node grid:
+
+- the linear part (consistent mass + alpha-stiffness) rides the
+  StencilMatrix value tables;
+- the nonlinear boundary flux (radiation + convection with the reference's
+  0.001 scale) is evaluated per box face: every facet of a face has the
+  same geometry, so one (q, nloc) basis table and one (q,) weight row
+  cover the face, facet corner values are static slices of the node grid,
+  and the scatter back is a static-slice add.
+
+The Jacobian action (`make_matvec`) bakes the boundary linearization into
+the 27 value tables once per frozen operator and applies them with the
+hand-written CUDA stencil kernel (ops/cuda_stencil.py) on the GPU.
+
+Waiting for later work (ROADMAP.md, Slice 1 deferrals): the constant-row
+form (`allow_const=True`), the bf16 table stream (`stream_dtype`) and
+padded grids (`pad_axis0`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from fem_glass_tempering_tpu_torch.ops.assembly import build_boundary_geometry
+from fem_glass_tempering_tpu_torch.ops.heat import HeatOperator
+from fem_glass_tempering_tpu_torch.ops.stencil import StencilMatrix
+
+
+class _Face:
+    __slots__ = ("axis", "side", "qw", "phi", "np_phi")
+
+    def __init__(self, axis, side, qw, phi, np_phi):
+        self.axis = axis      # grid axis 0..d-1
+        self.side = side      # 0 = low face, 1 = high face
+        self.qw = qw          # (q,) facet quadrature weights * |detJ|
+        self.phi = phi        # (q, nloc) cell basis on the facet
+        self.np_phi = np_phi  # the same, numpy (setup-time consumers)
+
+
+class GridHeatOperator:
+    """Replacement for HeatOperator.residual / jacobian_diag plus
+    StencilMatrix.make_matvec, valid for CG-1 spaces on uniform box meshes
+    with whole-boundary or whole-face flux and no MMS source."""
+
+    def __init__(self, op: HeatOperator, flux_marker=None,
+                 allow_const: bool = False):
+        """`flux_marker(midpoints) -> bool mask` restricts the radiation +
+        convection flux to whole box faces; a marker that cuts through a
+        face is rejected (use HeatOperator's gather assembly instead)."""
+        if allow_const:
+            raise NotImplementedError(
+                "the constant-row form waits (ROADMAP.md, Slice 1 "
+                "deferrals); construct with allow_const=False")
+        fs = op.fs
+        mesh = fs.mesh
+        if mesh.structured is None or fs.family != "CG" or fs.degree != 1:
+            raise ValueError("GridHeatOperator needs a structured box mesh "
+                             "with a CG-1 space")
+        if op.source_q is not None:
+            raise ValueError("GridHeatOperator does not support MMS sources")
+        self.op = op
+        self.params = op.params
+        self.dtype = op.dtype
+        self.device = op.device
+        self.st = StencilMatrix(op, make_tables=False)
+        self.grid = self.st.grid
+        self.dims = tuple(mesh.structured["dims"])
+        self.d = len(self.dims)
+        self.n = fs.n_scalar_dofs
+        nloc = fs.element.nloc
+        self.nloc = nloc
+
+        bq = 5 * fs.degree
+        bg = build_boundary_geometry(mesh, fs, bq)
+        if len(bg.cell) != len(mesh.boundary_cell):
+            raise ValueError("flux restricted to a facet subset — grid path "
+                             "requires whole-boundary flux or a whole-face "
+                             "flux_marker")
+        if flux_marker is not None:
+            mids = bg.qpoints_phys.mean(axis=1)
+            keep = np.asarray(flux_marker(mids), dtype=bool)
+        else:
+            keep = np.ones(len(bg.cell), dtype=bool)
+
+        # group facets by (axis, side) from the outward normal; verify the
+        # uniform-grid invariant (identical tables across each face)
+        normal = bg.normal[:, 0, :]                       # (f, g)
+        axis = np.argmax(np.abs(normal), axis=1)
+        side = (normal[np.arange(len(axis)), axis] > 0).astype(int)
+        cells = bg.cell
+        strides = np.array(
+            [int(np.prod(self.dims[i + 1:])) for i in range(self.d)])
+        f = lambda a: torch.as_tensor(np.array(a), dtype=self.dtype,
+                                      device=self.device)
+
+        self.faces: list[_Face] = []
+        for a in range(self.d):
+            for s in (0, 1):
+                sel = (axis == a) & (side == s)
+                if not sel.any():
+                    continue
+                k = keep[sel]
+                if not k.any():
+                    continue          # face fully insulated by the marker
+                if not k.all():
+                    raise ValueError(
+                        "flux_marker cuts through a box face — the grid "
+                        "path handles whole faces only")
+                qw = bg.qweights[sel]
+                phi = bg.phi[sel]
+                if (np.abs(qw - qw[0]).max() > 1e-12 * max(qw.max(), 1e-30)
+                        or np.abs(phi - phi[0]).max() > 1e-12):
+                    raise ValueError("non-uniform face tables — mesh is not "
+                                     "a uniform box")
+                # the face layer must contain every cell exactly once
+                layer = cells[sel]
+                ca = (layer // strides[a]) % self.dims[a]
+                expect = 0 if s == 0 else self.dims[a] - 1
+                n_layer = int(np.prod(self.dims)) // self.dims[a]
+                if not (len(layer) == n_layer and np.all(ca == expect)
+                        and len(np.unique(layer)) == n_layer):
+                    raise ValueError("face layer mismatch — mesh is not a "
+                                     "uniform box")
+                self.faces.append(_Face(a, s, f(qw[0]), f(phi[0]),
+                                        np.asarray(phi[0])))
+
+        # local node l <-> lattice offset bits (tensor-product vertex
+        # order: l = ix + 2*iy + 4*iz)
+        self.loffs = [tuple((l >> i) & 1 for i in range(self.d))
+                      for l in range(nloc)]
+        # significant basis columns per face (off-face corners are zero)
+        self._face_cols = []
+        for fc in self.faces:
+            cols = [l for l in range(nloc)
+                    if float(np.abs(fc.np_phi[:, l]).max()) > 1e-14]
+            self._face_cols.append(cols)
+
+        self._offsets = self.st.offsets
+
+        # mass row sums M @ 1 (for the constant-source term), in numpy
+        m1 = np.zeros(self.grid)
+        xp = np.pad(np.ones(self.grid), 1)
+        for o, off in enumerate(self._offsets):
+            sl = tuple(slice(int(v), int(v) + g)
+                       for v, g in zip(off, self.grid))
+            m1 += self.st.np_mass[o] * xp[sl]
+        self.M1g = f(m1)
+
+        # stencil-offset id for a (l, m) corner pair
+        def off_id(lo, mo):
+            o = 0
+            for i in range(self.d):
+                o = o * 3 + (mo[i] - lo[i] + 1)
+            return o
+        self._pair_off = [[off_id(self.loffs[l], self.loffs[m])
+                           for m in range(nloc)] for l in range(nloc)]
+
+        self.bc_mask = op.bc_mask
+        self.bc_values = op.bc_values
+        self.bc_mask_g = op.bc_mask.reshape(self.grid)
+        self.bc_values_g = op.bc_values.reshape(self.grid)
+        self.has_bc = op.has_bc
+
+        self.st.ensure_tables()
+        self.vals_mass = self.st.st_mass
+        self.vals_stiff = self.st.st_stiff
+
+    # ------------------------------------------------------------------
+    def _shifted(self, xp, off):
+        return xp[tuple(slice(int(v), int(v) + g)
+                        for v, g in zip(off, self.grid))]
+
+    def matvec_vals(self, vals: torch.Tensor, xg: torch.Tensor) -> torch.Tensor:
+        """Stencil matvec over the node grid."""
+        xp = F.pad(xg, (1, 1) * self.d)
+        acc = torch.zeros(self.grid, dtype=xg.dtype, device=xg.device)
+        for o, off in enumerate(self._offsets):
+            acc = acc + vals[o] * self._shifted(xp, off)
+        return acc
+
+    def matvec_diff(self, vals: torch.Tensor, xg: torch.Tensor) -> torch.Tensor:
+        """Difference-form stencil matvec for zero-row-sum operators (pure
+        stiffness): sum_o vals[o] * (x_{i+o} - x_i), skipping the center.
+        Annihilates constant fields exactly in floating point."""
+        xp = F.pad(xg, (1, 1) * self.d)
+        center = (3 ** self.d - 1) // 2
+        acc = torch.zeros(self.grid, dtype=xg.dtype, device=xg.device)
+        for o, off in enumerate(self._offsets):
+            if o == center:
+                continue
+            acc = acc + vals[o] * (self._shifted(xp, off) - xg)
+        return acc
+
+    # ------------------------------------------------------------------
+    def _corner_slices(self, face: _Face, l: int):
+        """Static node-grid slices addressing corner l of every cell in the
+        face's boundary layer."""
+        off = self.loffs[l]
+        idx = []
+        for i in range(self.d):
+            if i == face.axis:
+                base = (0 if face.side == 0 else self.dims[i] - 1) + off[i]
+                idx.append(slice(base, base + 1))
+            else:
+                idx.append(slice(off[i], off[i] + self.dims[i]))
+        return tuple(idx)
+
+    def _face_corners(self, Tg, face: _Face, cols):
+        return torch.stack(
+            [Tg[self._corner_slices(face, l)] for l in cols], dim=-1)
+
+    # ------------------------------------------------------------------
+    def residual(self, T: torch.Tensor, T_prev: torch.Tensor,
+                 dt=None) -> torch.Tensor:
+        return self.residual_g(T.reshape(self.grid),
+                               T_prev.reshape(self.grid), dt).reshape(-1)
+
+    def residual_g(self, Tg, Tpg, dt=None):
+        """Grid-shaped residual (*grid) -> (*grid)."""
+        dt = self.op.dt if dt is None else dt
+        if not self.has_bc:
+            return self._base_residual_g(Tg, Tpg, dt)
+        T_eff = torch.where(self.bc_mask_g, self.bc_values_g, Tg)
+        r = self._base_residual_g(T_eff, Tpg, dt)
+        return torch.where(self.bc_mask_g, Tg - self.bc_values_g, r)
+
+    def _base_residual_g(self, Tg, Tpg, dt):
+        p = self.params
+        # M (T - Tp) + dt (alpha K) T - dt f M 1: the mass acts on the
+        # small per-step difference and the stiffness in difference form,
+        # so constants are annihilated exactly (no ~800 K cancellation)
+        rg = (self.matvec_vals(self.vals_mass, Tg - Tpg)
+              + dt * self.matvec_diff(self.vals_stiff, Tg)
+              - dt * p.f * self.M1g)
+        for fc, cols in zip(self.faces, self._face_cols):
+            phi = fc.phi[:, cols]                          # (q, lc)
+            corners = self._face_corners(Tg, fc, cols)     # (..., lc)
+            Tb = torch.einsum("...l,ql->...q", corners, phi)
+            gflux = p.boundary_scale * (
+                (p.sigma * p.epsilon) * (Tb**4 - p.T_ambient**4)
+                + p.htc * (Tb - p.T_ambient))
+            contrib = torch.einsum("...q,q,ql->...l", gflux, dt * fc.qw, phi)
+            for j, l in enumerate(cols):
+                rg[self._corner_slices(fc, l)] += contrib[..., j]
+        return rg
+
+    # ------------------------------------------------------------------
+    def jacobian_diag(self, T: torch.Tensor, dt=None) -> torch.Tensor:
+        return self.jacobian_diag_g(T.reshape(self.grid), dt).reshape(-1)
+
+    def jacobian_diag_g(self, Tg, dt=None):
+        p = self.params
+        dt = self.op.dt if dt is None else dt
+        center = (3 ** self.d - 1) // 2
+        d = self.vals_mass[center] + dt * self.vals_stiff[center]
+        for fc, cols in zip(self.faces, self._face_cols):
+            phi = fc.phi[:, cols]
+            corners = self._face_corners(Tg, fc, cols)
+            Tb = torch.einsum("...l,ql->...q", corners, phi)
+            dflux = p.boundary_scale * (
+                4.0 * p.sigma * p.epsilon * Tb**3 + p.htc)
+            contrib = torch.einsum("...q,q,ql->...l", dflux, dt * fc.qw,
+                                   phi * phi)
+            for j, l in enumerate(cols):
+                d[self._corner_slices(fc, l)] += contrib[..., j]
+        if self.has_bc:
+            d = torch.where(self.bc_mask_g, torch.ones_like(d), d)
+        return d
+
+    # ------------------------------------------------------------------
+    def stencil_values(self, T: torch.Tensor, dt) -> torch.Tensor:
+        return self.stencil_values_g(T.reshape(self.grid), dt)
+
+    def stencil_values_g(self, Tg, dt):
+        """J(T) stencil values (n_off, *grid) with the boundary
+        linearization added by static-slice writes (no scatter)."""
+        p = self.params
+        vals = self.vals_mass + dt * self.vals_stiff       # (n_off, *grid)
+        for fc, cols in zip(self.faces, self._face_cols):
+            phi = fc.phi[:, cols]
+            corners = self._face_corners(Tg, fc, cols)
+            Tb = torch.einsum("...l,ql->...q", corners, phi)
+            w = (p.boundary_scale
+                 * (4.0 * p.sigma * p.epsilon * Tb**3 + p.htc)
+                 * (dt * fc.qw))                           # (..., q)
+            for jl, l in enumerate(cols):
+                sl = self._corner_slices(fc, l)
+                for jm, m in enumerate(cols):
+                    blk = torch.einsum("...q,q,q->...", w, phi[:, jl],
+                                       phi[:, jm])
+                    o = self._pair_off[l][m]
+                    vals[(o,) + sl] += blk
+        return vals
+
+    def _mv_flat(self, vals, stream_dtype=None):
+        """Flat-vector matvec from materialised values: the CUDA stencil
+        kernel on the GPU (f32 and f64), its plain twin on the CPU."""
+        if stream_dtype is not None:
+            raise NotImplementedError(
+                "bf16 table streaming waits (ROADMAP.md, Slice 1 deferrals)")
+        if self.d > 1:
+            vals2 = vals.reshape(vals.shape[0], self.grid[0], -1)
+            return lambda v: self.st.matvec_flat(vals2, v)
+        return lambda v: self.matvec_vals(
+            vals, v.reshape(self.grid)).reshape(-1)
+
+    def make_matvec(self, T: torch.Tensor, dt, stream_dtype=None):
+        vals = self.stencil_values(T, dt)
+        mv = self._mv_flat(vals, stream_dtype=stream_dtype)
+        if self.has_bc:
+            mask = self.bc_mask
+            return lambda v: torch.where(
+                mask, v, mv(torch.where(mask, torch.zeros_like(v), v)))
+        return mv
