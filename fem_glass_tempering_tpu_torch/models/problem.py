@@ -11,10 +11,13 @@ arguments (mesh_path/config/time/dt/model_parameters, reference
 main.py:57-59) as well as a typed RunConfig; `setup(dirichlet_bc=False)`
 and `solve()` match the reference entry points (main.py:61-62).
 
-This slice ports the CG-1 path on structured and unstructured meshes with
-the Jacobi, geometric-MG or no preconditioner. Mixed precision, SA-AMG, DG,
-CG-2 and equilibrium mechanics raise NotImplementedError naming the slice
-of the port that brings them (ROADMAP.md).
+Ported: CG-1 and DG-1 temperature spaces; the matrix-free, assembled (ELL)
+and, for CG-1 boxes, stencil Krylov operators; the Jacobi, geometric-MG
+(CG-1 boxes), SA-AMG or no preconditioner; checkpoints. The default
+constructor is the reference's default workload (DG-1 on the graded 1D
+slab, matrix-free CG, SA-AMG). Mixed precision, the DG block stencil and
+DG multigrid, CG-2 and equilibrium mechanics raise NotImplementedError
+naming the slice of the port that brings them (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -125,19 +128,17 @@ class ThermoViscoProblem:
         self.dim = self.mesh.tdim
 
         fe = run_cfg.fe
-        if fe.T_family == "DG":
-            raise _waits("a DG temperature space", "Slice 2 (1D slab) and "
-                         "Slice 3 (boxes)")
         if fe.T_degree != 1:
-            raise _waits("a CG-2 temperature space", "Slice 4")
+            raise _waits("a degree-2 temperature space", "Slice 4")
         if run_cfg.mechanics != "none":
             raise _waits("mechanics='equilibrium'", "Slice 5")
         sc = run_cfg.solver
         if sc.cg_dtype == "float32" and self.dtype == torch.float64:
             raise _waits("mixed precision (cg_dtype='float32' under f64)",
                          "the Slice 1 deferrals")
-        if sc.linear_operator == "assembled":
-            raise _waits("linear_operator='assembled' (ELL SpMV)", "Slice 2")
+        if fe.T_family == "DG" and sc.linear_operator == "stencil":
+            raise _waits("linear_operator='stencil' with a DG temperature "
+                         "space (the DG block stencil)", "Slice 3")
         self.fs_T = FunctionSpace(self.mesh, fe.T_family, fe.T_degree)
         self.fs_sigma = FunctionSpace(self.mesh, fe.sigma_family, fe.sigma_degree,
                                       value_shape=(self.dim, self.dim))
@@ -176,13 +177,26 @@ class ThermoViscoProblem:
             flux_marker = lambda mids, _m=_fmask: _m  # noqa: E731
         sc = self.config.solver
         if sc.preconditioner == "auto":
-            resolved = "mg" if self.mesh.structured is not None else "amg"
+            # the reference preconditions with GAMG unconditionally
+            # (ThermoViscoProblem.py:344); resolve to the strongest
+            # equivalent this mesh/space supports
+            if (self.mesh.structured is not None
+                    and ((self.fs_T.degree == 1
+                          and self.fs_T.family in ("CG", "DG"))
+                         or (self.fs_T.degree == 2
+                             and self.fs_T.family == "CG"))):
+                resolved = "mg"
+            else:
+                resolved = "amg"
             sc = dataclasses.replace(sc, preconditioner=resolved)
             self.config = dataclasses.replace(self.config, solver=sc)
-        if sc.preconditioner == "amg":
-            raise _waits("the SA-AMG preconditioner", "Slice 2")
-        if sc.preconditioner not in ("mg", "jacobi", "none"):
+        if sc.preconditioner not in ("mg", "amg", "jacobi", "none"):
             raise ValueError(f"unknown preconditioner {sc.preconditioner!r}")
+        if (sc.preconditioner == "mg" and self.fs_T.family == "DG"
+                and self.mesh.structured is not None):
+            raise _waits("preconditioner='mg' with a DG temperature space "
+                         "(DGMultigrid; pass preconditioner='amg' or "
+                         "'jacobi' meanwhile)", "Slice 3")
         bc_dofs = bc_val = None
         if dirichlet_tag is not None:
             bc_dofs = self.fs_T.boundary_scalar_dofs(
@@ -193,11 +207,16 @@ class ThermoViscoProblem:
             bc_dofs = self.fs_T.boundary_scalar_dofs()
             bc_val = self.params.T_ambient
         heat_form = self.config.heat_form
+        # host seconds of the setup's parts: "heat", and "ell" / "amg"
+        # where an SA-AMG hierarchy is built
+        self.setup_seconds: dict = {}
+        t_setup = _time.perf_counter()
         self.heat = HeatOperator(
             self.fs_T, self.params, self.dt, dtype=self.dtype,
             device=self.device, bc_dofs=bc_dofs, bc_value=bc_val,
             quad_degree=self.config.fe.quad_degree,
             flux_marker=flux_marker, form=heat_form)
+        self.setup_seconds["heat"] = _time.perf_counter() - t_setup
         # gather-free grid-native path when the mesh/space qualify
         self._grid = None
         if sc.grid_native != "off":
@@ -237,6 +256,23 @@ class ThermoViscoProblem:
                                    max_levels=sc.mg_max_levels,
                                    coarse=sc.mg_coarse)
             self._mg.freeze_omegas(None, self.dt)
+        # smoothed-aggregation AMG (solver/amg.py): the mesh-agnostic GAMG
+        # stand-in for unstructured meshes; hierarchy frozen at (T_0, dt)
+        self._amg = None
+        if sc.preconditioner == "amg":
+            from fem_glass_tempering_tpu_torch.ops.spmv import EllMatrix
+            from fem_glass_tempering_tpu_torch.solver.amg import (
+                SmoothedAggregationMG,
+            )
+            T0v = torch.full((self.fs_T.n_scalar_dofs,), self.params.T_0,
+                             dtype=self.dtype, device=self.device)
+            t_ell = _time.perf_counter()
+            ell = EllMatrix(self.heat)
+            t_amg = _time.perf_counter()
+            self._amg = SmoothedAggregationMG(ell, T0v, self.dt,
+                                              dtype=self.dtype)
+            self.setup_seconds["ell"] = t_amg - t_ell
+            self.setup_seconds["amg"] = _time.perf_counter() - t_amg
         self.state = self.engine.init_state()
         self._build_step()
         if output_dir is not None:
@@ -250,8 +286,6 @@ class ThermoViscoProblem:
         T, phi, Tf, xi and sigma, ThermoViscoProblem.py:246-276)."""
         self._writers = []
         oc = self.config.output
-        if oc.checkpoint_every:
-            raise _waits("checkpointing", "Slice 6")
         if oc.write_every <= 0 or not oc.formats:
             return
         unsupported = [f for f in oc.formats if f != "npz"]
@@ -263,15 +297,37 @@ class ThermoViscoProblem:
                             fields=oc.npz_fields))
 
     # ------------------------------------------------------------------
+    def save_checkpoint(self, path: str) -> None:
+        from fem_glass_tempering_tpu_torch.io.checkpoint import (
+            save_checkpoint,
+        )
+        save_checkpoint(path, self.state, config=self.config,
+                        extra={"t": self.t})
+
+    def resume_from(self, path: str) -> None:
+        """Restore state + time from a checkpoint (one written by this
+        package or by the JAX package)."""
+        from fem_glass_tempering_tpu_torch.io.checkpoint import (
+            load_checkpoint,
+        )
+        state, meta = load_checkpoint(path, dtype=self.dtype,
+                                      device=self.device)
+        self.state = state
+        self.t = float(meta.get("extra", {}).get("t", float(state.t)))
+
     def _build_step(self) -> None:
         heat, engine, sc = self.heat, self.engine, self.config.solver
         mg = self._mg
+        amg = self._amg
         grid = self._grid
         # the grid-native operator subsumes HeatOperator for residual/diag
         # and StencilMatrix for the Jacobian action
         hres = grid if grid is not None else heat
         ell = None
-        if sc.linear_operator == "stencil":
+        if sc.linear_operator == "assembled":
+            from fem_glass_tempering_tpu_torch.ops.spmv import EllMatrix
+            ell = EllMatrix(heat)
+        elif sc.linear_operator == "stencil":
             if grid is not None:
                 ell = grid
             else:
@@ -282,6 +338,10 @@ class ThermoViscoProblem:
         elif sc.linear_operator != "matrix_free":
             raise ValueError(f"unknown linear_operator {sc.linear_operator!r}")
         self._ell = ell
+        if hres is heat:
+            # the SIPG residual reads the interior-facet device tables
+            # (a no-op unless the operator was built without them)
+            heat.ensure_interior_tables()
 
         # the residual noise floor is a TPU emulated-f64 device: off here
         noise_rel = sc.newton_noise_rel or 0.0
@@ -299,6 +359,8 @@ class ThermoViscoProblem:
             if mg is not None:
                 precond_fn = lambda T: mg.preconditioner(
                     mg.linearization_states(T), dt)
+            elif amg is not None:
+                precond_fn = lambda T: amg.preconditioner()
             if ell is not None:
                 matvec_fn = lambda T: ell.make_matvec(T, dt)
             if sc.preconditioner == "jacobi":
@@ -416,6 +478,10 @@ class ThermoViscoProblem:
             t_io = _time.time()
             for w in self._writers:
                 w.write(self.t, self.state)
+            ce = self.config.output.checkpoint_every
+            if ce and done % ce == 0:
+                self.save_checkpoint(
+                    f"{self.config.output.output_dir}/checkpoint_{done:06d}.npz")
             self.diagnostics.io_seconds += _time.time() - t_io
             if on_snapshot is not None:
                 on_snapshot(self.t, self.state)

@@ -1,4 +1,4 @@
-"""The nonlinear heat operator: residual + exact Jacobi diagonal (CG).
+"""The nonlinear heat operator: residual + exact Jacobi diagonal.
 
 Counterpart of fem_glass_tempering_tpu/ops/heat.py. Implements the
 reference's weak form (ThermoViscoProblem.py:293-306):
@@ -7,14 +7,20 @@ reference's weak form (ThermoViscoProblem.py:293-306):
        + dt * ( alpha grad(T).grad(v) dx - f v dx
               + s*(sigma_SB*eps)*(T^4 - T_amb^4) v ds
               + s*htc*(T - T_amb) v ds )
+       [+ dt * alpha * SIPG interior-penalty terms when T is DG]
 
-with s = 0.001 the reference's boundary scale. Geometry factors are
-setup-time numpy copied to the device; assembly is gather -> einsum ->
-`index_add_`. The Jacobian action is `torch.func.jvp` of `residual`
-(solver/newton.py); `jacobian_diag` is exact.
+with s = 0.001 the reference's boundary scale. The SIPG terms are
 
-This slice ports the CG path. The SIPG terms of a DG temperature space
-wait for Slice 2 of the port (ROADMAP.md).
+  (penalty/h+) <[[v n]],[[T n]]> - <{grad v},[[T n]]> - <[[v n]],{grad T}>
+
+(ThermoViscoProblem.py:318-325) with penalty = 5.0 and h = the '+' cell's
+measure over the facet's (ops/assembly.py build_interior_geometry).
+Geometry factors are setup-time numpy copied to the device; assembly is
+gather -> cell kernel / einsum -> `index_add`. The cell term (mass, source,
+diffusion) is the hand-written kernel of ops/cuda_dg_cell.py on CUDA
+tensors and its plain version on CPU tensors, for DG and CG spaces alike.
+The Jacobian action is `torch.func.jvp` of `residual` (solver/newton.py);
+`jacobian_diag` is exact.
 """
 
 from __future__ import annotations
@@ -29,7 +35,9 @@ from fem_glass_tempering_tpu_torch.models.thermal import ThermalModel
 from fem_glass_tempering_tpu_torch.ops.assembly import (
     build_boundary_geometry,
     build_cell_geometry,
+    build_interior_geometry,
 )
+from fem_glass_tempering_tpu_torch.ops.cuda_dg_cell import dg_cell_residual
 
 
 class HeatOperator:
@@ -39,11 +47,8 @@ class HeatOperator:
                  bc_dofs: np.ndarray | None = None,
                  bc_value: float | None = None,
                  source: np.ndarray | None = None,
-                 flux_marker=None, form: str = "reference"):
-        if fs.family == "DG":
-            raise NotImplementedError(
-                "the DG-1/SIPG heat operator waits for Slice 2 of the port "
-                "(ROADMAP.md)")
+                 flux_marker=None, form: str = "reference",
+                 interior_device_tables: bool = True):
         self.fs = fs
         self.params = params
         self.dt = float(dt)
@@ -54,6 +59,7 @@ class HeatOperator:
             params).coefficients(form)
         mesh = fs.mesh
         self.n_dofs = fs.n_scalar_dofs
+        self.is_dg = fs.family == "DG"
 
         cg = build_cell_geometry(mesh, fs, quad_degree)
         # boundary default degree 5p: the T^4 radiation integrand
@@ -73,7 +79,7 @@ class HeatOperator:
                                         device=self.device)
 
         # numpy sources retained for setup-time consumers
-        # (StencilMatrix, GridHeatOperator)
+        # (StencilMatrix, EllMatrix, GridHeatOperator)
         self.np_dofmap = fs.dofmap
         self.np_phi = np.asarray(cg.phi)
         self.np_b_dofmap = fs.dofmap[bg.cell]
@@ -104,6 +110,28 @@ class HeatOperator:
         else:
             self.source_q = None
 
+        if self.is_dg:
+            ig = build_interior_geometry(mesh, fs, quad_degree)
+            self.np_i = {
+                "dofmap_p": fs.dofmap[ig.cell_p],
+                "dofmap_m": fs.dofmap[ig.cell_m],
+                "qw": np.asarray(ig.qweights),
+                "phi_p": np.asarray(ig.phi_p),
+                "phi_m": np.asarray(ig.phi_m),
+                "dnphi_p": np.einsum("fqlg,fqg->fql", ig.grad_p, ig.normal_p),
+                "dnphi_m": np.einsum("fqlg,fqg->fql", ig.grad_m, ig.normal_p),
+                "h_p": np.asarray(ig.h_p),
+            }
+            # the device copies are read only by the SIPG residual; an
+            # operator that never evaluates it (a DG block stencil carrying
+            # the whole outer loop) passes interior_device_tables=False and
+            # keeps np_i alone
+            self.i_dofmap_p = self.i_dofmap_m = None
+            self.i_qw = self.i_phi_p = self.i_phi_m = None
+            self.i_dnphi_p = self.i_dnphi_m = self.i_h_p = None
+            if interior_device_tables:
+                self.ensure_interior_tables()
+
         # Dirichlet lifting
         mask = np.zeros(self.n_dofs, dtype=bool)
         vals = np.zeros(self.n_dofs)
@@ -118,6 +146,25 @@ class HeatOperator:
         self._const_diag = self._build_constant_diag()
 
     # ------------------------------------------------------------------
+    def ensure_interior_tables(self) -> None:
+        """Copy the interior-facet tables to the device from the retained
+        numpy sources (idempotent; a no-op for a CG space)."""
+        if not self.is_dg or self.i_qw is not None:
+            return
+        f = lambda a: torch.as_tensor(np.array(a), dtype=self.dtype,
+                                      device=self.device)
+        i64 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64),
+                                        device=self.device)
+        self.i_dofmap_p = i64(self.np_i["dofmap_p"])
+        self.i_dofmap_m = i64(self.np_i["dofmap_m"])
+        self.i_qw = f(self.np_i["qw"])
+        self.i_phi_p = f(self.np_i["phi_p"])
+        self.i_phi_m = f(self.np_i["phi_m"])
+        # normal derivative tables: grad(phi) . n+  -> (f, q, l)
+        self.i_dnphi_p = f(self.np_i["dnphi_p"])
+        self.i_dnphi_m = f(self.np_i["dnphi_m"])
+        self.i_h_p = f(self.np_i["h_p"])                  # (f,)
+
     def _scatter(self, vals_cell: torch.Tensor,
                  dofmap: torch.Tensor) -> torch.Tensor:
         out = torch.zeros(self.n_dofs, dtype=vals_cell.dtype,
@@ -127,24 +174,11 @@ class HeatOperator:
     def _base_residual(self, T, T_prev, dt=None):
         p = self.params
         dt = self.dt if dt is None else dt
-        # ---- cell integrals ----
-        Tc = T[self.dofmap]                                # (c, l)
-        Tpc = T_prev[self.dofmap]
-        Tq = Tc @ self.phi.T                               # (c, q)
-        Tpq = Tpc @ self.phi.T
-        if self.uniform:
-            gTq = torch.einsum("cl,qlg->cqg", Tc, self.gphi)
-        else:
-            gTq = torch.einsum("cl,cqlg->cqg", Tc, self.gphi)
-        f_q = p.f if self.source_q is None else p.f + self.source_q
-        mass_src = self.qw * (self.c_mass * (Tq - Tpq) - dt * f_q)
-        r_cell = torch.einsum("cq,ql->cl", mass_src, self.phi)
-        if self.uniform:
-            r_cell = r_cell + dt * self.c_diff * torch.einsum(
-                "cqg,qlg->cl", self.qw[None, :, None] * gTq, self.gphi)
-        else:
-            r_cell = r_cell + dt * self.c_diff * torch.einsum(
-                "cqg,cqlg->cl", self.qw[..., None] * gTq, self.gphi)
+        # ---- cell integrals (mass + source + diffusion) ----
+        r_cell = dg_cell_residual(
+            T[self.dofmap], T_prev[self.dofmap], self.qw, self.gphi,
+            self.phi, dt=dt, c_mass=self.c_mass, c_diff=self.c_diff,
+            f_src=p.f, source_q=self.source_q)
         r = self._scatter(r_cell, self.dofmap)
 
         # ---- boundary (radiation + convection, Robin-type) ----
@@ -154,7 +188,29 @@ class HeatOperator:
             + p.htc * (Tb - p.T_ambient)
         )
         r_b = torch.einsum("fq,fql->fl", self.b_qw * dt * gflux, self.b_phi)
-        return r + self._scatter(r_b, self.b_dofmap)
+        r = r + self._scatter(r_b, self.b_dofmap)
+
+        # ---- SIPG interior facets (DG only) ----
+        if self.is_dg:
+            ein = torch.einsum
+            T_p, T_m = T[self.i_dofmap_p], T[self.i_dofmap_m]
+            Tp = ein("fql,fl->fq", self.i_phi_p, T_p)
+            Tm = ein("fql,fl->fq", self.i_phi_m, T_m)
+            dTp = ein("fql,fl->fq", self.i_dnphi_p, T_p)
+            dTm = ein("fql,fl->fq", self.i_dnphi_m, T_m)
+            jumpT = Tp - Tm
+            avg_dT = 0.5 * (dTp + dTm)
+            coef = dt * self.c_diff * self.i_qw            # (f, q)
+            pen_h = (p.dg_penalty / self.i_h_p)[:, None]   # (f, 1)
+            r_p = (ein("fq,fql->fl", coef * pen_h * jumpT, self.i_phi_p)
+                   - ein("fq,fql->fl", coef * 0.5 * jumpT, self.i_dnphi_p)
+                   - ein("fq,fql->fl", coef * avg_dT, self.i_phi_p))
+            r_m = (-ein("fq,fql->fl", coef * pen_h * jumpT, self.i_phi_m)
+                   - ein("fq,fql->fl", coef * 0.5 * jumpT, self.i_dnphi_m)
+                   + ein("fq,fql->fl", coef * avg_dT, self.i_phi_m))
+            r = r + self._scatter(r_p, self.i_dofmap_p)
+            r = r + self._scatter(r_m, self.i_dofmap_m)
+        return r
 
     def residual(self, T, T_prev, dt=None):
         """Assembled residual, with Dirichlet lifting if configured."""
@@ -191,6 +247,17 @@ class HeatOperator:
             d_stiff = scat(self.c_diff * np.einsum(
                 "cq,cqlg,cqlg->cl", self.np_qw, self.np_gphi, self.np_gphi),
                 self.np_dofmap)
+        if self.is_dg:
+            coef = self.c_diff * self.np_i["qw"]
+            pen_h = (self.params.dg_penalty / self.np_i["h_p"])[:, None]
+            phi_p, phi_m = self.np_i["phi_p"], self.np_i["phi_m"]
+            dn_p, dn_m = self.np_i["dnphi_p"], self.np_i["dnphi_m"]
+            d_p = np.einsum("fq,fql,fql->fl", coef * pen_h, phi_p, phi_p) \
+                - np.einsum("fq,fql,fql->fl", coef, phi_p, dn_p)
+            d_m = np.einsum("fq,fql,fql->fl", coef * pen_h, phi_m, phi_m) \
+                + np.einsum("fq,fql,fql->fl", coef, phi_m, dn_m)
+            d_stiff += scat(d_p, self.np_i["dofmap_p"])
+            d_stiff += scat(d_m, self.np_i["dofmap_m"])
         f = lambda a: torch.as_tensor(a, dtype=self.dtype, device=self.device)
         return f(d_mass), f(d_stiff)
 

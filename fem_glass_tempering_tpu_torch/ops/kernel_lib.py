@@ -24,7 +24,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("material_tspace.cu", "stencil_matvec.cu")
+SOURCES = ("material_tspace.cu", "stencil_matvec.cu", "dg_cell_residual.cu")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 LIB_NAME = "libfgt_torch_kernels.so"
 # -fmad=false: no multiply-add contraction, so each kernel rounds exactly
@@ -41,6 +41,9 @@ _SIGNATURES = {
                             ctypes.POINTER(_D), _P],
     "fgt_stencil_matvec": [ctypes.c_int, ctypes.c_int, _P, _P, _P, _I64,
                            _I64, _I64, _P],
+    "fgt_dg_cell_residual": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _I64,
+                             ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_int, _D, _D, _D, _D, _P],
 }
 
 

@@ -17,6 +17,9 @@ FORBIDDEN = ("jax", "jaxlib", "fem_glass_tempering_tpu")
 def _port_files():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20 and all(f.exists() for f in files)
+    names = {str(f.relative_to(PORT)) for f in files[:-1]}
+    assert {"ops/cuda_dg_cell.py", "ops/spmv.py", "solver/amg.py",
+            "io/checkpoint.py"} <= names
     return files
 
 
@@ -43,6 +46,23 @@ def test_no_jax_import(path):
         assert top not in FORBIDDEN, f"{path.name} imports {mod}"
 
 
+def test_kernel_library_lists_every_cuda_source():
+    """Every .cu under the port's csrc/ is compiled into the library, and
+    every exported function has its ctypes signature."""
+    from fem_glass_tempering_tpu_torch.ops import kernel_lib
+
+    on_disk = sorted(p.name for p in kernel_lib.CSRC.glob("*.cu"))
+    assert sorted(kernel_lib.SOURCES) == on_disk
+    assert "dg_cell_residual.cu" in on_disk
+    exported = set()
+    for name in on_disk:
+        text = (kernel_lib.CSRC / name).read_text()
+        exported |= {line.split("(")[0].split()[-1]
+                     for line in text.splitlines()
+                     if line.startswith('extern "C"')}
+    assert exported == set(kernel_lib._SIGNATURES)
+
+
 def test_entry_points_default_to_cuda(monkeypatch):
     from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
     from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
@@ -53,6 +73,11 @@ def test_entry_points_default_to_cuda(monkeypatch):
         ThermoViscoProblem(mesh=box_mesh_3d(2, 2, 1))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         state_from_numpy({"T": np.zeros(2)})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ThermoViscoProblem()          # the default workload
+    from fem_glass_tempering_tpu_torch.io.checkpoint import load_checkpoint
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_checkpoint("never-opened.npz")
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):

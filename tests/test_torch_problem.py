@@ -148,11 +148,12 @@ def test_failed_chunk_is_retried_then_raises():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(fe=tc.FEConfig(T_family="DG")), "Slice 2"),
+    (dict(fe=tc.FEConfig(T_family="DG"),
+          solver=tc.SolverConfig(linear_operator="stencil")), "Slice 3"),
     (dict(fe=tc.FEConfig(T_family="CG", T_degree=2)), "Slice 4"),
+    (dict(fe=tc.FEConfig(T_family="DG", T_degree=2)), "Slice 4"),
     (dict(mechanics="equilibrium"), "Slice 5"),
     (dict(solver=tc.SolverConfig(cg_dtype="float32")), "Slice 1 deferrals"),
-    (dict(solver=tc.SolverConfig(linear_operator="assembled")), "Slice 2"),
 ])
 def test_later_slices_raise(change, match):
     cfg = dataclasses.replace(_cfg(tc), **change)
@@ -164,6 +165,13 @@ def test_later_slices_raise(change, match):
     (dict(solver=tc.SolverConfig(mg_table_dtype="bfloat16",
                                  preconditioner="mg")), "Slice 1 deferrals"),
     (dict(output=tc.OutputConfig(formats=("vtu",))), "Slice 6"),
+    # a DG-1 space on a structured box: "mg" (asked for, or what "auto"
+    # resolves to) is the DG multigrid of Slice 3, never another
+    # preconditioner in its place
+    (dict(fe=tc.FEConfig(T_family="DG"),
+          solver=tc.SolverConfig(preconditioner="mg")), "Slice 3"),
+    (dict(fe=tc.FEConfig(T_family="DG"),
+          solver=tc.SolverConfig(preconditioner="auto")), "Slice 3"),
 ])
 def test_later_slices_raise_at_setup(change, match):
     cfg = dataclasses.replace(_cfg(tc), **change)
@@ -172,11 +180,262 @@ def test_later_slices_raise_at_setup(change, match):
         pt.setup()
 
 
-def test_amg_waits_for_slice_2():
-    from fem_glass_tempering_tpu_torch.fem.mesh import reference_glass_mesh_1d
-    cfg = dataclasses.replace(
-        _cfg(tc), fe=tc.FEConfig(T_family="CG"),
-        solver=tc.SolverConfig(preconditioner="auto"))
-    pt = TP(mesh=reference_glass_mesh_1d(), config=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice 2"):
+
+# ----------------------------------------------------------------------
+# The default workload: DG-1 temperature / CG-1 stress on the graded 1D
+# glass slab, f64, Newton and CG rtol 1e-12, matrix-free CG, SA-AMG.
+# ----------------------------------------------------------------------
+
+def _default_cfg(m, steps, **solver):
+    return m.RunConfig(time=m.TimeConfig(0.0, steps * 0.1, 0.1),
+                       solver=m.SolverConfig(**solver),
+                       output=m.OutputConfig(write_every=0, formats=()))
+
+
+def _probe(prob, st):
+    x = prob.fs_T.dof_coords[:, 0]
+    T, Tf = st.T.numpy(), st.Tf.numpy()
+    sig = st.sigma.numpy()[:, 0, 0]
+    return dict(T_surf=T[np.argmin(x)],
+                T_core=T[np.argmin(np.abs(x - 25.0))],
+                Tf_surf=Tf[np.argmin(x)],
+                sig_l2=float(np.linalg.norm(sig)))
+
+
+@pytest.fixture(scope="module")
+def default_run():
+    """ThermoViscoProblem with no argument but the device: 500 steps."""
+    prob = TP(device="cpu")
+    prob.setup()
+    return prob, prob.solve()
+
+
+def test_auto_preconditioner_follows_the_jax_rule():
+    """'auto' is geometric MG only for a structured box with a degree-1
+    (or CG-2) space, SA-AMG elsewhere: the 1D slab is graded, so AMG."""
+    for fam in ("DG", "CG"):
+        pt = TP(config=dataclasses.replace(_default_cfg(tc, 1),
+                                           fe=tc.FEConfig(T_family=fam)),
+                device="cpu")
         pt.setup()
+        assert pt.config.solver.preconditioner == "amg"
+        assert pt._amg is not None and pt._mg is None
+    pj = JP(config=_default_cfg(jc, 1))
+    pj.setup()
+    assert pj.config.solver.preconditioner == "amg"
+
+
+def test_golden_regression_default_config(default_run):
+    """The golden values of tests/test_problem_e2e.py for the full default
+    run, Newton count included."""
+    prob, st = default_run
+    assert prob.fs_T.family == "DG" and prob.fs_T.n_scalar_dofs == 96
+    assert prob.n_steps == 500 and prob.dtype == torch.float64
+    assert prob.config.solver.preconditioner == "amg"
+    assert prob.config.solver.linear_operator == "matrix_free"
+    g = _probe(prob, st)
+    assert g["T_surf"] == pytest.approx(644.5809518419135, rel=1e-8)
+    assert g["T_core"] == pytest.approx(797.5500316300408, rel=1e-8)
+    assert g["Tf_surf"] == pytest.approx(799.8808751898703, rel=1e-8)
+    assert g["sig_l2"] == pytest.approx(0.00013725924857443605, rel=1e-6)
+    assert prob.diagnostics.newton_iters == 1501
+    assert prob.t == pytest.approx(50.0)
+
+
+def test_default_run_agrees_with_the_1d_oracle(default_run):
+    """Mirror of tests/test_differential_oracle.py (default forcing): the
+    independent numpy/scipy implementation of the reference's algorithm,
+    over the same 500 steps."""
+    from fem_glass_tempering_tpu.validation.oracle_1d import run_oracle
+
+    prob, st = default_run
+    o = run_oracle(prob.mesh.nodes[:, 0], 500, 0.1, T_family="DG")
+    rel = lambda a, b: np.linalg.norm(a - b) / np.linalg.norm(b)  # noqa: E731
+    assert rel(st.T.numpy(), o["T"]) < 1e-11
+    assert rel(st.Tf.numpy(), o["Tf"]) < 1e-12
+    assert rel(st.sigma.numpy()[:, 0, 0], o["sigma"]) < 1e-9
+    assert prob.diagnostics.krylov_iters < 0.7 * 12_008
+
+
+@pytest.mark.slow
+def test_golden_corrected_mode():
+    """Corrected physics mode, full default run (a second 500-step solve:
+    in the slow tier for its CPU time)."""
+    prob = TP(physics_mode="corrected", device="cpu")
+    prob.setup()
+    st = prob.solve()
+    g = _probe(prob, st)
+    assert g["T_surf"] == pytest.approx(644.5809518419135, rel=1e-8)
+    assert g["sig_l2"] == pytest.approx(0.23035427599341113, rel=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["reference", "corrected"])
+def test_default_config_matches_jax_over_20_steps(mode):
+    """Port vs JAX on the default configuration: equal Newton and CG
+    counts, T and Tf at max-rel 1e-12, sigma at 1e-9 of max|sigma| (the
+    thermal-strain chain amplifies T differences about 1e3x)."""
+    pj = JP(config=_default_cfg(jc, 20), physics_mode=mode)
+    pj.setup()
+    sj = pj.solve()
+    pt = TP(config=_default_cfg(tc, 20), physics_mode=mode, device="cpu")
+    pt.setup()
+    st = pt.solve()
+    assert pt.diagnostics.newton_iters == pj.diagnostics.newton_iters
+    assert pt.diagnostics.krylov_iters == pj.diagnostics.krylov_iters
+    for f in ("T", "Tf"):
+        a, b = np.asarray(getattr(sj, f)), getattr(st, f).numpy()
+        assert np.abs(a - b).max() / np.abs(a).max() < 1e-12, f
+    a, b = np.asarray(sj.sigma), st.sigma.numpy()
+    assert np.abs(a - b).max() <= 1e-9 * np.abs(a).max()
+
+
+@pytest.mark.parametrize("dims,fam", [((3, 3, 2), "DG"), ((4, 3), "DG")])
+def test_dg_box_with_amg_matches_jax(dims, fam):
+    """A DG-1 space on a structured box, SA-AMG and matrix-free CG stated
+    explicitly (what 'auto' resolves to there waits for Slice 3)."""
+    def cfg(m):
+        return dataclasses.replace(
+            _default_cfg(m, 3, preconditioner="amg"),
+            fe=m.FEConfig(T_family=fam))
+    pj = JP(mesh=_mesh(jmesh, dims), config=cfg(jc))
+    pj.setup()
+    sj = pj.solve()
+    pt = TP(mesh=_mesh(tmesh, dims), config=cfg(tc), device="cpu")
+    pt.setup()
+    st = pt.solve()
+    _assert_states_agree(sj, st)
+    assert pt.diagnostics.newton_iters == pj.diagnostics.newton_iters
+    assert abs(pt.diagnostics.krylov_iters
+               - pj.diagnostics.krylov_iters) <= 2
+
+
+def test_assembled_solve_matches_matrix_free():
+    """Mirror of tests/test_spmv.py: linear_operator='assembled' (ELL
+    SpMV) reproduces the matrix-free solution on the default mesh."""
+    sols = {}
+    for lo in ("matrix_free", "assembled"):
+        prob = TP(config=_default_cfg(tc, 10, linear_operator=lo),
+                  device="cpu")
+        prob.setup()
+        sols[lo] = prob.solve().T.numpy()
+    np.testing.assert_allclose(sols["assembled"], sols["matrix_free"],
+                               rtol=1e-11)
+
+
+def _run_to(prob, steps):
+    prob.setup()
+    prob.state, ok, _, _ = prob.multi_step(prob.state, steps)
+    assert ok
+    prob.t = steps * prob.dt
+
+
+def test_checkpoint_round_trip(tmp_path):
+    """Save at step 5, resume in a fresh problem, run to step 10: the same
+    final state as the uninterrupted run, bit for bit."""
+    whole = TP(config=_default_cfg(tc, 10), device="cpu")
+    whole.setup()
+    want = whole.solve()
+    first = TP(config=_default_cfg(tc, 10), device="cpu")
+    _run_to(first, 5)
+    path = str(tmp_path / "ckpt" / "step5.npz")
+    first.save_checkpoint(path)
+    second = TP(config=_default_cfg(tc, 10), device="cpu")
+    second.setup()
+    second.resume_from(path)
+    assert second.t == pytest.approx(0.5)
+    got, ok, _, _ = second.multi_step(second.state, 5)
+    assert ok
+    for f, v in want._asdict().items():
+        if v is not None:
+            assert torch.equal(getattr(got, f), v), f
+
+
+def test_checkpoint_every_writes_files(tmp_path):
+    cfg = dataclasses.replace(
+        _default_cfg(tc, 4),
+        output=tc.OutputConfig(output_dir=str(tmp_path), write_every=2,
+                               formats=(), checkpoint_every=2))
+    prob = TP(config=cfg, device="cpu")
+    prob.setup()
+    prob.solve()
+    names = sorted(p.name for p in tmp_path.glob("checkpoint_*.npz"))
+    assert names == ["checkpoint_000002.npz", "checkpoint_000004.npz"]
+    from fem_glass_tempering_tpu_torch.io.checkpoint import load_checkpoint
+    st, meta = load_checkpoint(str(tmp_path / names[-1]), device="cpu")
+    assert meta["extra"]["t"] == pytest.approx(0.4)
+    assert meta["config"]["fe"]["T_family"] == "DG"
+    assert torch.equal(st.T, prob.state.T)
+
+
+def test_jax_checkpoint_resumes_in_the_port(tmp_path):
+    """The two packages write one format: a checkpoint written by the JAX
+    package after 5 steps resumes in the port, whose 6th step agrees with
+    JAX's; and the port's checkpoint loads in the JAX package."""
+    from fem_glass_tempering_tpu.io.checkpoint import (
+        load_checkpoint as jload,
+    )
+
+    pj = JP(config=_default_cfg(jc, 6))
+    pj.setup()
+    pj.state, ok, _, _ = pj._multi_step_jit(pj.state, 5)
+    assert bool(ok)
+    pj.t = 0.5
+    path = str(tmp_path / "jax5.npz")
+    pj.save_checkpoint(path)
+    T5 = np.asarray(pj.state.T)          # the jitted step donates its input
+    s6j, okj, nij, kij = pj._step_jit(pj.state)
+    pt = TP(config=_default_cfg(tc, 6), device="cpu")
+    pt.setup()
+    pt.resume_from(path)
+    assert pt.t == pytest.approx(0.5)
+    np.testing.assert_array_equal(pt.state.T.numpy(), T5)
+    s6t, okt, nit, kit = pt.step(pt.state)
+    assert bool(okj) and okt and nit == int(nij) and kit == int(kij)
+    for f in ("T", "Tf"):
+        a, b = np.asarray(getattr(s6j, f)), getattr(s6t, f).numpy()
+        assert np.abs(a - b).max() / np.abs(a).max() < 1e-12, f
+    back = str(tmp_path / "torch5.npz")
+    pt.save_checkpoint(back)
+    sj, meta = jload(back)
+    np.testing.assert_array_equal(np.asarray(sj.Tf_partial),
+                                  pt.state.Tf_partial.numpy())
+    assert meta["extra"]["t"] == pytest.approx(0.5)
+
+
+def _one_big_step(dt, max_it, on_failure):
+    return tc.RunConfig(
+        time=tc.TimeConfig(0.0, dt, dt),
+        solver=tc.SolverConfig(newton_max_it=max_it, on_failure=on_failure),
+        output=tc.OutputConfig(write_every=0, formats=()))
+
+
+def test_dg_raise_on_failure():
+    """Mirror of tests/test_failure_recovery.py on the DG default mesh."""
+    prob = TP(config=_one_big_step(40.0, 4, "raise"), device="cpu")
+    prob.setup()
+    with pytest.raises(RuntimeError, match="failed to converge"):
+        prob.solve()
+
+
+def test_dg_halve_dt_recovers():
+    prob = TP(config=_one_big_step(40.0, 4, "halve_dt"), device="cpu")
+    prob.setup()
+    st = prob.solve()
+    assert prob.diagnostics.dt_halvings >= 1
+    assert float(st.t) == pytest.approx(40.0, rel=1e-12)
+    pj = JP(config=jc.RunConfig(
+        time=jc.TimeConfig(0.0, 40.0, 40.0),
+        solver=jc.SolverConfig(newton_max_it=4, on_failure="halve_dt"),
+        output=jc.OutputConfig(write_every=0, formats=())))
+    pj.setup()
+    sj = pj.solve()
+    assert prob.diagnostics.dt_halvings == pj.diagnostics.dt_halvings
+    a, b = np.asarray(sj.T), st.T.numpy()
+    assert np.abs(a - b).max() / np.abs(a).max() < 1e-11
+
+
+def test_dg_halve_dt_exhausts():
+    prob = TP(config=_one_big_step(40.0, 1, "halve_dt"), device="cpu")
+    prob.setup()
+    with pytest.raises(RuntimeError, match="dt halvings"):
+        prob.solve()

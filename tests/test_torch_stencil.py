@@ -142,8 +142,9 @@ def test_grid_operator_deferred_forms_raise():
     with pytest.raises(NotImplementedError, match="bf16"):
         g.make_matvec(torch.full((g.n,), 800.0, dtype=torch.float64), 0.1,
                       stream_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="Slice 2"):
-        THeat(TFS(tm, "DG", 1), ModelParams(), 0.1, device="cpu")
+    # a DG space builds (ops/heat.py), but is no grid-native operator
+    with pytest.raises(ValueError, match="CG-1"):
+        TGrid(THeat(TFS(tm, "DG", 1), ModelParams(), 0.1, device="cpu"))
 
 
 def test_heat_operator_matches_jax():
