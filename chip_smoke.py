@@ -16,7 +16,11 @@ Phases (each raises on failure; the exit code is then nonzero):
      value tables of the full-size plate in f32); K3 (dg_cell_residual)
      on the 1D reference slab's tables and on the 65,536-cell hex DG-1
      plate with per-cell and with uniform tables, f64 and f32, with and
-     without a per-point source, forward and through torch.func.jvp;
+     without a per-point source, forward and through torch.func.jvp,
+     through both of its kernels (uniform tables by value in a prepared
+     call, tables in device memory in a direct call), on cell counts that
+     fill no whole block or warp, and on shapes with more quadrature
+     points than local dofs; the host's share of a call, piece by piece;
   3. parity of the whole path: a 16x16x8 f64 plate, 10 steps, stencil
      operator + geometric MG, Newton rtol 1e-10 -- the port on the GPU
      (kernels) against the port on the CPU (plain versions);
@@ -44,12 +48,19 @@ name and power limit, and last {"ok": true, "device": {...}}.
 A kernel's `ms` and `plain_ms` are CUDA-event means over back-to-back
 calls of the wrapper (the host's cost of issuing a call shows where it
 exceeds the device's); `device_ms` is the same call captured `reps` times
-into a CUDA graph and replayed, which leaves the device time alone.
+into a CUDA graph and replayed, which leaves the device time alone;
+`device_cold_ms` is one launch between event pairs after a write over a
+buffer larger than the L2, as the main path finds the kernel's inputs.
+`bound_ms` counts operations against the data sheet's rates, which assume
+fused multiply-adds; `bound_unfused_ms` counts them at half those rates,
+the floor of a source built with -fmad=false (K1 and K2 are; K3 is built
+with contraction, ops/kernel_lib.py SOURCE_FLAGS, so `bound_ms` is its).
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -74,8 +85,13 @@ GOLDEN = dict(T_surf=(644.5809518419135, 1e-8),
               sigma_l2=(1.3725924857443605e-4, 1e-6))
 GOLDEN_NEWTON = 1501
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-PEAK_OPS = {torch.float32: 67e12,   # non-tensor-core FP32, data sheet
-            torch.float64: 34e12}   # non-tensor-core FP64, data sheet
+# Data-sheet rates outside the tensor cores. They count a fused
+# multiply-add as two operations: a kernel built with -fmad=false executes
+# one instruction per operation and can reach half of them at most
+# (bound_ms(..., fused=False)).
+PEAK_OPS = {torch.float32: 67e12,
+            torch.float64: 34e12}
+L2_FLUSH_BYTES = 512 << 20       # ten times the 50 MB L2
 # plain arithmetic per element, exp counted as one operation
 K1_OPS_PER_DOF = 51
 K2_OPS_PER_POINT = 54            # 27 multiplies + 27 adds
@@ -105,6 +121,16 @@ def read_counts(port) -> dict:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def drop_garbage(before: str) -> None:
+    """Collect what earlier phases left in reference cycles (a problem
+    object holds gigabytes of device tables until the collector runs), so
+    that a phase's peak memory is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"device memory allocated before {before}: "
+        f"{torch.cuda.memory_allocated()} bytes")
 
 
 def fail(msg: str) -> None:
@@ -156,15 +182,57 @@ def device_ms(fn, reps: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (reps * replays)
 
 
-def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
+def device_cold_ms(fn, reps: int = 10) -> float:
+    """Median device time of one fn() whose inputs the L2 does not hold:
+    before each call a buffer of L2_FLUSH_BYTES is overwritten. The write
+    keeps the device busy while the host enqueues the call, so the events
+    bracket the kernel, not the wrapper."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def host_us(fn, reps: int = 2000) -> float:
+    """Mean host time of fn() in microseconds (the device queue drained
+    before and after; fn must not outrun the device by the queue's depth)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+def bound_ms(n_bytes: float, n_ops: float, dtype,
+             fused: bool = True) -> tuple[float, str]:
+    """The least time for the work: bytes over the memory rate or
+    operations over the peak rate, whichever is larger. `fused=False`
+    takes half the peak rate (no multiply-add contraction)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS[dtype] * 1e3
+    t_ops = n_ops / (PEAK_OPS[dtype] * (1.0 if fused else 0.5)) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # ----------------------------------------------------------------------
 def check_material_tspace(dev, port) -> dict:
-    """K1 against its plain version at the main path's n, f32 and f64."""
+    """K1 against its plain version at the main path's n, f32 and f64;
+    then where its tiles end raggedly (n below one tile, n = 7) and on a
+    Tf_partial that is a view one element into a larger tensor, which
+    takes the kernel's element-wise tile copy."""
     from fem_glass_tempering_tpu_torch.models.viscoelastic import (
         LAMBDA_M_N,
         M_N,
@@ -175,14 +243,8 @@ def check_material_tspace(dev, port) -> dict:
     rng = np.random.default_rng(0)
     kw = dict(dt=0.1, H_over_Rg=627.8e3 / 8.314, Tb=869.0, m_n=M_N,
               lambda_m_n=LAMBDA_M_N)
-    out = {}
-    for dtype, rtol in ((torch.float32, 2e-6), (torch.float64, 1e-12)):
-        T = torch.tensor(600.0 + 250.0 * rng.random(n), dtype=dtype,
-                         device=dev)
-        Tp = T + torch.tensor(rng.normal(0.0, 2.0, n), dtype=dtype,
-                              device=dev)
-        Tfp = torch.tensor(600.0 + 250.0 * rng.random((n, 6)), dtype=dtype,
-                           device=dev)
+
+    def agree(T, Tp, Tfp, rtol, tag) -> float:
         got = k(T, Tp, Tfp, **kw)
         want = ref(T, Tp, Tfp, **kw)
         torch.cuda.synchronize()
@@ -191,20 +253,44 @@ def check_material_tspace(dev, port) -> dict:
             # xi is a difference of two exps: scale its floor by the exps
             scale = (got[0].abs().max() if name == "xi" else w.abs().max())
             bad = (g - w).abs() > rtol * w.abs() + rtol * scale
-            if bool(bad.any()) or not bool(torch.isfinite(g).all()):
-                fail(f"material_tspace {dtype} {name}: max |diff| "
+            if (g.shape != w.shape or bool(bad.any())
+                    or not bool(torch.isfinite(g).all())):
+                fail(f"material_tspace {tag} {name}: max |diff| "
                      f"{float((g - w).abs().max()):.3e}")
             err = max(err, float((g - w).abs().max()))
+        return err
+
+    out = {}
+    for dtype, rtol in ((torch.float32, 2e-6), (torch.float64, 1e-12)):
+        name = str(dtype).split(".")[-1]
+        T = torch.tensor(600.0 + 250.0 * rng.random(n), dtype=dtype,
+                         device=dev)
+        Tp = T + torch.tensor(rng.normal(0.0, 2.0, n), dtype=dtype,
+                              device=dev)
+        big = torch.tensor(600.0 + 250.0 * rng.random(6 * n + 1),
+                           dtype=dtype, device=dev)
+        view = big[1:].view(n, 6)    # contiguous, one element off 16 bytes
+        Tfp = view.clone()
+        err = agree(T, Tp, Tfp, rtol, f"{name} n={n}")
+        ragged = {m: agree(T[:m].clone(), Tp[:m].clone(), Tfp[:m].clone(),
+                           rtol, f"{name} n={m}") for m in (1000, 7)}
+        if view.data_ptr() % 16 == 0 or not view.is_contiguous():
+            fail("the unaligned K1 case is aligned")
+        err_view = agree(T, Tp, view, rtol, f"{name} unaligned view")
         size = torch.finfo(dtype).bits // 8
         b, by = bound_ms(17 * n * size, K1_OPS_PER_DOF * n, dtype)
-        entry = dict(dtype=str(dtype).split(".")[-1], n=n, max_abs_err=err,
-                     rtol=rtol,
+        entry = dict(dtype=name, n=n, max_abs_err=err, rtol=rtol,
+                     max_abs_err_ragged=ragged,
+                     max_abs_err_unaligned_view=err_view,
                      ms=time_ms(lambda: k(T, Tp, Tfp, **kw)),
                      device_ms=device_ms(lambda: k(T, Tp, Tfp, **kw)),
+                     device_unaligned_view_ms=device_ms(
+                         lambda: k(T, Tp, view, **kw)),
                      plain_ms=time_ms(lambda: ref(T, Tp, Tfp, **kw)),
                      bound_ms=b, bound_by=by)
         log("K1 check " + json.dumps(entry))
-        out[entry["dtype"]] = entry
+        out[name] = entry
+        del big, view, Tfp
     return out
 
 
@@ -257,12 +343,14 @@ def dg_tables(mesh, dtype, dev, uniform):
 
 
 def check_dg_cell_case(shape, qw, gphi, phi, rtol, port, *, c_mass,
-                       with_src, seed=0) -> float:
+                       with_src, seed=0, prepared=False) -> float:
     """K3 against its plain version on one set of tables: forward, the
     tangent through torch.func.jvp, and J dT = r(T + dT) - r(T). The bound
     per entry is rtol times the sum of the absolute values of every term
-    (the mass and diffusion parts cancel on smooth data)."""
-    k, ref = port["dg_cell_residual"], port["dg_cell_residual_reference"]
+    (the mass and diffusion parts cancel on smooth data). `prepared`: the
+    call the heat operator makes (tables checked once; uniform tables that
+    fit travel by value), else the direct call (tables in device memory)."""
+    ref = port["dg_cell_residual_reference"]
     dev, dtype = qw.device, qw.dtype
     rng = np.random.default_rng(seed)
     t = lambda a: torch.tensor(a, dtype=dtype, device=dev)
@@ -272,12 +360,18 @@ def check_dg_cell_case(shape, qw, gphi, phi, rtol, port, *, c_mass,
     src = t(rng.standard_normal((shape[0], phi.shape[0]))) if with_src \
         else None
     kw = dict(dt=0.1, c_diff=0.83, f_src=0.37, c_mass=c_mass)
-    got = k(Tc, Tpc, qw, gphi, phi, source_q=src, **kw)
+    if prepared:
+        call = port["PreparedDGCellResidual"](qw, gphi, phi, src)
+        k = lambda u, v: call(u, v, **kw)
+    else:
+        k = lambda u, v: port["dg_cell_residual"](
+            u, v, qw, gphi, phi, source_q=src, **kw)
+    got = k(Tc, Tpc)
     want = ref(Tc, Tpc, qw, gphi, phi, source_q=src, **kw)
     mag = ref(Tc.abs(), -Tpc.abs(), qw, gphi.abs(), phi.abs(),
               source_q=None if src is None else -src.abs(),
               **dict(kw, f_src=-abs(kw["f_src"])))
-    fn = lambda u: k(u, Tpc, qw, gphi, phi, source_q=src, **kw)
+    fn = lambda u: k(u, Tpc)
     y, dy = torch.func.jvp(fn, (Tc,), (dTc,))
     zero = torch.zeros_like(Tc)
     dwant = ref(dTc, zero, qw, gphi, phi, **dict(kw, f_src=0.0))
@@ -285,12 +379,13 @@ def check_dg_cell_case(shape, qw, gphi, phi, rtol, port, *, c_mass,
                **dict(kw, f_src=0.0))
     y2 = fn(Tc + dTc)
     torch.cuda.synchronize()
-    tag = (f"dg_cell_residual {tuple(shape)} {dtype} "
-           f"{'uniform' if qw.dim() == 1 else 'per-cell'} tables, c_mass "
-           f"{c_mass}, source {with_src}")
+    tag = (f"dg_cell_residual {tuple(shape)} q={phi.shape[0]} {dtype} "
+           f"{'uniform' if qw.dim() == 1 else 'per-cell'} tables, "
+           f"{'prepared' if prepared else 'direct'} call, c_mass {c_mass}, "
+           f"source {with_src}")
     for name, g, w, m in (("forward", got, want, mag), ("jvp primal", y,
                           want, mag), ("jvp tangent", dy, dwant, dmag)):
-        if not bool(torch.isfinite(g).all()) or bool(
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()) or bool(
                 ((g - w).abs() > rtol * m).any()):
             fail(f"{tag}: {name} max |diff| "
                  f"{float((g - w).abs().max()):.3e}")
@@ -303,14 +398,153 @@ def check_dg_cell_case(shape, qw, gphi, phi, rtol, port, *, c_mass,
                float((dy - dwant).abs().max()))
 
 
+K3_CASES = ((1.0, False), (3.5825e6, True), (1.0, True))   # c_mass, source
+
+
+def check_dg_cell_shapes(dev, port, dtype, rtol) -> dict:
+    """K3 where its kernels treat the cells differently: cell counts that
+    fill no whole block or warp, more quadrature points than local dofs
+    (triangles: nloc 3, q 9, a block-wide barrier; a shape without an
+    unrolled instantiation), and uniform hex tables on either side of the
+    size up to which they travel by value."""
+    from fem_glass_tempering_tpu_torch.fem.mesh import (
+        box_mesh_2d,
+        box_mesh_3d,
+    )
+    from fem_glass_tempering_tpu_torch.ops.cuda_dg_cell import (
+        PARAM_TABLE_BYTES,
+        table_path,
+    )
+    rng = np.random.default_rng(5)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=dev)
+    size = torch.finfo(dtype).bits // 8
+    errs = {}
+
+    def run(label, shape, qw, gphi, phi, prepared, want_path=None):
+        if want_path is not None:
+            got_path = port["PreparedDGCellResidual"](qw, gphi, phi).path
+            if got_path != want_path:
+                fail(f"K3 {label}: path {got_path}, expected {want_path}")
+        errs[label] = max(
+            check_dg_cell_case(shape, qw, gphi, phi, rtol, port, c_mass=cm,
+                               with_src=ws, seed=i, prepared=prepared)
+            for i, (cm, ws) in enumerate(K3_CASES))
+
+    # hex DG-1 tables of a uniform box: by value and through shared memory
+    _, qw, gphi, phi = dg_tables(box_mesh_3d(4, 4, 2, 1.0, 1.0, 0.01),
+                                 dtype, dev, True)
+    for cells in (65537, 5):
+        run(f"hex uniform by value, {cells} cells", (cells, 8), qw, gphi,
+            phi, True, "param")
+        run(f"hex uniform shared, {cells} cells", (cells, 8), qw, gphi, phi,
+            False)
+        lead = (cells,)
+        run(f"hex per-cell, {cells} cells", (cells, 8),
+            qw.expand(lead + qw.shape).contiguous()
+            * t(0.5 + rng.random(lead + qw.shape)),
+            gphi.expand(lead + gphi.shape).contiguous()
+            * t(0.5 + rng.random(lead + gphi.shape)), phi, True, "shared")
+    # the boundary of the parameter path: the largest q that fits, and one
+    # more (the runtime-q row kernel; then the split kernel)
+    rec = (8 * 4 + 1) * size
+    q_fit = PARAM_TABLE_BYTES // rec
+    for q, path in ((q_fit, "param"), (q_fit + 1, "shared")):
+        if table_path(8, q, 3, size, True) != path:
+            fail(f"table_path(8, {q}, 3, {size}) is not {path}")
+        run(f"hex uniform q={q} ({path})", (1001, 8), t(0.1 + rng.random(q)),
+            t(rng.standard_normal((q, 8, 3))), t(rng.random((q, 8))), True,
+            path)
+    # triangles: q = 9 > nloc = 3
+    shape, qw, gphi, phi = dg_tables(
+        box_mesh_2d(9, 7, cell_type="triangle"), dtype, dev, False)
+    run(f"triangles {shape} q={phi.shape[0]}", shape, qw, gphi, phi, True,
+        "shared")
+    # no unrolled instantiation: nloc 10, q 11, g 3
+    for uniform in (True, False):
+        lead = () if uniform else (50,)
+        run(f"runtime shape (50, 10) q=11 "
+            f"{'uniform' if uniform else 'per-cell'}", (50, 10),
+            t(0.1 + rng.random(lead + (11,))),
+            t(rng.standard_normal(lead + (11, 10, 3))),
+            t(rng.random((11, 10))), True, "shared")
+    return errs
+
+
+def k3_host_breakdown(dev, port) -> dict:
+    """Where the host's time of one K3 call goes, in microseconds, on a
+    64-cell hex problem with uniform tables (the host's cost does not
+    depend on the cell count, and the device keeps up)."""
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+    from fem_glass_tempering_tpu_torch.ops import kernel_lib
+
+    shape, qw, gphi, phi = dg_tables(box_mesh_3d(4, 4, 4, 1.0, 1.0, 0.01),
+                                     torch.float64, dev, True)
+    Tc = torch.full(shape, 700.0, dtype=torch.float64, device=dev)
+    Tpc = Tc + 1.0
+    kw = dict(dt=0.1, c_diff=1.0, f_src=0.0)
+    call = port["PreparedDGCellResidual"](qw, gphi, phi)
+    lib = kernel_lib.library().cdll
+    out = torch.empty_like(Tc)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (1, Tc.data_ptr(), Tpc.data_ptr(), call._packed_ptr, None,
+            out.data_ptr(), shape[0], 8, 8, 3, 0.1, 1.0, 1.0, 0.0, stream)
+
+    class Empty(torch.autograd.Function):
+        """The call's arguments through autograd.Function.apply with no
+        work in forward: what the route that the call no longer takes
+        costs before it launches anything."""
+
+        @staticmethod
+        def forward(Tc, Tpc, call, dt, c_mass, c_diff, f_src, with_src):
+            return out
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            ctx.set_materialize_grads(False)
+
+    res = dict(
+        apply_empty_forward=host_us(
+            lambda: Empty.apply(Tc, Tpc, call, 0.1, 1.0, 1.0, 0.0, True)),
+        empty_like=host_us(lambda: torch.empty_like(Tc)),
+        current_stream=host_us(
+            lambda: kernel_lib.current_stream(dev.index)),
+        ctypes_launch=host_us(
+            lambda: lib.fgt_dg_cell_residual_param(*args)),
+        # the launch as forward mode reaches it: through the dispatcher
+        dispatcher_op=host_us(lambda: torch.ops.fgt_torch.dg_cell_launch(
+            Tc, Tpc, None, None, None, None, call._id, 0.1, 1.0, 1.0, 0.0,
+            True)),
+        prepared_run=host_us(
+            lambda: call.run(Tc, Tpc, 0.1, 1.0, 1.0, 0.0, True)),
+        prepared_call=host_us(lambda: call(Tc, Tpc, **kw)),
+        direct_call=host_us(
+            lambda: port["dg_cell_residual"](Tc, Tpc, qw, gphi, phi, **kw)),
+        # under torch.func.jvp, as the matrix-free matvec calls it: two
+        # launches through the dispatcher op; beside it the transform's
+        # own cost around one elementwise operation
+        jvp_prepared_call=host_us(lambda: torch.func.jvp(
+            lambda u: call(u, Tpc, **kw), (Tc,), (Tpc,)), reps=500),
+        jvp_of_one_add=host_us(lambda: torch.func.jvp(
+            lambda u: u + Tpc, (Tc,), (Tpc,)), reps=500),
+    )
+    # what run() spends on checking Tc and Tpc and on Python itself
+    res["checks_and_python"] = res["prepared_run"] - res["empty_like"] \
+        - res["current_stream"] - res["ctypes_launch"]
+    log("K3 host time per call, us " + json.dumps(res))
+    return res
+
+
 def check_dg_cell(dev, port) -> dict:
     """K3 at the 1D reference slab's tables (48 cells, nloc 2) and at the
     hex DG-1 plate's (65,536 cells, nloc 8) with per-cell and with uniform
-    tables; timed at the plate's shape in f64, the main path's type."""
+    tables, in the call the heat operator makes and in the direct call;
+    the shapes of check_dg_cell_shapes; timed at the plate's shape in f64,
+    the main path's type."""
     from fem_glass_tempering_tpu_torch.fem.mesh import (
         box_mesh_3d,
         reference_glass_mesh_1d,
     )
+    from fem_glass_tempering_tpu_torch.ops import kernel_lib
     k, ref = port["dg_cell_residual"], port["dg_cell_residual_reference"]
     slab = reference_glass_mesh_1d()
     plate = box_mesh_3d(*N_DG, 1.0, 1.0, 0.01)
@@ -321,11 +555,12 @@ def check_dg_cell(dev, port) -> dict:
                                      ("plate per-cell", plate, False),
                                      ("plate uniform", plate, True)):
             shape, qw, gphi, phi = dg_tables(mesh, dtype, dev, uniform)
-            errs[label] = max(
-                check_dg_cell_case(shape, qw, gphi, phi, rtol, port,
-                                   c_mass=cm, with_src=ws, seed=i)
-                for i, (cm, ws) in enumerate(((1.0, False), (3.5825e6, True),
-                                              (1.0, True))))
+            for prepared in (True, False):
+                errs[f"{label}, {'prepared' if prepared else 'direct'}"] = \
+                    max(check_dg_cell_case(
+                        shape, qw, gphi, phi, rtol, port, c_mass=cm,
+                        with_src=ws, seed=i, prepared=prepared)
+                        for i, (cm, ws) in enumerate(K3_CASES))
             if dtype == torch.float64 and mesh is plate:
                 c, nloc = shape
                 q, g = phi.shape[0], gphi.shape[-1]
@@ -334,24 +569,49 @@ def check_dg_cell(dev, port) -> dict:
                                   dtype=dtype, device=dev)
                 Tpc = Tc + 1.0
                 kw = dict(dt=0.1, c_diff=1.0, f_src=0.0)
-                b, by = bound_ms(
-                    8 * c * k3_values_per_cell(nloc, q, g, uniform, False),
-                    c * k3_ops_per_cell(nloc, q, g), dtype)
-                out["uniform" if uniform else "per_cell"] = dict(
-                    cells=c, nloc=nloc, q=q, g=g, max_abs_err=errs[label],
-                    ms=time_ms(lambda: k(Tc, Tpc, qw, gphi, phi, **kw)),
-                    device_ms=device_ms(
+                call = port["PreparedDGCellResidual"](qw, gphi, phi)
+                if call.path != ("param" if uniform else "shared"):
+                    fail(f"K3 {label}: prepared call takes {call.path}")
+                # the work is split across threads, never a sum: both
+                # kernels give the same bits
+                a, b_ = call(Tc, Tpc, **kw), k(Tc, Tpc, qw, gphi, phi, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(a, b_):
+                    fail(f"K3 {label}: the prepared and the direct call "
+                         f"differ by {float((a - b_).abs().max()):.3e}")
+                n_bytes = 8 * c * k3_values_per_cell(nloc, q, g, uniform,
+                                                     False)
+                n_ops = c * k3_ops_per_cell(nloc, q, g)
+                b, by = bound_ms(n_bytes, n_ops, dtype)
+                bu, byu = bound_ms(n_bytes, n_ops, dtype, fused=False)
+                key = "uniform" if uniform else "per_cell"
+                out[key] = dict(
+                    cells=c, nloc=nloc, q=q, g=g, path=call.path,
+                    max_abs_err=max(errs[f"{label}, prepared"],
+                                    errs[f"{label}, direct"]),
+                    ms=time_ms(lambda: call(Tc, Tpc, **kw)),
+                    direct_call_ms=time_ms(
+                        lambda: k(Tc, Tpc, qw, gphi, phi, **kw)),
+                    device_ms=device_ms(lambda: call(Tc, Tpc, **kw)),
+                    device_cold_ms=device_cold_ms(
+                        lambda: call(Tc, Tpc, **kw)),
+                    direct_call_device_ms=device_ms(
                         lambda: k(Tc, Tpc, qw, gphi, phi, **kw)),
                     plain_ms=time_ms(
                         lambda: ref(Tc, Tpc, qw, gphi, phi, **kw), reps=10),
                     plain_device_ms=device_ms(
                         lambda: ref(Tc, Tpc, qw, gphi, phi, **kw)),
-                    bound_ms=b, bound_by=by)
+                    bound_ms=b, bound_by=by, bound_unfused_ms=bu,
+                    bound_unfused_by=byu,
+                    contracted="-fmad=false" not in kernel_lib.SOURCE_FLAGS[
+                        "dg_cell_residual.cu"])
             del qw, gphi
+        errs.update(check_dg_cell_shapes(dev, port, dtype, rtol))
         log(f"K3 check {str(dtype).split('.')[-1]} rtol {rtol} max |diff| "
             + json.dumps(errs))
     for form, entry in out.items():
         log(f"K3 {form} tables f64 " + json.dumps(entry))
+    out["host_us"] = k3_host_breakdown(dev, port)
     return out
 
 
@@ -726,22 +986,24 @@ def dg_plate_phase(dev, port) -> dict:
                T_min=float(T_np.min()), T_max=float(T_np.max()))
     log("DG plate " + json.dumps(out))
 
-    # K3 at the very tensors the residual hands it
+    # K3 at the very tensors the residual hands it, in the operator's
+    # prepared call and in the direct one
     heat = prob.heat
     Tc, Tpc = st.T[heat.dofmap], st.T_prev[heat.dofmap]
     kw = dict(dt=prob.dt, c_mass=heat.c_mass, c_diff=heat.c_diff,
               f_src=prob.params.f)
     k, ref = port["dg_cell_residual"], port["dg_cell_residual_reference"]
-    got = k(Tc, Tpc, heat.qw, heat.gphi, heat.phi, **kw)
+    got = heat._cell_term(Tc, Tpc, **kw)
+    got_direct = k(Tc, Tpc, heat.qw, heat.gphi, heat.phi, **kw)
     want = ref(Tc, Tpc, heat.qw, heat.gphi, heat.phi, **kw)
     mag = ref(Tc.abs(), -Tpc.abs(), heat.qw, heat.gphi.abs(),
               heat.phi.abs(), **dict(kw, f_src=-abs(kw["f_src"])))
     torch.cuda.synchronize()
-    if bool(((got - want).abs() > 1e-12 * mag).any()):
+    if heat._cell_term.path != "param" or not torch.equal(got, got_direct) \
+            or bool(((got - want).abs() > 1e-12 * mag).any()):
         fail("dg_cell_residual disagrees with its plain version on the "
              "plate's state")
-    out["k3_ms_in_path"] = time_ms(
-        lambda: k(Tc, Tpc, heat.qw, heat.gphi, heat.phi, **kw))
+    out["k3_ms_in_path"] = time_ms(lambda: heat._cell_term(Tc, Tpc, **kw))
     out["k3_max_abs_err_in_path"] = float((got - want).abs().max())
     out["residual_ms"] = time_ms(
         lambda: heat.residual(st.T, st.T_prev, prob.dt), reps=10)
@@ -831,6 +1093,7 @@ def main() -> int:
         material_tspace_reference,
     )
     from fem_glass_tempering_tpu_torch.ops.cuda_dg_cell import (
+        PreparedDGCellResidual,
         dg_cell_residual,
         dg_cell_residual_reference,
     )
@@ -838,7 +1101,8 @@ def main() -> int:
         stencil_matvec,
         stencil_matvec_reference,
     )
-    port = dict(dg_cell_residual=dg_cell_residual,
+    port = dict(PreparedDGCellResidual=PreparedDGCellResidual,
+                dg_cell_residual=dg_cell_residual,
                 dg_cell_residual_reference=dg_cell_residual_reference,
                 material_tspace=material_tspace,
                 material_tspace_reference=material_tspace_reference,
@@ -875,6 +1139,7 @@ def main() -> int:
     parity_phase(dev)
 
     # ---- phase 4: the full-size main path ----
+    drop_garbage("phase 4")
     full = full_size_phase(dev, port, args.profile)
     vals2, x, grid = full.pop("vals_fine"), full.pop("x_fine"), full.pop("grid")
     full.pop("state")
@@ -898,10 +1163,12 @@ def main() -> int:
     scratch_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                "build", "chip_smoke")
     os.makedirs(scratch_dir, exist_ok=True)
+    drop_garbage("phase 5")
     default = default_workload_phase(dev, port, scratch_dir)
 
     # ---- phase 6: the DG-1 plate, small against the CPU, then full ----
     dg_parity_phase(dev)
+    drop_garbage("phase 6")
     plate = dg_plate_phase(dev, port)
 
     k1_32 = k1["float32"]
@@ -917,7 +1184,7 @@ def main() -> int:
              max_abs_err=k1_32["max_abs_err"], ms=k1_32["ms"],
              plain_ms=k1_32["plain_ms"], bound_ms=k1_32["bound_ms"],
              bound_by=k1_32["bound_by"], library_ms=None,
-             device_ms=k1_32["device_ms"]),
+             device_ms=k1_32["device_ms"], f64=k1["float64"]),
         dict(name="stencil_matvec", route="cuda",
              source="fem_glass_tempering_tpu_torch/csrc/stencil_matvec.cu",
              replaces="fem_glass_tempering_tpu/ops/pallas_stencil.py:54",
@@ -925,7 +1192,8 @@ def main() -> int:
              max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain, bound_ms=b,
              bound_by=by, library_ms=lib_ms, device_ms=k2_device_ms),
         # timed at the DG plate's shape (65,536 hex cells, uniform tables,
-        # f64); no single PyTorch call computes this function
+        # f64) in the heat operator's prepared call; no single PyTorch call
+        # computes this function
         dict(name="dg_cell_residual", route="cuda",
              source="fem_glass_tempering_tpu_torch/csrc/dg_cell_residual.cu",
              replaces="fem_glass_tempering_tpu/ops/pallas_kernels.py:218",
@@ -935,7 +1203,13 @@ def main() -> int:
              bound_ms=k3["uniform"]["bound_ms"],
              bound_by=k3["uniform"]["bound_by"], library_ms=None,
              device_ms=k3["uniform"]["device_ms"],
+             device_cold_ms=k3["uniform"]["device_cold_ms"],
+             bound_unfused_ms=k3["uniform"]["bound_unfused_ms"],
+             bound_unfused_by=k3["uniform"]["bound_unfused_by"],
+             direct_call_ms=k3["uniform"]["direct_call_ms"],
+             direct_call_device_ms=k3["uniform"]["direct_call_device_ms"],
              plain_device_ms=k3["uniform"]["plain_device_ms"],
+             host_us=k3["host_us"],
              launches_default_run=default["launches"]["dg_cell_residual"],
              per_cell_tables=k3["per_cell"]),
     ]

@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernel for the cell term of the heat residual, beside
-its plain PyTorch twin (counterpart of the DG cell residual kernel in
+"""Hand-written CUDA kernels for the cell term of the heat residual, beside
+their plain PyTorch twin (counterpart of the DG cell residual kernel in
 fem_glass_tempering_tpu/ops/pallas_kernels.py).
 
 dg_cell_residual — per cell, the mass + source + diffusion integrals
@@ -12,26 +12,56 @@ csrc/dg_cell_residual.cu). It replaces
 fem_glass_tempering_tpu/ops/pallas_kernels.py:make_dg_cell_residual and is
 the cell term of every heat residual and, through its forward-mode
 derivative, of every matrix-free CG matvec, for DG and CG spaces alike.
-Bound by device-memory bytes (224 values per hex DG-1 cell with per-cell
-tables, 32 with the single-cell tables of a uniform box); one thread per
-cell, the small tables in shared memory.
+
+What bounds it on the card, and the two kernels that follow (the source's
+head note has the detail). With per-cell tables it is bound by
+device-memory bytes (224 values per hex DG-1 cell): the split kernel, one
+thread per (cell, local dof), reads and writes contiguous runs. With the
+single-cell tables of a uniform box a cell moves 24 values for 1,232
+FP64 operations and waits for the FP64 units, not for bytes: the row kernel,
+one thread per cell, takes the tables by value in its parameters, so that
+they are constant-bank operands and its inner loops hold no load. The row
+kernel needs the tables on the host; `PreparedDGCellResidual` packs them
+once. Uniform tables that do not fit the parameters, or that arrive as
+device tensors in a direct call, are staged in shared memory by the split
+kernel. Both kernels sum in the plain version's order, so the result does
+not depend on the path.
+
+The host's share of a call is larger than the device's at the sizes the
+solver uses, so the launch path is short: the static tables (`qw`, `gphi`,
+`phi`, `source_q`) are validated once, when a `PreparedDGCellResidual` is
+built (the heat operator builds one), and each call checks `Tc` and `Tpc`
+alone. `dg_cell_residual(...)` takes the tables per call and checks them
+per call.
 
 The map is linear in (Tc, Tpc), so the tangent is one more launch of the
-same kernel on the tangents with the source terms zero. There is no
-reverse-mode derivative: `backward` raises.
+same kernel on the tangents with the source terms zero; the call unpacks
+the tangents itself and reaches the launch through a dispatcher op, not
+through `autograd.Function.apply` (see the note above `_evaluate`). There
+is no reverse-mode derivative: a backward pass raises.
 
-The wrapper takes the plain version for tensors on the CPU and launches
-the kernel for CUDA tensors; anything the kernel does not take raises.
+On CPU tensors the plain version runs; on CUDA tensors a kernel is
+launched; anything the kernels do not take raises.
 """
 
 from __future__ import annotations
 
+import itertools
+import weakref
+
+import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from fem_glass_tempering_tpu_torch.ops import kernel_lib
 
 MAX_NLOC = 32     # kMaxNloc / kMaxG of the kernel source
 MAX_GDIM = 3
+# uniform tables travel in the row kernel's parameters when they fit
+# kParamTableBytes and the cell is one the kernel is instantiated for (the
+# tensor-product cells of the uniform boxes)
+PARAM_TABLE_BYTES = 3584
+PARAM_SHAPES = ((2, 1), (4, 2), (8, 3))           # (nloc, g)
 
 
 def dg_cell_residual_reference(Tc, Tpc, qw, gphi, phi, *, dt, c_diff, f_src,
@@ -56,113 +86,269 @@ def dg_cell_residual_reference(Tc, Tpc, qw, gphi, phi, *, dt, c_diff, f_src,
         "cqg,cqlg->cl", qw[..., None] * gTq, gphi)
 
 
-def _check_shapes(Tc, Tpc, qw, gphi, phi, source_q):
-    if Tc.dim() != 2 or Tpc.shape != Tc.shape:
-        raise ValueError("dg_cell_residual: expected Tc, Tpc (cells, nloc), "
-                         f"got {tuple(Tc.shape)} and {tuple(Tpc.shape)}")
-    c, nloc = Tc.shape
-    if phi.dim() != 2 or phi.shape[1] != nloc:
-        raise ValueError(f"dg_cell_residual: phi must be (q, {nloc}), got "
-                         f"{tuple(phi.shape)}")
+# ----------------------------------------------------------------------
+# uniform tables for the row kernel's parameter struct
+def packed_table_bytes(nloc: int, q: int, g: int, itemsize: int) -> int:
+    return q * (nloc * (1 + g) + 1) * itemsize
+
+
+def table_path(nloc: int, q: int, g: int, itemsize: int,
+               uniform: bool) -> str:
+    """Which kernel a prepared call takes: "param" (row kernel, tables by
+    value) or "shared" (split kernel, tables in device memory)."""
+    if (uniform and (nloc, g) in PARAM_SHAPES
+            and packed_table_bytes(nloc, q, g, itemsize) <= PARAM_TABLE_BYTES):
+        return "param"
+    return "shared"
+
+
+def pack_uniform_tables(qw, gphi, phi) -> np.ndarray:
+    """Uniform tables qw (q,), gphi (q, nloc, g), phi (q, nloc) as one host
+    array in the row kernel's order: for each point q the record
+    [phi[q, :], qw[q], gphi[q, :, :]]."""
+    qw, gphi, phi = (np.asarray(a) for a in (qw, gphi, phi))
     q = phi.shape[0]
-    uniform = qw.dim() == 1
-    lead = () if uniform else (c,)
-    if (tuple(qw.shape) != lead + (q,) or gphi.dim() != len(lead) + 3
-            or tuple(gphi.shape[:-1]) != lead + (q, nloc)):
-        raise ValueError(
-            "dg_cell_residual: expected qw (cells, q) with gphi (cells, q, "
-            "nloc, g), or qw (q,) with gphi (q, nloc, g); got "
-            f"{tuple(qw.shape)} and {tuple(gphi.shape)} for {c} cells, "
-            f"q = {q}, nloc = {nloc}")
-    if source_q is not None and tuple(source_q.shape) != (c, q):
-        raise ValueError(f"dg_cell_residual: source_q must be ({c}, {q}), "
-                         f"got {tuple(source_q.shape)}")
-    return c, nloc, q, gphi.shape[-1], uniform
+    return np.ascontiguousarray(np.concatenate(
+        [phi, qw[:, None], gphi.reshape(q, -1)], axis=1)).reshape(-1)
 
 
-def _launch(Tc, Tpc, qw, gphi, phi, source_q, dt, c_mass, c_diff, f_src):
-    """Check, then the plain version (CPU tensors) or one kernel launch
-    (CUDA tensors)."""
-    c, nloc, q, g, uniform = _check_shapes(Tc, Tpc, qw, gphi, phi, source_q)
-    tensors = [Tc, Tpc, qw, gphi, phi]
-    if source_q is not None:
-        tensors.append(source_q)
-    devices = {t.device.type for t in tensors}
-    if devices == {"cpu"}:
-        return dg_cell_residual_reference(
-            Tc, Tpc, qw, gphi, phi, dt=dt, c_diff=c_diff, f_src=f_src,
-            c_mass=c_mass, source_q=source_q)
-    if devices != {"cuda"} or len({t.device for t in tensors}) != 1:
-        raise ValueError("dg_cell_residual: inputs must all lie on one CUDA "
-                         "device or all on the CPU, got "
-                         f"{[str(t.device) for t in tensors]}")
-    code = kernel_lib.dtype_code(Tc.dtype)
-    if any(t.dtype != Tc.dtype for t in tensors):
-        raise TypeError("dg_cell_residual: mixed dtypes "
-                        f"{[str(t.dtype) for t in tensors]}")
-    if nloc > MAX_NLOC or not 1 <= g <= MAX_GDIM:
-        raise ValueError(f"dg_cell_residual: the kernel takes nloc <= "
-                         f"{MAX_NLOC} and g <= {MAX_GDIM}, got nloc = {nloc}, "
-                         f"g = {g}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("dg_cell_residual: inputs must be contiguous")
-    out = torch.empty_like(Tc)
-    lib = kernel_lib.library().cdll
-    with torch.cuda.device(Tc.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.fgt_dg_cell_residual(
-            code, Tc.data_ptr(), Tpc.data_ptr(), qw.data_ptr(),
-            gphi.data_ptr(), phi.data_ptr(),
-            None if source_q is None else source_q.data_ptr(),
-            out.data_ptr(), c, nloc, q, g, int(uniform), float(dt),
-            float(c_mass), float(c_diff), float(f_src), stream)
-    kernel_lib.check(rc, "dg_cell_residual")
-    dg_cell_residual.launches += 1
-    return out
+def unpack_uniform_tables(packed: np.ndarray, nloc: int, g: int):
+    """Inverse of `pack_uniform_tables` -> (qw, gphi, phi)."""
+    rec = np.asarray(packed).reshape(-1, nloc * (1 + g) + 1)
+    return (rec[:, nloc].copy(),
+            rec[:, nloc + 1:].reshape(-1, nloc, g).copy(),
+            rec[:, :nloc].copy())
 
 
-class _DGCellResidual(torch.autograd.Function):
-    """The launch under automatic differentiation (functorch form).
-    Forward mode only: the residual is differentiated by
-    `torch.func.jvp`, never by a backward pass."""
+# ----------------------------------------------------------------------
+def _check_rows(Tc, Tpc, nloc=None, cells=None):
+    if (Tc.dim() != 2 or Tpc.shape != Tc.shape
+            or (nloc is not None and Tc.shape[1] != nloc)
+            or (cells is not None and Tc.shape[0] != cells)):
+        want = (f"({'cells' if cells is None else cells}, "
+                f"{'nloc' if nloc is None else nloc})")
+        raise ValueError(f"dg_cell_residual: expected Tc, Tpc {want}, got "
+                         f"{tuple(Tc.shape)} and {tuple(Tpc.shape)}")
+
+
+class PreparedDGCellResidual:
+    """The cell term for fixed tables: `qw`, `gphi`, `phi` and the optional
+    per-point source `source_q` are checked here, once; a call
+    `prepared(Tc, Tpc, dt=..., c_diff=..., f_src=..., c_mass=...)` checks
+    `Tc` and `Tpc` (shape, dtype, device, contiguity) and runs the plain
+    version (CPU tensors) or launches a kernel (CUDA tensors). With
+    `pack=True` uniform CUDA tables that fit are copied to the host once
+    and travel by value (`table_path`); the tables must not change
+    afterwards."""
+
+    def __init__(self, qw, gphi, phi, source_q=None, *, nloc=None,
+                 cells=None, pack=True):
+        if phi.dim() != 2 or (nloc is not None and phi.shape[1] != nloc):
+            raise ValueError(
+                f"dg_cell_residual: phi must be (q, "
+                f"{'nloc' if nloc is None else nloc}), got "
+                f"{tuple(phi.shape)}")
+        q, nloc = phi.shape
+        self.uniform = qw.dim() == 1
+        if not self.uniform and qw.dim() == 2 and cells is None:
+            cells = qw.shape[0]
+        lead = () if self.uniform else (cells,)
+        if (tuple(qw.shape) != lead + (q,) or gphi.dim() != len(lead) + 3
+                or tuple(gphi.shape[:-1]) != lead + (q, nloc)):
+            raise ValueError(
+                "dg_cell_residual: expected qw (cells, q) with gphi (cells, q, "
+                "nloc, g), or qw (q,) with gphi (q, nloc, g); got "
+                f"{tuple(qw.shape)} and {tuple(gphi.shape)} for "
+                f"{'any number of' if cells is None else cells} cells, "
+                f"q = {q}, nloc = {nloc}")
+        if source_q is not None:
+            if cells is None and source_q.dim() == 2:
+                cells = source_q.shape[0]
+            if tuple(source_q.shape) != (cells, q):
+                raise ValueError(
+                    f"dg_cell_residual: source_q must be ({cells}, {q}), got "
+                    f"{tuple(source_q.shape)}")
+        self.cells, self.nloc, self.q, self.g = cells, nloc, q, gphi.shape[-1]
+        self.qw, self.gphi, self.phi, self.source_q = qw, gphi, phi, source_q
+        tables = [t for t in (qw, gphi, phi, source_q) if t is not None]
+        self.device, self.dtype = qw.device, qw.dtype
+        if any(t.device != self.device for t in tables) or \
+                self.device.type not in ("cpu", "cuda"):
+            raise ValueError("dg_cell_residual: inputs must all lie on one "
+                             "CUDA device or all on the CPU, got "
+                             f"{[str(t.device) for t in tables]}")
+        if any(t.dtype != self.dtype for t in tables):
+            raise TypeError("dg_cell_residual: mixed dtypes "
+                            f"{[str(t.dtype) for t in tables]}")
+        self.path = "plain"
+        self._packed = None
+        self._id = next(_ids)        # how the dispatcher op finds this call
+        _PREPARED[self._id] = self
+        if self.device.type != "cuda":
+            return
+        self._code = kernel_lib.dtype_code(self.dtype)
+        if nloc > MAX_NLOC or not 1 <= self.g <= MAX_GDIM:
+            raise ValueError(f"dg_cell_residual: the kernel takes nloc <= "
+                             f"{MAX_NLOC} and g <= {MAX_GDIM}, got nloc = "
+                             f"{nloc}, g = {self.g}")
+        if not all(t.is_contiguous() for t in tables):
+            raise ValueError("dg_cell_residual: inputs must be contiguous")
+        self.path = "shared"
+        if pack and table_path(nloc, q, self.g, qw.element_size(),
+                               self.uniform) == "param":
+            held = kernel_lib.library().cdll.fgt_dg_cell_param_table_bytes()
+            if held != PARAM_TABLE_BYTES:
+                raise RuntimeError(
+                    f"dg_cell_residual: the kernel's parameter struct holds "
+                    f"{held} bytes of tables, this module expects "
+                    f"{PARAM_TABLE_BYTES}")
+            self.path = "param"
+            self._packed = pack_uniform_tables(
+                qw.cpu().numpy(), gphi.cpu().numpy(), phi.cpu().numpy())
+            self._packed_ptr = self._packed.ctypes.data
+
+    def __call__(self, Tc, Tpc, *, dt, c_diff, f_src, c_mass=1.0):
+        return _evaluate(self, Tc, Tpc, float(dt), float(c_mass),
+                         float(c_diff), float(f_src), _NO_TABLES)
+
+    def run(self, Tc, Tpc, dt, c_mass, c_diff, f_src, with_src):
+        """Check Tc and Tpc, then the plain version or one launch, on
+        tensors that own their storage (no automatic differentiation:
+        `__call__` adds it)."""
+        _check_rows(Tc, Tpc, self.nloc, self.cells)
+        if Tc.dtype != self.dtype or Tpc.dtype != self.dtype:
+            raise TypeError(
+                f"dg_cell_residual: mixed dtypes: Tc {Tc.dtype}, Tpc "
+                f"{Tpc.dtype}, tables {self.dtype}")
+        if Tc.device != self.device or Tpc.device != self.device:
+            raise ValueError(
+                "dg_cell_residual: inputs must all lie on one CUDA device or "
+                f"all on the CPU, got Tc on {Tc.device}, Tpc on {Tpc.device}, "
+                f"tables on {self.device}")
+        if not (Tc.is_contiguous() and Tpc.is_contiguous()):
+            raise ValueError("dg_cell_residual: Tc and Tpc must be contiguous")
+        src = self.source_q if with_src else None
+        if self.path == "plain":
+            return dg_cell_residual_reference(
+                Tc, Tpc, self.qw, self.gphi, self.phi, dt=dt, c_diff=c_diff,
+                f_src=f_src, c_mass=c_mass, source_q=src)
+        out = torch.empty_like(Tc)
+        lib = kernel_lib.library().cdll
+        src_ptr = None if src is None else src.data_ptr()
+        if self.path == "param":
+            launch = lambda stream: lib.fgt_dg_cell_residual_param(
+                self._code, Tc.data_ptr(), Tpc.data_ptr(), self._packed_ptr,
+                src_ptr, out.data_ptr(), Tc.shape[0], self.nloc, self.q,
+                self.g, dt, c_mass, c_diff, f_src, stream)
+        else:
+            launch = lambda stream: lib.fgt_dg_cell_residual(
+                self._code, Tc.data_ptr(), Tpc.data_ptr(),
+                self.qw.data_ptr(), self.gphi.data_ptr(),
+                self.phi.data_ptr(), src_ptr, out.data_ptr(), Tc.shape[0],
+                self.nloc, self.q, self.g, int(self.uniform), dt, c_mass,
+                c_diff, f_src, stream)
+        kernel_lib.check(kernel_lib.launch_on(self.device, launch),
+                         "dg_cell_residual")
+        dg_cell_residual.launches += 1
+        return out
+
+
+# ----------------------------------------------------------------------
+# Automatic differentiation. The solver differentiates the residual in
+# forward mode (torch.func.jvp), and the map is linear in (Tc, Tpc): the
+# tangent is the same launch on the tangents with the source terms zero.
+# So a call unpacks its inputs' tangents itself and launches twice. Under
+# torch.func.jvp the primals and tangents are wrappers without storage; a
+# dispatcher op hands its implementation the tensors underneath, as it does
+# for every built-in operator, at a fraction of the host time that
+# `autograd.Function.apply` takes under a transform (it generates a class
+# per call there). Outside forward mode nothing can carry a tangent and the
+# launch is called directly.
+_NO_TABLES = (None, None, None, None)
+_PREPARED = weakref.WeakValueDictionary()
+_ids = itertools.count(1)
+_OPS = torch.library.Library("fgt_torch", "FRAGMENT")
+_OPS.define(
+    "dg_cell_launch(Tensor Tc, Tensor Tpc, Tensor? qw, Tensor? gphi, "
+    "Tensor? phi, Tensor? source_q, int call_id, float dt, float c_mass, "
+    "float c_diff, float f_src, bool with_src) -> Tensor")
+
+
+def _for_tables(Tc, Tpc, qw, gphi, phi, source_q):
+    """A direct call's tables, checked against this call's rows."""
+    _check_rows(Tc, Tpc)
+    return PreparedDGCellResidual(qw, gphi, phi, source_q, nloc=Tc.shape[1],
+                                  cells=Tc.shape[0], pack=False)
+
+
+def _dg_cell_launch(Tc, Tpc, qw, gphi, phi, source_q, call_id, dt, c_mass,
+                    c_diff, f_src, with_src):
+    call = _PREPARED[call_id] if call_id else _for_tables(
+        Tc, Tpc, qw, gphi, phi, source_q)
+    return call.run(Tc, Tpc, dt, c_mass, c_diff, f_src, with_src)
+
+
+_OPS.impl("dg_cell_launch", _dg_cell_launch, "CompositeExplicitAutograd")
+_functorch_active = getattr(torch._C, "_are_functorch_transforms_active",
+                            None)
+
+
+def _forward_mode() -> bool:
+    """Whether an input may carry a tangent or be a wrapper: under a
+    functorch transform or inside a forward-mode dual level. Where this
+    torch lacks the probes, say yes."""
+    if _functorch_active is None or _functorch_active():
+        return True
+    return getattr(fwAD, "_current_level", 0) >= 0
+
+
+class _NoBackward(torch.autograd.Function):
+    """The launch for inputs that record for a backward pass: there is no
+    reverse-mode derivative, and asking for one says so."""
 
     @staticmethod
-    def forward(Tc, Tpc, qw, gphi, phi, source_q, dt, c_mass, c_diff, f_src):
-        return _launch(Tc, Tpc, qw, gphi, phi, source_q, dt, c_mass, c_diff,
-                       f_src)
+    def forward(Tc, Tpc, call, dt, c_mass, c_diff, f_src, *tables):
+        call = call or _for_tables(Tc, Tpc, *tables)
+        return call.run(Tc, Tpc, dt, c_mass, c_diff, f_src, True)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        _, _, qw, gphi, phi, _, dt, c_mass, c_diff, _ = inputs
-        ctx.save_for_forward(qw, gphi, phi)
-        # an input without a tangent reaches jvp as None, not as zeros
-        ctx.set_materialize_grads(False)
-        ctx.scalars = (dt, c_mass, c_diff)
-
-    @staticmethod
-    def jvp(ctx, dTc, dTpc, dqw, dgphi, dphi, dsource_q, *_):
-        if any(t is not None for t in (dqw, dgphi, dphi, dsource_q)):
-            raise NotImplementedError(
-                "dg_cell_residual is differentiated in Tc and Tpc only")
-        qw, gphi, phi = ctx.saved_tensors
-        dt, c_mass, c_diff = ctx.scalars
-        if dTc is None and dTpc is None:
-            return None
-        ref = dTc if dTc is not None else dTpc
-        dTc = torch.zeros_like(ref) if dTc is None else dTc.contiguous()
-        dTpc = torch.zeros_like(ref) if dTpc is None else dTpc.contiguous()
-        # linear in (Tc, Tpc): the same map with the source terms zero.
-        # Through apply, not _launch: under torch.func.jvp the tangents are
-        # functorch wrappers without storage, and apply hands forward()
-        # the tensors underneath
-        return _DGCellResidual.apply(dTc, dTpc, qw, gphi, phi, None, dt,
-                                     c_mass, c_diff, 0.0)
+        pass
 
     @staticmethod
     def backward(ctx, *grad_outputs):
         raise NotImplementedError(
             "dg_cell_residual has no reverse-mode derivative: the heat "
             "solver differentiates it in forward mode (torch.func.jvp)")
+
+
+def _evaluate(call, Tc, Tpc, dt, c_mass, c_diff, f_src, tables):
+    """`call` is a PreparedDGCellResidual (then `tables` is _NO_TABLES) or
+    None with the direct call's (qw, gphi, phi, source_q)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (Tc, Tpc, *tables)):
+        return _NoBackward.apply(Tc, Tpc, call, dt, c_mass, c_diff, f_src,
+                                 *tables)
+    if not _forward_mode():
+        call = call or _for_tables(Tc, Tpc, *tables)
+        return call.run(Tc, Tpc, dt, c_mass, c_diff, f_src, True)
+    if any(t is not None and fwAD.unpack_dual(t).tangent is not None
+           for t in tables):
+        raise NotImplementedError(
+            "dg_cell_residual is differentiated in Tc and Tpc only")
+    Tc, dTc = fwAD.unpack_dual(Tc)
+    Tpc, dTpc = fwAD.unpack_dual(Tpc)
+    launch = torch.ops.fgt_torch.dg_cell_launch
+    call_id = call._id if call is not None else 0
+    out = launch(Tc, Tpc, *tables, call_id, dt, c_mass, c_diff, f_src, True)
+    if dTc is None and dTpc is None:
+        return out
+    ref = dTc if dTc is not None else dTpc
+    dTc = torch.zeros_like(ref) if dTc is None else dTc.contiguous()
+    dTpc = torch.zeros_like(ref) if dTpc is None else dTpc.contiguous()
+    dout = launch(dTc, dTpc, *tables[:3], None, call_id, dt, c_mass, c_diff,
+                  0.0, False)
+    return fwAD.make_dual(out, dout)
 
 
 def dg_cell_residual(Tc, Tpc, qw, gphi, phi, *, dt, c_diff, f_src,
@@ -173,9 +359,10 @@ def dg_cell_residual(Tc, Tpc, qw, gphi, phi, *, dt, c_diff, f_src,
     basis table phi (q, nloc). `dt`, `c_mass`, `c_diff`, `f_src` are
     numbers; `source_q` (cells, q) is an optional per-point source.
     Kernel on CUDA tensors, plain version on CPU tensors; differentiable
-    in forward mode with respect to Tc and Tpc."""
-    return _DGCellResidual.apply(Tc, Tpc, qw, gphi, phi, source_q, float(dt),
-                                 float(c_mass), float(c_diff), float(f_src))
+    in forward mode with respect to Tc and Tpc. Every argument is checked
+    on every call; `PreparedDGCellResidual` checks the tables once."""
+    return _evaluate(None, Tc, Tpc, float(dt), float(c_mass), float(c_diff),
+                     float(f_src), (qw, gphi, phi, source_q))
 
 
 dg_cell_residual.launches = 0

@@ -5,8 +5,15 @@ material_tspace — the fused T-space Tool-Narayanaswamy chain (kernel
 source csrc/material_tspace.cu). It replaces
 fem_glass_tempering_tpu/ops/pallas_kernels.py:material_tspace_pallas.
 Bound by device-memory bytes: 8 values read and 9 written per dof, which
-is ~72 MB per call in f32 at 1,062,761 dofs; the kernel makes one pass,
-one thread per dof, and keeps the public (n, 6) Tf_partial layout.
+is ~72 MB per call in f32 at 1,062,761 dofs. 12 of the 17 values lie in
+the two (n, 6) Tf_partial arrays, where a thread walking its own row
+spreads every load and store over six to twelve times the sectors it uses.
+The kernel makes one pass: a block of 256 dofs moves its contiguous run of
+256 x 6 values through a padded shared-memory tile with coalesced 16-byte
+accesses and computes from the tile; the public (n, 6) layout is kept. A
+ragged last block, and a Tf_partial whose base is not 16-byte aligned (a
+view into a larger tensor), copy the tile element by element inside the
+kernel, so the wrapper takes any contiguous input.
 
 The wrapper takes the plain version for tensors on the CPU and launches
 the kernel for CUDA tensors; anything the kernel does not take raises.
@@ -79,13 +86,11 @@ def material_tspace(T, T_prev, Tf_partial_prev, *, dt, H_over_Rg, Tb, m_n,
     Tf_partial = torch.empty_like(Tf_partial_prev)
     lib = kernel_lib.library().cdll
     arr = ctypes.c_double * TABLEAU_SIZE
-    with torch.cuda.device(T.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.fgt_material_tspace(
-            code, T.data_ptr(), T_prev.data_ptr(), Tf_partial_prev.data_ptr(),
-            phi.data_ptr(), Tf_partial.data_ptr(), Tf.data_ptr(),
-            xi.data_ptr(), n, float(dt), float(H_over_Rg), 1.0 / float(Tb),
-            0.5 * float(dt), arr(*m), arr(*lam), stream)
+    rc = kernel_lib.launch_on(T.device, lambda stream: lib.fgt_material_tspace(
+        code, T.data_ptr(), T_prev.data_ptr(), Tf_partial_prev.data_ptr(),
+        phi.data_ptr(), Tf_partial.data_ptr(), Tf.data_ptr(), xi.data_ptr(),
+        n, float(dt), float(H_over_Rg), 1.0 / float(Tb), 0.5 * float(dt),
+        arr(*m), arr(*lam), stream))
     kernel_lib.check(rc, "material_tspace")
     material_tspace.launches += 1
     return phi, Tf_partial, Tf, xi

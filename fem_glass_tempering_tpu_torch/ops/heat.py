@@ -18,7 +18,8 @@ measure over the facet's (ops/assembly.py build_interior_geometry).
 Geometry factors are setup-time numpy copied to the device; assembly is
 gather -> cell kernel / einsum -> `index_add`. The cell term (mass, source,
 diffusion) is the hand-written kernel of ops/cuda_dg_cell.py on CUDA
-tensors and its plain version on CPU tensors, for DG and CG spaces alike.
+tensors and its plain version on CPU tensors, for DG and CG spaces alike;
+its tables are fixed, so the operator prepares the call once.
 The Jacobian action is `torch.func.jvp` of `residual` (solver/newton.py);
 `jacobian_diag` is exact.
 """
@@ -37,7 +38,9 @@ from fem_glass_tempering_tpu_torch.ops.assembly import (
     build_cell_geometry,
     build_interior_geometry,
 )
-from fem_glass_tempering_tpu_torch.ops.cuda_dg_cell import dg_cell_residual
+from fem_glass_tempering_tpu_torch.ops.cuda_dg_cell import (
+    PreparedDGCellResidual,
+)
 
 
 class HeatOperator:
@@ -109,6 +112,10 @@ class HeatOperator:
                                         np.asarray(source)[fs.dofmap]))
         else:
             self.source_q = None
+        # the cell kernel's static tables, checked (and, for a uniform box
+        # on the card, packed for the kernel's parameters) once
+        self._cell_term = PreparedDGCellResidual(
+            self.qw, self.gphi, self.phi, self.source_q)
 
         if self.is_dg:
             ig = build_interior_geometry(mesh, fs, quad_degree)
@@ -175,10 +182,9 @@ class HeatOperator:
         p = self.params
         dt = self.dt if dt is None else dt
         # ---- cell integrals (mass + source + diffusion) ----
-        r_cell = dg_cell_residual(
-            T[self.dofmap], T_prev[self.dofmap], self.qw, self.gphi,
-            self.phi, dt=dt, c_mass=self.c_mass, c_diff=self.c_diff,
-            f_src=p.f, source_q=self.source_q)
+        r_cell = self._cell_term(
+            T[self.dofmap], T_prev[self.dofmap], dt=dt, c_mass=self.c_mass,
+            c_diff=self.c_diff, f_src=p.f)
         r = self._scatter(r_cell, self.dofmap)
 
         # ---- boundary (radiation + convection, Robin-type) ----

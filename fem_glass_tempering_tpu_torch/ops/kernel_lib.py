@@ -27,10 +27,17 @@ CSRC = _PKG / "csrc"
 SOURCES = ("material_tspace.cu", "stencil_matvec.cu", "dg_cell_residual.cu")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 LIB_NAME = "libfgt_torch_kernels.so"
-# -fmad=false: no multiply-add contraction, so each kernel rounds exactly
-# as its plain PyTorch twin does (see the notes in the sources)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Per source. -fmad=false: no multiply-add contraction, so the kernel
+# rounds every operation as its plain PyTorch twin does (K2 is held to its
+# twin bit for bit, K1 to the rounding of exp). The cell residual is built
+# with contraction: with uniform tables it is bound by FP64 throughput, a fused
+# multiply-add halves its instructions, and the default run keeps the CPU's
+# Newton and CG counts to the iteration either way (see its source's note).
+SOURCE_FLAGS = {"material_tspace.cu": ("-fmad=false",),
+                "stencil_matvec.cu": ("-fmad=false",),
+                "dg_cell_residual.cu": ()}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -44,6 +51,10 @@ _SIGNATURES = {
     "fgt_dg_cell_residual": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _I64,
                              ctypes.c_int, ctypes.c_int, ctypes.c_int,
                              ctypes.c_int, _D, _D, _D, _D, _P],
+    "fgt_dg_cell_residual_param": [ctypes.c_int, _P, _P, _P, _P, _P, _I64,
+                                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                   _D, _D, _D, _D, _P],
+    "fgt_dg_cell_param_table_bytes": [],
 }
 
 
@@ -79,7 +90,7 @@ def _nvcc() -> str:
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in SOURCES:
-        h.update(src.encode())
+        h.update(" ".join((src, *SOURCE_FLAGS[src])).encode())
         h.update((CSRC / src).read_bytes())
     return h.hexdigest()[:16]
 
@@ -93,7 +104,8 @@ def _build(digest: str) -> tuple[str, float]:
         procs = []
         for src in SOURCES:
             obj = Path(tmp) / (Path(src).stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
+            cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS[src], "-c",
+                   str(CSRC / src), "-o", str(obj)]
             procs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -137,6 +149,25 @@ def library() -> KernelLibrary:
                 log, seconds = _build(digest)
                 _loaded = KernelLibrary(lib, log, seconds)
         return _loaded
+
+
+def current_stream(index: int) -> int:
+    """Handle of the current stream of device `index`. The raw getter skips
+    the Stream object that `torch.cuda.current_stream()` builds on every
+    call (microseconds of a launch path that has few to spend)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def launch_on(device: torch.device, launch) -> int:
+    """Run `launch(stream)` with `device` current; enters the device
+    context only when another device is current."""
+    if torch.cuda.current_device() == device.index:
+        return launch(current_stream(device.index))
+    with torch.cuda.device(device):
+        return launch(current_stream(device.index))
 
 
 def check(rc: int, name: str) -> None:

@@ -2,12 +2,16 @@
 card. Marked `gpu`: they skip where no CUDA device is visible, and run on
 the GPU machine with `python -m pytest tests/test_torch_cuda_kernels.py`.
 
-The kernels round every operation as the plain versions do (the library
-is built with -fmad=false), so K2 is held to equality and K1 to the
+K1 and K2 round every operation as the plain versions do (their sources
+are built with -fmad=false), so K2 is held to equality and K1 to the
 rounding of exp and of the plain 6-term dot product (rtol 1e-12 in f64,
 2e-6 in f32). K3's plain version sums through matrix products in an order
-of their own, so K3 is held to rtol 1e-12 (f64) / 1e-5 (f32) of the sum of
-the absolute values of its terms.
+of their own, and K3 is built with multiply-add contraction, so K3 is held
+to rtol 1e-12 (f64) / 1e-5 (f32) of the sum of
+the absolute values of its terms. K3 runs through both of its kernels:
+the direct call (tables in device memory, the split kernel) and the
+prepared call (uniform tables that fit travel by value, the row kernel),
+which must agree bit for bit.
 """
 
 import numpy as np
@@ -24,9 +28,13 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("n,view", [(100_003, False), (100_003, True),
+                                    (1000, False), (256, False), (7, True)])
 @pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
                                         (torch.float32, 2e-6)])
-def test_material_tspace_kernel(cuda, dtype, rtol):
+def test_material_tspace_kernel(cuda, dtype, rtol, n, view):
+    """Sizes around the 256-dof tile, and a Tf_partial one element into a
+    larger buffer (not 16-byte aligned: the element-wise tile copy)."""
     from fem_glass_tempering_tpu_torch.models.viscoelastic import (
         LAMBDA_M_N,
         M_N,
@@ -37,11 +45,12 @@ def test_material_tspace_kernel(cuda, dtype, rtol):
     )
 
     rng = np.random.default_rng(0)
-    n = 100_003
     T = torch.tensor(700.0 + 100 * rng.random(n), dtype=dtype, device=cuda)
     Tp = T + torch.tensor(rng.normal(0, 5, n), dtype=dtype, device=cuda)
-    Tfp = torch.tensor(750.0 + 50 * rng.random((n, 6)), dtype=dtype,
-                       device=cuda)
+    flat = torch.tensor(750.0 + 50 * rng.random(6 * n + 1), dtype=dtype,
+                        device=cuda)
+    Tfp = flat[1:].view(n, 6) if view else flat[1:].view(n, 6).clone()
+    assert (Tfp.data_ptr() % 16 != 0) == view
     kw = dict(dt=0.1, H_over_Rg=627.8e3 / 8.314, Tb=869.0, m_n=M_N,
               lambda_m_n=LAMBDA_M_N)
     before = material_tspace.launches
@@ -51,6 +60,7 @@ def test_material_tspace_kernel(cuda, dtype, rtol):
     torch.cuda.synchronize()
     for o, r in zip(out, ref):
         scale = r.abs().max()
+        assert o.shape == r.shape
         assert ((o - r).abs() <= rtol * r.abs() + rtol * 1e-3 * scale).all()
 
 
@@ -83,15 +93,26 @@ def test_stencil_matvec_kernel(cuda, grid, dtype):
     ((1000, 8), 8, 3, True),       # hex DG-1, uniform box
     ((77, 3), 3, 2, False),        # triangles
     ((50, 10), 11, 3, True),       # no unrolled instantiation: runtime shape
+    ((50, 10), 11, 3, False),
+    ((1029, 8), 8, 3, True),       # no whole warp or block of cells
+    ((1029, 8), 8, 3, False),
+    ((5, 8), 8, 3, True),
+    ((77, 3), 9, 2, False),        # more points than local dofs
+    ((64, 4), 4, 2, True),         # quads of a uniform box
+    ((50, 8), 13, 3, True),        # the most points that travel by value
+    ((50, 8), 14, 3, True),        # one more: shared memory
 ])
+@pytest.mark.parametrize("prepared", [False, True])
 @pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
                                         (torch.float32, 1e-5)])
 @pytest.mark.parametrize("c_mass,with_src", [(1.0, False), (3.5e6, True)])
 def test_dg_cell_residual_kernel(cuda, shape, q, g, uniform, dtype, rtol,
-                                 c_mass, with_src):
+                                 c_mass, with_src, prepared):
     from fem_glass_tempering_tpu_torch.ops.cuda_dg_cell import (
+        PreparedDGCellResidual,
         dg_cell_residual,
         dg_cell_residual_reference,
+        table_path,
     )
 
     rng = np.random.default_rng(2)
@@ -107,8 +128,15 @@ def test_dg_cell_residual_kernel(cuda, shape, q, g, uniform, dtype, rtol,
     src = t(rng.standard_normal((c, q))) if with_src else None
     kw = dict(dt=0.1, c_diff=0.8, f_src=0.3, c_mass=c_mass)
     before = dg_cell_residual.launches
-    fn = lambda u: dg_cell_residual(u, Tpc, qw, gphi, phi, source_q=src,  # noqa: E731
-                                    **kw)
+    direct = lambda u: dg_cell_residual(u, Tpc, qw, gphi, phi,  # noqa: E731
+                                        source_q=src, **kw)
+    fn = direct
+    if prepared:
+        call = PreparedDGCellResidual(qw, gphi, phi, src)
+        assert call.path == table_path(nloc, q, g, qw.element_size(), uniform)
+        fn = lambda u: call(u, Tpc, **kw)  # noqa: E731
+        assert torch.equal(fn(Tc), direct(Tc))     # either kernel, same bits
+        before = dg_cell_residual.launches
     y, dy = torch.func.jvp(fn, (Tc,), (dTc,))
     assert dg_cell_residual.launches == before + 2   # primal + tangent
     ref = dg_cell_residual_reference

@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: no file of the port package, and not
-chip_smoke.py, imports JAX or the JAX package; and its entry points never
-quietly run on the CPU when the GPU they default to is missing."""
+"""The PyTorch port stands alone: no file of the port package, and neither
+chip_smoke.py nor chip_ab.py, imports JAX or the JAX package; and its entry
+points never quietly run on the CPU when the GPU they default to is
+missing."""
 
 import ast
 from pathlib import Path
@@ -15,9 +16,10 @@ FORBIDDEN = ("jax", "jaxlib", "fem_glass_tempering_tpu")
 
 
 def _port_files():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    scripts = [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
+    files = sorted(PORT.rglob("*.py")) + scripts
     assert len(files) > 20 and all(f.exists() for f in files)
-    names = {str(f.relative_to(PORT)) for f in files[:-1]}
+    names = {str(f.relative_to(PORT)) for f in files[:-len(scripts)]}
     assert {"ops/cuda_dg_cell.py", "ops/spmv.py", "solver/amg.py",
             "io/checkpoint.py"} <= names
     return files
@@ -61,6 +63,12 @@ def test_kernel_library_lists_every_cuda_source():
                      for line in text.splitlines()
                      if line.startswith('extern "C"')}
     assert exported == set(kernel_lib._SIGNATURES)
+    # every source states its own flags; the kernels held to their plain
+    # versions' roundings are built without multiply-add contraction
+    assert sorted(kernel_lib.SOURCE_FLAGS) == on_disk
+    for name in ("material_tspace.cu", "stencil_matvec.cu"):
+        assert "-fmad=false" in kernel_lib.SOURCE_FLAGS[name]
+    assert "-fmad=false" not in kernel_lib.NVCC_FLAGS
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
