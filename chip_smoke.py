@@ -40,10 +40,21 @@ Phases (each raises on failure; the exit code is then nonzero):
      f64, rtol 1e-12, matrix-free CG + SA-AMG, 1 warm-up step and 3
      timed steps; before it the same configuration at 8x8x4 on the GPU
      against the port on the CPU (fields tight; iteration counts within
-     the ties that rtol 1e-12 leaves, see dg_parity_phase).
-Every main path (4, 5, 6) runs with the launch counters set to 0 just
-before it and read just after. Then one JSON line per kernel, one {"kernels": [...]} line, the card's
-name and power limit, and last {"ok": true, "device": {...}}.
+     the ties that rtol 1e-12 leaves, see dg_parity_phase);
+  7. the DG-1 plate through preconditioner="auto" (the DG p-multigrid,
+     column-smoothed, with its CG-1 geometric-MG correction) and the DG
+     block stencil: (a) 8x8x4, 3 steps, the GPU against the CPU; (b) the
+     64x64x16 plate in f64 and then with cg_dtype="float32" (mixed
+     precision), each 1 warm-up step and 3 timed steps, with the mixed
+     run's T held to the f64 run's within 5e-3 K, the launch counts held
+     to what the code implies (K1 once a step, K2 25 times a V-cycle, no
+     K3), and K2 held to its plain version on every CG-1 level's real
+     value tables in the run's dtype; then the layers of one CG iteration
+     timed, and the memory each part of a step adds.
+Every main path (4, 5, 6, 7b f64, 7b mixed) runs with the launch counters
+set to 0 just before it and read just after. Then one JSON line per
+kernel, one {"kernels": [...]} line, the card's name and power limit,
+and last {"ok": true, "device": {...}}.
 
 A kernel's `ms` and `plain_ms` are CUDA-event means over back-to-back
 calls of the wrapper (the host's cost of issuing a call shows where it
@@ -737,9 +748,7 @@ def full_size_phase(dev, port, profile_dir) -> dict:
     # every Newton iteration applies A and the V-cycle once before CG
     # starts, and each CG iteration once more; a V-cycle applies each
     # stencil level nu_pre + 1 + nu_post times: 1 + 5 x 6 = 31 at full size
-    mg = prob._mg
-    expect = 1 + (mg.nu_pre + 1 + mg.nu_post) * sum(
-        lv.coarse_dims is not None for lv in mg.levels)
+    expect = 1 + k2_launches_per_vcycle(prob._mg)
     per_apply = launches["stencil_matvec"] / max(ki + ni, 1)
     if launches["stencil_matvec"] == 0 or per_apply != expect:
         fail(f"stencil_matvec launches {launches['stencil_matvec']} for "
@@ -865,17 +874,22 @@ def default_workload_phase(dev, port, scratch_dir) -> dict:
     return out
 
 
-def dg_plate_config(tc, steps):
-    """DG-1 T / CG-1 sigma at the config defaults (f64, rtol 1e-12), with
-    SA-AMG and the matrix-free operator stated: 'auto' on a structured
-    box asks for the DG multigrid, which the port does not have yet."""
+def dg_plate_config(tc, steps, **solver):
+    """DG-1 T / CG-1 sigma at the config defaults (f64, rtol 1e-12). By
+    default SA-AMG and the matrix-free operator, stated: the mesh-agnostic
+    path (phase 6); phase 7 passes preconditioner="auto" and
+    linear_operator="stencil"."""
+    kw = dict(preconditioner="amg", linear_operator="matrix_free")
+    kw.update(solver)
     return tc.RunConfig(
         fe=tc.FEConfig(T_family="DG", T_degree=1, sigma_family="CG",
                        sigma_degree=1),
         time=tc.TimeConfig(0.0, steps * 0.1, 0.1),
-        solver=tc.SolverConfig(preconditioner="amg",
-                               linear_operator="matrix_free"),
+        solver=tc.SolverConfig(**kw),
         output=tc.OutputConfig(write_every=0, formats=()), dtype="float64")
+
+
+DG_AUTO = dict(preconditioner="auto", linear_operator="stencil")
 
 
 def dg_parity_phase(dev) -> dict:
@@ -1016,6 +1030,233 @@ def dg_plate_phase(dev, port) -> dict:
     log("DG plate layers " + json.dumps(
         {k_: out[k_] for k_ in ("k3_ms_in_path", "residual_ms",
                                 "jvp_matvec_ms", "amg_vcycle_ms")}))
+    return out
+
+
+def dg_auto_parity_phase(dev) -> dict:
+    """Phase 7a: the DG-1 plate through preconditioner="auto" (the DG
+    p-multigrid) and the DG block stencil at 8x8x4, 3 steps, the GPU
+    against the CPU. The block stencil adds its boundary-facet terms one
+    group of distinct cells at a time, so the card repeats its own bits
+    and the Newton counts must agree exactly; CG within 5%."""
+    from fem_glass_tempering_tpu_torch import config as tc
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+    from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
+
+    res = {}
+    for where in ("cpu", dev):
+        p = ThermoViscoProblem(mesh=box_mesh_3d(8, 8, 4, 1.0, 1.0, 0.01),
+                               config=dg_plate_config(tc, DG_PARITY_STEPS,
+                                                      **DG_AUTO),
+                               device=where)
+        p.setup()
+        if p._dg_mg is None or p._dg_mg.smoother != "column":
+            fail(f"'auto' on the 8x8x4 DG plate is not the column-smoothed "
+                 f"DG multigrid on {where}")
+        st, ok, ni, ki = p.multi_step(p.state, DG_PARITY_STEPS)
+        if not ok:
+            fail(f"8x8x4 DG 'auto' parity run did not converge on {where}")
+        res[str(where)] = (st, ni, ki)
+    (sc, nc, kc), (sg, ng, kg) = res["cpu"], res[str(dev)]
+    out = dict(newton_cpu=nc, newton_gpu=ng, cg_cpu=kc, cg_gpu=kg)
+    for f in ("T", "Tf"):
+        a, b = getattr(sc, f).numpy(), getattr(sg, f).cpu().numpy()
+        out[f"{f}_max_rel"] = float(np.abs(a - b).max() / np.abs(a).max())
+        if not out[f"{f}_max_rel"] <= 1e-9:
+            fail(f"DG 'auto' parity {f}: {out[f'{f}_max_rel']:.3e}")
+    a, b = sc.sigma.numpy(), sg.sigma.cpu().numpy()
+    out["sigma_rel_to_max"] = float(np.abs(a - b).max() / np.abs(a).max())
+    if not out["sigma_rel_to_max"] <= 1e-6:
+        fail(f"DG 'auto' parity sigma: {out['sigma_rel_to_max']:.3e}")
+    if nc != ng or abs(kc - kg) > 0.05 * kc:
+        fail(f"DG 'auto' parity iterations: newton {nc}/{ng}, cg {kc}/{kg}")
+    log("DG auto parity " + json.dumps(out))
+    return out
+
+
+def k2_launches_per_vcycle(mg) -> int:
+    """K2 launches of one GeometricMG V-cycle: nu_pre + 1 + nu_post
+    stencil applies on every level but the coarsest, and coarse_iters
+    there unless it is the dense direct solve."""
+    n = sum(mg.nu_pre + 1 + mg.nu_post for lv in mg.levels
+            if lv.coarse_dims is not None)
+    return n + (0 if mg.coarse_inv is not None else mg.coarse_iters)
+
+
+def dg_auto_plate_run(dev, port, cg_dtype) -> tuple[dict, object]:
+    """One phase 7b run: the 64x64x16 DG-1 plate through "auto" and the
+    block stencil, 1 warm-up step and DG_TIMED_STEPS timed ones."""
+    from fem_glass_tempering_tpu_torch import config as tc
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+    from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
+    from fem_glass_tempering_tpu_torch.ops.stencil import DGStencilMatrix
+
+    tag = f"DG auto plate {cg_dtype}"
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    prob = ThermoViscoProblem(
+        mesh=box_mesh_3d(*N_DG, 1.0, 1.0, 0.01),
+        config=dg_plate_config(tc, DG_TIMED_STEPS, cg_dtype=cg_dtype,
+                               **DG_AUTO), device=dev)
+    prob.setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated(dev)
+    setup_held = torch.cuda.memory_allocated(dev)
+    mixed = cg_dtype == "float32"
+    dg_mg = prob._dg_mg32 if mixed else prob._dg_mg
+    if (prob.config.solver.preconditioner != "mg" or dg_mg is None
+            or dg_mg.smoother != "column"
+            or "colinv" not in dg_mg._frozen_smoother_data
+            or not isinstance(prob._ell32 if mixed else prob._ell,
+                              DGStencilMatrix)):
+        fail(f"{tag}: 'auto' is not the column-smoothed DG multigrid with "
+             f"the block stencil")
+    if prob.heat.i_qw is not None:
+        fail(f"{tag}: the interior-facet tables reached the card")
+    n = prob.fs_T.n_scalar_dofs
+    levels = [lv.fine_dims for lv in dg_mg.cg_mg.levels]
+    log(f"{tag}: {n} dofs, setup {setup_s:.1f} s "
+        + json.dumps(prob.setup_seconds) + f", CG-1 levels {levels}, "
+        f"column types {int(dg_mg._frozen_smoother_data['colinv'].shape[0])}"
+        f", rho {dg_mg._frozen_rho:.6f}")
+
+    st, ok, ni0, ki0 = prob.multi_step(prob.state, 1)      # warm-up
+    torch.cuda.synchronize()
+    if not ok:
+        fail(f"{tag}: warm-up step did not converge")
+    # the timed window starts from a fresh state, with the problem's own
+    # initial state still held: two states of ~200 MB each at this size
+    del st
+    state0 = prob.engine.init_state()
+    torch.cuda.synchronize()
+    window_held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(port)
+    t0 = time.perf_counter()
+    st, ok, ni, ki = prob.multi_step(state0, DG_TIMED_STEPS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_counts(port)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not ok:
+        fail(f"{tag}: timed window did not converge")
+    for f in ("T", "Tf", "sigma"):
+        if not bool(torch.isfinite(getattr(st, f)).all()):
+            fail(f"{tag}: non-finite {f}")
+    T_np = st.T.cpu().numpy()
+    if not (prob.params.T_ambient - 1 < T_np.min() <= T_np.max()
+            < prob.params.T_0 + 1):
+        fail(f"{tag}: T out of [T_ambient, T_0]: {T_np.min()} .. "
+             f"{T_np.max()}")
+    # K1 once per step; one V-cycle per preconditioner apply, i.e. one
+    # before each CG solve starts (one per Newton iteration) and one per
+    # CG iteration; the block stencil carries the residual: no K3
+    per_cycle = k2_launches_per_vcycle(dg_mg.cg_mg)
+    expect = dict(material_tspace=DG_TIMED_STEPS,
+                  stencil_matvec=per_cycle * (ni + ki), dg_cell_residual=0)
+    if launches != expect or launches["stencil_matvec"] == 0:
+        fail(f"{tag}: launches {launches}, expected {expect} "
+             f"({ni} Newton + {ki} CG)")
+    # K2 on the real value tables of every stencil level of the CG-1
+    # correction, in the cycle's dtype (outside the counted window)
+    cdt = torch.float32 if mixed else torch.float64
+    rng = np.random.default_rng(4)
+    cg = dg_mg.cg_mg
+    k2_levels = []
+    for lvl, Tc in zip(cg.levels, cg.linearization_states(
+            dg_mg.restrict_state(st.T.to(cdt)))):
+        if lvl.coarse_dims is None:
+            continue               # dense coarse solve: no stencil apply
+        g = cg._grid_for(lvl)
+        vals2 = g.stencil_values(Tc, prob.dt).reshape(27, g.grid[0], -1)
+        x = torch.tensor(rng.standard_normal(g.n), dtype=cdt, device=dev)
+        k2_levels.append(dict(grid=g.grid, max_abs_err=check_stencil(
+            vals2, x, g.grid, 1e-5 if mixed else 1e-12, port)))
+    out = dict(dofs=n, cg_dtype=cg_dtype, setup_s=setup_s,
+               k2_levels=k2_levels,
+               setup_parts_s=prob.setup_seconds, cg1_levels=levels,
+               column_types=int(
+                   dg_mg._frozen_smoother_data["colinv"].shape[0]),
+               frozen_rho=dg_mg._frozen_rho,
+               newton_per_step=ni / DG_TIMED_STEPS,
+               cg_per_step=ki / DG_TIMED_STEPS,
+               ms_per_step=elapsed / DG_TIMED_STEPS * 1e3,
+               launches=launches, k2_launches_per_vcycle=per_cycle,
+               vcycles=ni + ki, max_memory_allocated_bytes=peak,
+               setup_max_memory_allocated_bytes=setup_peak,
+               held_after_setup_bytes=setup_held,
+               held_before_window_bytes=window_held,
+               state_bytes=sum(t.numel() * t.element_size() for t in st
+                               if isinstance(t, torch.Tensor)),
+               T_min=float(T_np.min()), T_max=float(T_np.max()))
+
+    # the layers of one CG iteration, at the final state
+    ell = prob._ell32 if mixed else prob._ell
+    Tl = st.T.to(cdt)
+    v = torch.ones_like(Tl)
+    mv = ell.make_matvec(Tl, prob.dt)
+    pc = dg_mg.preconditioner(Tl, prob.dt)
+    inner = cg.preconditioner(cg.linearization_states(
+        dg_mg.restrict_state(Tl)), prob.dt)
+    vc = torch.ones(dg_mg.n_nodes, dtype=cdt, device=dev)
+    data = dg_mg._frozen_smoother_data
+    hres = prob._residual_operator(prob.heat, prob._grid, prob._ell)
+    Tcg = dg_mg.restrict_state(Tl)
+    out["layers_ms"] = dict(
+        block_stencil_matvec=time_ms(lambda: mv(v), reps=20),
+        pmg_vcycle=time_ms(lambda: pc(v), reps=10),
+        cg1_vcycle=time_ms(lambda: inner(vc), reps=10),
+        column_solve=time_ms(lambda: dg_mg._zsolve_apply(data, v), reps=20),
+        p_transfers=time_ms(lambda: dg_mg.prolong(dg_mg.restrict(v)),
+                            reps=20),
+        residual_f64=time_ms(lambda: hres.residual(st.T, st.T_prev,
+                                                   prob.dt), reps=10),
+        operator_build=time_ms(lambda: (ell.make_matvec(Tl, prob.dt),
+                                        dg_mg.preconditioner(Tl, prob.dt)),
+                               reps=5),
+        block_stencil_build=time_ms(lambda: ell.make_matvec(Tl, prob.dt),
+                                    reps=5),
+        cg1_vcycle_build=time_ms(lambda: cg.preconditioner(
+            cg.linearization_states(Tcg), prob.dt), reps=5),
+        material_step=time_ms(lambda: prob.engine.material_step(
+            st, st.T, prob.dt), reps=5))
+    # the device memory that each part of a step adds at its peak
+    base = torch.cuda.memory_allocated(dev)
+    out["peak_added_bytes"] = {}
+    for part, fn in (
+            ("operator_build", lambda: (ell.make_matvec(Tl, prob.dt),
+                                        dg_mg.preconditioner(Tl, prob.dt))),
+            ("pmg_vcycle", lambda: pc(v)),
+            ("material_step", lambda: prob.engine.material_step(
+                st, st.T, prob.dt))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = fn()
+        torch.cuda.synchronize()
+        out["peak_added_bytes"][part] = \
+            torch.cuda.max_memory_allocated(dev) - base
+        del res
+    out["cg_iteration_ms_estimate"] = (
+        out["layers_ms"]["block_stencil_matvec"]
+        + out["layers_ms"]["pmg_vcycle"])
+    log(tag + " " + json.dumps(out))
+    return out, st.T.cpu()
+
+
+def dg_auto_plate_phase(dev, port) -> dict:
+    """Phase 7b: the f64 run, then the mixed-precision run, whose T must
+    lie within 5e-3 K of the f64 run's (the mixed-precision DG floor)."""
+    out = {}
+    T = {}
+    for cg_dtype in ("same", "float32"):
+        drop_garbage(f"phase 7b {cg_dtype}")
+        out[cg_dtype], T[cg_dtype] = dg_auto_plate_run(dev, port, cg_dtype)
+    diff = float((T["float32"] - T["same"]).abs().max())
+    out["mixed_vs_f64_T_max_abs_K"] = diff
+    if not diff <= 5e-3:
+        fail(f"DG auto plate: mixed T differs from f64 T by {diff:.3e} K")
+    log(f"DG auto plate: mixed vs f64 max |dT| {diff:.3e} K")
     return out
 
 
@@ -1171,6 +1412,11 @@ def main() -> int:
     drop_garbage("phase 6")
     plate = dg_plate_phase(dev, port)
 
+    # ---- phase 7: the DG-1 plate through "auto" (DG p-multigrid) ----
+    drop_garbage("phase 7a")
+    dg_auto_parity = dg_auto_parity_phase(dev)
+    dg_auto = dg_auto_plate_phase(dev, port)
+
     k1_32 = k1["float32"]
     sigma_ms = full["material_step_ms"] - k1_32["ms"]
     log(f"material step {full['material_step_ms']:.4f} ms, of which K1 "
@@ -1190,7 +1436,11 @@ def main() -> int:
              replaces="fem_glass_tempering_tpu/ops/pallas_stencil.py:54",
              launches=full["launches"]["stencil_matvec"],
              max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain, bound_ms=b,
-             bound_by=by, library_ms=lib_ms, device_ms=k2_device_ms),
+             bound_by=by, library_ms=lib_ms, device_ms=k2_device_ms,
+             launches_dg_auto_f64=dg_auto["same"]["launches"][
+                 "stencil_matvec"],
+             launches_dg_auto_mixed=dg_auto["float32"]["launches"][
+                 "stencil_matvec"]),
         # timed at the DG plate's shape (65,536 hex cells, uniform tables,
         # f64) in the heat operator's prepared call; no single PyTorch call
         # computes this function
@@ -1211,6 +1461,10 @@ def main() -> int:
              plain_device_ms=k3["uniform"]["plain_device_ms"],
              host_us=k3["host_us"],
              launches_default_run=default["launches"]["dg_cell_residual"],
+             launches_dg_auto_f64=dg_auto["same"]["launches"][
+                 "dg_cell_residual"],
+             launches_dg_auto_mixed=dg_auto["float32"]["launches"][
+                 "dg_cell_residual"],
              per_cell_tables=k3["per_cell"]),
     ]
     for k in kernels:
@@ -1219,6 +1473,8 @@ def main() -> int:
                                      k1_f64=k1["float64"])))
     log("summary default workload " + json.dumps(default))
     log("summary DG plate " + json.dumps(plate))
+    log("summary DG auto parity " + json.dumps(dg_auto_parity))
+    log("summary DG auto plate " + json.dumps(dg_auto))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

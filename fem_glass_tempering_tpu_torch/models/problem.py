@@ -12,12 +12,15 @@ main.py:57-59) as well as a typed RunConfig; `setup(dirichlet_bc=False)`
 and `solve()` match the reference entry points (main.py:61-62).
 
 Ported: CG-1 and DG-1 temperature spaces; the matrix-free, assembled (ELL)
-and, for CG-1 boxes, stencil Krylov operators; the Jacobi, geometric-MG
-(CG-1 boxes), SA-AMG or no preconditioner; checkpoints. The default
+and, on boxes, stencil Krylov operators (the CG-1 nodal stencil, the DG
+block stencil); the Jacobi, multigrid (geometric MG for CG-1 boxes, the
+DG p-multigrid for DG-1 boxes), SA-AMG or no preconditioner; mixed
+precision (cg_dtype='float32' under f64: an f32 inner CG with f32 twins
+of the operator and the preconditioner); checkpoints. The default
 constructor is the reference's default workload (DG-1 on the graded 1D
-slab, matrix-free CG, SA-AMG). Mixed precision, the DG block stencil and
-DG multigrid, CG-2 and equilibrium mechanics raise NotImplementedError
-naming the slice of the port that brings them (ROADMAP.md).
+slab, matrix-free CG, SA-AMG). CG-2 and equilibrium mechanics raise
+NotImplementedError naming the slice of the port that brings them
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -132,13 +135,6 @@ class ThermoViscoProblem:
             raise _waits("a degree-2 temperature space", "Slice 4")
         if run_cfg.mechanics != "none":
             raise _waits("mechanics='equilibrium'", "Slice 5")
-        sc = run_cfg.solver
-        if sc.cg_dtype == "float32" and self.dtype == torch.float64:
-            raise _waits("mixed precision (cg_dtype='float32' under f64)",
-                         "the Slice 1 deferrals")
-        if fe.T_family == "DG" and sc.linear_operator == "stencil":
-            raise _waits("linear_operator='stencil' with a DG temperature "
-                         "space (the DG block stencil)", "Slice 3")
         self.fs_T = FunctionSpace(self.mesh, fe.T_family, fe.T_degree)
         self.fs_sigma = FunctionSpace(self.mesh, fe.sigma_family, fe.sigma_degree,
                                       value_shape=(self.dim, self.dim))
@@ -192,11 +188,6 @@ class ThermoViscoProblem:
             self.config = dataclasses.replace(self.config, solver=sc)
         if sc.preconditioner not in ("mg", "amg", "jacobi", "none"):
             raise ValueError(f"unknown preconditioner {sc.preconditioner!r}")
-        if (sc.preconditioner == "mg" and self.fs_T.family == "DG"
-                and self.mesh.structured is not None):
-            raise _waits("preconditioner='mg' with a DG temperature space "
-                         "(DGMultigrid; pass preconditioner='amg' or "
-                         "'jacobi' meanwhile)", "Slice 3")
         bc_dofs = bc_val = None
         if dirichlet_tag is not None:
             bc_dofs = self.fs_T.boundary_scalar_dofs(
@@ -207,15 +198,29 @@ class ThermoViscoProblem:
             bc_dofs = self.fs_T.boundary_scalar_dofs()
             bc_val = self.params.T_ambient
         heat_form = self.config.heat_form
-        # host seconds of the setup's parts: "heat", and "ell" / "amg"
-        # where an SA-AMG hierarchy is built
+        # host seconds of the setup's parts: "heat", "twins" (the f32
+        # operators of mixed precision), "mg" (the multigrid hierarchy and
+        # its frozen smoothers; of it "freeze", the DG multigrid's), and
+        # "ell" / "amg" where an SA-AMG hierarchy is built
         self.setup_seconds: dict = {}
+        # when the DG block stencil carries the whole outer loop, the SIPG
+        # interior-facet tables are never read on the device: they stay
+        # on the host (_build_step copies them where another path needs
+        # them)
+        dg_stencil = (self.fs_T.family == "DG"
+                      and self.mesh.structured is not None
+                      and sc.linear_operator == "stencil")
+
+        def heat_operator(dtype):
+            return HeatOperator(
+                self.fs_T, self.params, self.dt, dtype=dtype,
+                device=self.device, bc_dofs=bc_dofs, bc_value=bc_val,
+                quad_degree=self.config.fe.quad_degree,
+                flux_marker=flux_marker, form=heat_form,
+                interior_device_tables=not dg_stencil)
+
         t_setup = _time.perf_counter()
-        self.heat = HeatOperator(
-            self.fs_T, self.params, self.dt, dtype=self.dtype,
-            device=self.device, bc_dofs=bc_dofs, bc_value=bc_val,
-            quad_degree=self.config.fe.quad_degree,
-            flux_marker=flux_marker, form=heat_form)
+        self.heat = heat_operator(self.dtype)
         self.setup_seconds["heat"] = _time.perf_counter() - t_setup
         # gather-free grid-native path when the mesh/space qualify
         self._grid = None
@@ -227,50 +232,59 @@ class ThermoViscoProblem:
             except ValueError:
                 if sc.grid_native == "on":
                     raise
-        self._mg = None
+        # mixed precision: the inner CG runs in f32 under the f64 Newton
+        # loop, on f32 twins of the operators; the multigrid hierarchy is
+        # then built as its f32 twin alone
+        self._mixed = (sc.cg_dtype == "float32"
+                       and self.dtype == torch.float64)
+        self._heat32 = self._grid32 = None
+        if self._mixed:
+            t_twins = _time.perf_counter()
+            self._heat32 = heat_operator(torch.float32)
+            if self._grid is not None:
+                from fem_glass_tempering_tpu_torch.ops.grid import (
+                    GridHeatOperator,
+                )
+                self._grid32 = GridHeatOperator(self._heat32,
+                                                flux_marker=flux_marker)
+            self.setup_seconds["twins"] = _time.perf_counter() - t_twins
+        self._mg = self._dg_mg = self._mg32 = self._dg_mg32 = None
         if sc.preconditioner == "mg":
             if self.mesh.structured is None:
                 raise ValueError(
                     "preconditioner='mg' needs a structured box mesh with a "
-                    "CG-1 temperature space; use 'jacobi' otherwise")
+                    "CG-1 or DG-1 temperature space; use 'jacobi' otherwise")
             if sc.mg_table_dtype != "same":
                 raise _waits("mg_table_dtype='bfloat16'",
                              "the Slice 1 deferrals")
-            from fem_glass_tempering_tpu_torch.solver.multigrid import (
-                GeometricMG,
-            )
-
-            def make_operator(level_mesh):
-                fs = FunctionSpace(level_mesh, "CG", 1)
-                bd = fs.boundary_scalar_dofs() if dirichlet_bc else None
-                return HeatOperator(fs, self.params, self.dt,
-                                    dtype=self.dtype, device=self.device,
-                                    bc_dofs=bd, bc_value=bc_val,
-                                    form=heat_form)
-
-            self._mg = GeometricMG(self.mesh, make_operator,
-                                   dtype=self.dtype,
-                                   smoother=sc.mg_smoother,
-                                   nu_pre=sc.mg_nu_pre,
-                                   nu_post=sc.mg_nu_post,
-                                   max_levels=sc.mg_max_levels,
-                                   coarse=sc.mg_coarse)
-            self._mg.freeze_omegas(None, self.dt)
+            t_mg = _time.perf_counter()
+            if self._mixed:
+                self._mg32, self._dg_mg32 = self._build_multigrid(
+                    self._heat32, dirichlet_bc, bc_val)
+            else:
+                self._mg, self._dg_mg = self._build_multigrid(
+                    self.heat, dirichlet_bc, bc_val)
+            self.setup_seconds["mg"] = _time.perf_counter() - t_mg
         # smoothed-aggregation AMG (solver/amg.py): the mesh-agnostic GAMG
-        # stand-in for unstructured meshes; hierarchy frozen at (T_0, dt)
-        self._amg = None
+        # stand-in for unstructured meshes; hierarchy frozen at (T_0, dt),
+        # built as its f32 twin alone under mixed precision
+        self._amg = self._amg32 = None
         if sc.preconditioner == "amg":
             from fem_glass_tempering_tpu_torch.ops.spmv import EllMatrix
             from fem_glass_tempering_tpu_torch.solver.amg import (
                 SmoothedAggregationMG,
             )
+            heat = self._heat32 if self._mixed else self.heat
             T0v = torch.full((self.fs_T.n_scalar_dofs,), self.params.T_0,
-                             dtype=self.dtype, device=self.device)
+                             dtype=heat.dtype, device=self.device)
             t_ell = _time.perf_counter()
-            ell = EllMatrix(self.heat)
+            ell = EllMatrix(heat)
             t_amg = _time.perf_counter()
-            self._amg = SmoothedAggregationMG(ell, T0v, self.dt,
-                                              dtype=self.dtype)
+            amg = SmoothedAggregationMG(ell, T0v, self.dt, dtype=heat.dtype)
+            if self._mixed:
+                self._amg32 = amg
+            else:
+                self._amg = amg
             self.setup_seconds["ell"] = t_amg - t_ell
             self.setup_seconds["amg"] = _time.perf_counter() - t_amg
         self.state = self.engine.init_state()
@@ -280,6 +294,38 @@ class ThermoViscoProblem:
                 self.config,
                 output=dataclasses.replace(self.config.output, output_dir=output_dir))
         self._setup_writers()
+
+    def _build_multigrid(self, heat: HeatOperator, dirichlet_bc, bc_val):
+        """The frozen multigrid preconditioner of `heat`'s space in its
+        dtype -> (GeometricMG, None) for CG-1, (None, DGMultigrid) for
+        DG-1; the coarse levels are rediscretised CG-1 heat operators."""
+        from fem_glass_tempering_tpu_torch.solver.multigrid import (
+            DGMultigrid,
+            GeometricMG,
+        )
+        sc = self.config.solver
+
+        def make_operator(level_mesh):
+            fs = FunctionSpace(level_mesh, "CG", 1)
+            bd = fs.boundary_scalar_dofs() if dirichlet_bc else None
+            return HeatOperator(fs, self.params, self.dt, dtype=heat.dtype,
+                                device=self.device, bc_dofs=bd,
+                                bc_value=bc_val, form=self.config.heat_form)
+
+        mg_kwargs = dict(smoother=sc.mg_smoother, nu_pre=sc.mg_nu_pre,
+                         nu_post=sc.mg_nu_post, max_levels=sc.mg_max_levels,
+                         coarse=sc.mg_coarse)
+        if self.fs_T.family == "DG":
+            dg_mg = DGMultigrid(heat, make_operator, dtype=heat.dtype,
+                                smoother=sc.dg_smoother, mg_kwargs=mg_kwargs)
+            t_freeze = _time.perf_counter()
+            dg_mg.freeze(None, self.dt)
+            self.setup_seconds["freeze"] = _time.perf_counter() - t_freeze
+            return None, dg_mg
+        mg = GeometricMG(self.mesh, make_operator, dtype=heat.dtype,
+                         **mg_kwargs)
+        mg.freeze_omegas(None, self.dt)
+        return mg, None
 
     def _setup_writers(self) -> None:
         """Instantiate the configured output writers (the reference writes
@@ -315,33 +361,65 @@ class ThermoViscoProblem:
         self.state = state
         self.t = float(meta.get("extra", {}).get("t", float(state.t)))
 
+    def _krylov_operator(self, heat, grid, dg_mg):
+        """The Jacobian action object of linear_operator for `heat` (its
+        grid-native twin `grid` and DG multigrid `dg_mg` where they exist);
+        None for 'matrix_free'."""
+        lo = self.config.solver.linear_operator
+        if lo == "assembled":
+            from fem_glass_tempering_tpu_torch.ops.spmv import EllMatrix
+            return EllMatrix(heat)
+        if lo == "stencil":
+            if grid is not None:
+                return grid
+            if dg_mg is not None:
+                # share the DG multigrid's table-form block stencil
+                return dg_mg.stencil
+            from fem_glass_tempering_tpu_torch.ops.stencil import (
+                make_stencil_operator,
+            )
+            return make_stencil_operator(heat)
+        if lo != "matrix_free":
+            raise ValueError(f"unknown linear_operator {lo!r}")
+        return None
+
+    @staticmethod
+    def _residual_operator(heat, grid, ell):
+        """What evaluates the Newton residual and the Jacobi diagonal: the
+        grid-native operator, else the DG block stencil when it is the
+        Krylov operator, else the heat operator itself (whose SIPG
+        residual reads the interior-facet device tables)."""
+        from fem_glass_tempering_tpu_torch.ops.stencil import DGStencilMatrix
+        if grid is not None:
+            return grid
+        if isinstance(ell, DGStencilMatrix):
+            return ell
+        heat.ensure_interior_tables()
+        return heat
+
     def _build_step(self) -> None:
         heat, engine, sc = self.heat, self.engine, self.config.solver
-        mg = self._mg
-        amg = self._amg
+        mg, dg_mg, amg = self._mg, self._dg_mg, self._amg
         grid = self._grid
-        # the grid-native operator subsumes HeatOperator for residual/diag
-        # and StencilMatrix for the Jacobian action
-        hres = grid if grid is not None else heat
-        ell = None
-        if sc.linear_operator == "assembled":
-            from fem_glass_tempering_tpu_torch.ops.spmv import EllMatrix
-            ell = EllMatrix(heat)
-        elif sc.linear_operator == "stencil":
-            if grid is not None:
-                ell = grid
-            else:
-                from fem_glass_tempering_tpu_torch.ops.stencil import (
-                    StencilMatrix,
-                )
-                ell = StencilMatrix(heat)
-        elif sc.linear_operator != "matrix_free":
-            raise ValueError(f"unknown linear_operator {sc.linear_operator!r}")
+        ell = self._krylov_operator(heat, grid, dg_mg)
         self._ell = ell
-        if hres is heat:
-            # the SIPG residual reads the interior-facet device tables
-            # (a no-op unless the operator was built without them)
-            heat.ensure_interior_tables()
+        hres = self._residual_operator(heat, grid, ell)
+        # mixed precision: f32 twins for the inner CG
+        mixed = self._mixed
+        f32 = torch.float32
+        heat32 = self._heat32
+        mg32, dg_mg32, amg32 = self._mg32, self._dg_mg32, self._amg32
+        ell32 = hres32 = None
+        if mixed:
+            ell32 = self._krylov_operator(heat32, self._grid32, dg_mg32)
+            hres32 = self._residual_operator(heat32, self._grid32, ell32)
+        self._ell32 = ell32
+        # the f32 inner tolerance: tighter than ~1e-6 is not representable
+        # in f32 residual norms, and the SIPG operator's f32 floor is
+        # higher still (~eps32 * kappa), so a DG solve asks for 1e-4 and
+        # the f64 Newton loop refines (the JAX version's measurements)
+        cg_rtol = (max(sc.cg_rtol, 1e-4 if heat.is_dg else 1e-6) if mixed
+                   else sc.cg_rtol)
 
         # the residual noise floor is a TPU emulated-f64 device: off here
         noise_rel = sc.newton_noise_rel or 0.0
@@ -351,20 +429,46 @@ class ThermoViscoProblem:
 
         def build_ops(lin_state, dt):
             """Operator bundle at the chunk-start state. With jac_lag="step"
-            the Krylov operator, the V-cycle and the Jacobi diagonal are
-            frozen there (one build per step, or per jac_every chunk); with
-            "newton" they are rebuilt at every Newton iterate."""
+            the Krylov operator, the preconditioner and the Jacobi diagonal
+            are frozen there (one build per step, or per jac_every chunk);
+            with "newton" they are rebuilt at every Newton iterate. Under
+            mixed precision they are the f32 twins', at the f32 iterate."""
             state_T = lin_state.T
             precond_fn = matvec_fn = diag_fn = None
-            if mg is not None:
-                precond_fn = lambda T: mg.preconditioner(
-                    mg.linearization_states(T), dt)
-            elif amg is not None:
-                precond_fn = lambda T: amg.preconditioner()
-            if ell is not None:
-                matvec_fn = lambda T: ell.make_matvec(T, dt)
-            if sc.preconditioner == "jacobi":
-                diag_fn = lambda T: hres.jacobian_diag(T, dt)
+            if mixed:
+                cast = lambda T: T.to(f32)
+                if mg32 is not None:
+                    precond_fn = lambda T: mg32.preconditioner(
+                        mg32.linearization_states(cast(T)), dt)
+                elif dg_mg32 is not None:
+                    precond_fn = lambda T: dg_mg32.preconditioner(cast(T), dt)
+                elif amg32 is not None:
+                    precond_fn = lambda T: amg32.preconditioner()
+                if ell32 is not None:
+                    matvec_fn = lambda T: ell32.make_matvec(cast(T), dt)
+                else:
+                    # matrix-free: jvp of the f32 residual at the f32 iterate
+                    Tp32 = cast(state_T)
+
+                    def matvec_fn(T):
+                        T32 = cast(T)
+                        return lambda v: torch.func.jvp(
+                            lambda u: heat32.residual(u, Tp32, dt),
+                            (T32,), (v,))[1]
+                if sc.preconditioner == "jacobi":
+                    diag_fn = lambda T: hres32.jacobian_diag(cast(T), dt)
+            else:
+                if mg is not None:
+                    precond_fn = lambda T: mg.preconditioner(
+                        mg.linearization_states(T), dt)
+                elif dg_mg is not None:
+                    precond_fn = lambda T: dg_mg.preconditioner(T, dt)
+                elif amg is not None:
+                    precond_fn = lambda T: amg.preconditioner()
+                if ell is not None:
+                    matvec_fn = lambda T: ell.make_matvec(T, dt)
+                if sc.preconditioner == "jacobi":
+                    diag_fn = lambda T: hres.jacobian_diag(T, dt)
             if sc.jac_lag == "step":
                 if precond_fn is not None:
                     _pc = precond_fn(state_T)
@@ -377,11 +481,15 @@ class ThermoViscoProblem:
                     diag_fn = lambda T, _d=_dg: _d
             noise_fn = inc_diag = None
             if noise_rel or inc_forcing:
-                # the per-step Jacobi diagonal scales the increment-relative
-                # forcing (and the noise floor, when on)
-                inc_diag = hres.jacobian_diag(state_T, dt)
+                # the per-step Jacobi diagonal (the f32 twin's under mixed
+                # precision) scales the increment-relative forcing and the
+                # noise floor, when on
+                if mixed:
+                    inc_diag = hres32.jacobian_diag(state_T.to(f32), dt)
+                else:
+                    inc_diag = hres.jacobian_diag(state_T, dt)
                 if noise_rel:
-                    dd = inc_diag * state_T
+                    dd = inc_diag.to(state_T.dtype) * state_T
                     floor = noise_rel * torch.sqrt(torch.dot(dd, dd))
                     noise_fn = lambda T: floor
             return dict(precond_fn=precond_fn, matvec_fn=matvec_fn,
@@ -400,7 +508,13 @@ class ThermoViscoProblem:
                 matvec_fn=ops["matvec_fn"],
                 rtol=sc.newton_rtol, atol=sc.newton_atol,
                 max_it=sc.newton_max_it,
-                cg_rtol=sc.cg_rtol, cg_atol=sc.cg_atol, cg_max_it=sc.cg_max_it,
+                cg_rtol=cg_rtol, cg_atol=sc.cg_atol, cg_max_it=sc.cg_max_it,
+                cg_cast=f32 if mixed else None,
+                # a preconditioned f32 solve that has not improved in 25
+                # iterations is at its floor (Jacobi-CG plateaus for longer:
+                # newton_solve's default window of 100 stays)
+                cg_stall_window=(25 if (mixed and ops["precond_fn"]
+                                        is not None) else None),
                 inc_forcing=inc_forcing, inc_diag=ops["inc_diag"],
             )
             new_state = engine.material_step(state, res.x, dt)

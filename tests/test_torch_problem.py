@@ -148,12 +148,9 @@ def test_failed_chunk_is_retried_then_raises():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(fe=tc.FEConfig(T_family="DG"),
-          solver=tc.SolverConfig(linear_operator="stencil")), "Slice 3"),
     (dict(fe=tc.FEConfig(T_family="CG", T_degree=2)), "Slice 4"),
     (dict(fe=tc.FEConfig(T_family="DG", T_degree=2)), "Slice 4"),
     (dict(mechanics="equilibrium"), "Slice 5"),
-    (dict(solver=tc.SolverConfig(cg_dtype="float32")), "Slice 1 deferrals"),
 ])
 def test_later_slices_raise(change, match):
     cfg = dataclasses.replace(_cfg(tc), **change)
@@ -165,19 +162,38 @@ def test_later_slices_raise(change, match):
     (dict(solver=tc.SolverConfig(mg_table_dtype="bfloat16",
                                  preconditioner="mg")), "Slice 1 deferrals"),
     (dict(output=tc.OutputConfig(formats=("vtu",))), "Slice 6"),
-    # a DG-1 space on a structured box: "mg" (asked for, or what "auto"
-    # resolves to) is the DG multigrid of Slice 3, never another
-    # preconditioner in its place
-    (dict(fe=tc.FEConfig(T_family="DG"),
-          solver=tc.SolverConfig(preconditioner="mg")), "Slice 3"),
-    (dict(fe=tc.FEConfig(T_family="DG"),
-          solver=tc.SolverConfig(preconditioner="auto")), "Slice 3"),
 ])
 def test_later_slices_raise_at_setup(change, match):
     cfg = dataclasses.replace(_cfg(tc), **change)
     pt = TP(mesh=tbox(2, 2, 1, 1.0, 1.0, 0.01), config=cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         pt.setup()
+
+
+@pytest.mark.parametrize("change,dg_smoother", [
+    (dict(fe=tc.FEConfig(T_family="DG"),
+          solver=tc.SolverConfig(linear_operator="stencil")), None),
+    (dict(solver=tc.SolverConfig(cg_dtype="float32")), None),
+    # a DG-1 space on a structured box: "mg" (asked for, or what "auto"
+    # resolves to) is the DG multigrid, column-smoothed on this 50:1 plate
+    (dict(fe=tc.FEConfig(T_family="DG"),
+          solver=tc.SolverConfig(preconditioner="mg")), "column"),
+    (dict(fe=tc.FEConfig(T_family="DG"),
+          solver=tc.SolverConfig(preconditioner="auto")), "column"),
+])
+def test_slice3_configurations_set_up_and_step(change, dg_smoother):
+    """The DG block stencil, mixed precision and the DG multigrid set up
+    and take one converged step."""
+    from fem_glass_tempering_tpu_torch.solver.multigrid import DGMultigrid
+    cfg = dataclasses.replace(_cfg(tc), **change)
+    pt = TP(mesh=tbox(2, 2, 1, 1.0, 1.0, 0.01), config=cfg, device="cpu")
+    pt.setup()
+    if dg_smoother is not None:
+        assert pt.config.solver.preconditioner == "mg"
+        assert isinstance(pt._dg_mg, DGMultigrid)
+        assert pt._dg_mg.smoother == dg_smoother
+    st, ok, ni, _ = pt.step(pt.state)
+    assert ok and ni > 0 and bool(torch.isfinite(st.T).all())
 
 
 
@@ -292,7 +308,7 @@ def test_default_config_matches_jax_over_20_steps(mode):
 @pytest.mark.parametrize("dims,fam", [((3, 3, 2), "DG"), ((4, 3), "DG")])
 def test_dg_box_with_amg_matches_jax(dims, fam):
     """A DG-1 space on a structured box, SA-AMG and matrix-free CG stated
-    explicitly (what 'auto' resolves to there waits for Slice 3)."""
+    explicitly ('auto' resolves to the DG multigrid there)."""
     def cfg(m):
         return dataclasses.replace(
             _default_cfg(m, 3, preconditioner="amg"),
