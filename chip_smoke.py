@@ -38,9 +38,10 @@ Phases (each raises on failure; the exit code is then nonzero):
      run, and a checkpoint written at step 25 and resumed to step 50;
   6. the DG-1 plate at a real size: 64x64x16 hex cells, 524,288 T dofs,
      f64, rtol 1e-12, matrix-free CG + SA-AMG, 1 warm-up step and 3
-     timed steps; before it the same configuration at 8x8x4 on the GPU
-     against the port on the CPU (fields tight; iteration counts within
-     the ties that rtol 1e-12 leaves, see dg_parity_phase);
+     timed steps; before it the same configuration at 8x8x4 twice on the
+     GPU (equal bits: the gather residual's scatter-adds are grouped,
+     ops/scatter.py) and against the port on the CPU (fields tight,
+     Newton equal, CG within 1%: see dg_parity_phase);
   7. the DG-1 plate through preconditioner="auto" (the DG p-multigrid,
      column-smoothed, with its CG-1 geometric-MG correction) and the DG
      block stencil: (a) 8x8x4, 3 steps, the GPU against the CPU; (b) the
@@ -50,9 +51,20 @@ Phases (each raises on failure; the exit code is then nonzero):
      to what the code implies (K1 once a step, K2 25 times a V-cycle, no
      K3), and K2 held to its plain version on every CG-1 level's real
      value tables in the run's dtype; then the layers of one CG iteration
-     timed, and the memory each part of a step adds.
-Every main path (4, 5, 6, 7b f64, 7b mixed) runs with the launch counters
-set to 0 just before it and read just after. Then one JSON line per
+     timed, and the memory each part of a step adds;
+  8. equilibrium mechanics (mechanics="equilibrium": an elasticity solve
+     with the vector V-cycle of solver/grid_mg.py in every step): (a) the
+     JAX package's quenching-plate test, 4x4x16 CG-1, f64, 50 steps, the
+     GPU against the CPU (fields, equal Newton / heat-CG / elasticity-CG
+     counts, the membrane balance of the centre column), then an 8x8x4
+     DG-1 plate through "auto" with mechanics, 3 steps, GPU against CPU;
+     (b) the JAX package's first coupled row of 500k dofs or more, the
+     128x128x32 plate (549,153 T dofs, 1,647,459 displacement dofs), f32,
+     1 warm-up step and 5 timed steps: ms per step, the three iteration
+     counts, exact K1/K2 launches, layer times, setup by part, peak
+     memory, the residual-stress profile.
+Every main path (4, 5, 6, 7b f64, 7b mixed, 8b) runs with the launch
+counters set to 0 just before it and read just after. Then one JSON line per
 kernel, one {"kernels": [...]} line, the card's name and power limit,
 and last {"ok": true, "device": {...}}.
 
@@ -71,6 +83,7 @@ with contraction, ops/kernel_lib.py SOURCE_FLAGS, so `bound_ms` is its).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -87,6 +100,11 @@ TIMED_STEPS = 20
 N_DG = (64, 64, 16)              # 65,536 hex cells, 524,288 DG-1 dofs
 DG_TIMED_STEPS = 3
 DG_PARITY_STEPS = 3
+N_MECH = (128, 128, 32)          # 524,288 hex cells, 549,153 T dofs
+MECH_TIMED_STEPS = 5
+# the quenching plate: 50 steps with the reference xi, as the JAX
+# package's test; 20 with the trapezoid xi, the strict parity run
+MECH_PLATE_STEPS = dict(reference=50, trapezoid=20)
 KERNELS = ("material_tspace", "stencil_matvec", "dg_cell_residual")
 # the golden values of the default run (CPU reference, confirmed by the
 # independent numpy/scipy oracle of the JAX package's test-suite)
@@ -95,6 +113,7 @@ GOLDEN = dict(T_surf=(644.5809518419135, 1e-8),
               Tf_surf=(799.8808751898703, 1e-8),
               sigma_l2=(1.3725924857443605e-4, 1e-6))
 GOLDEN_NEWTON = 1501
+GOLDEN_CG = 5962
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 # Data-sheet rates outside the tensor cores. They count a fused
 # multiply-add as two operations: a kernel built with -fmad=false executes
@@ -811,9 +830,10 @@ def default_workload_phase(dev, port, scratch_dir) -> dict:
             fail(f"default run {name}: {got[name]!r} vs golden {want!r} "
                  f"(rel {rel})")
     d = prob.diagnostics
-    if d.newton_iters != GOLDEN_NEWTON:
-        fail(f"default run took {d.newton_iters} Newton iterations, the "
-             f"CPU reference {GOLDEN_NEWTON}")
+    if (d.newton_iters, d.krylov_iters) != (GOLDEN_NEWTON, GOLDEN_CG):
+        fail(f"default run took {d.newton_iters} Newton and "
+             f"{d.krylov_iters} CG iterations, the CPU reference "
+             f"{GOLDEN_NEWTON} and {GOLDEN_CG}")
     for name in ("dg_cell_residual", "material_tspace"):
         if launches[name] == 0:
             fail(f"the default run never launched {name}")
@@ -893,13 +913,14 @@ DG_AUTO = dict(preconditioner="auto", linear_operator="stencil")
 
 
 def dg_parity_phase(dev) -> dict:
-    """The DG plate configuration at 8x8x4, 3 steps: GPU against CPU."""
+    """The DG plate configuration at 8x8x4, 3 steps: the GPU twice, then
+    against the CPU."""
     from fem_glass_tempering_tpu_torch import config as tc
     from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
     from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
 
-    res = {}
-    for where in ("cpu", dev):
+    runs = []
+    for where in ("cpu", dev, dev):
         p = ThermoViscoProblem(mesh=box_mesh_3d(8, 8, 4, 1.0, 1.0, 0.01),
                                config=dg_plate_config(tc, DG_PARITY_STEPS),
                                device=where)
@@ -907,9 +928,17 @@ def dg_parity_phase(dev) -> dict:
         st, ok, ni, ki = p.multi_step(p.state, DG_PARITY_STEPS)
         if not ok:
             fail(f"8x8x4 DG parity run did not converge on {where}")
-        res[str(where)] = (st, ni, ki)
-    (sc, nc, kc), (sg, ng, kg) = res["cpu"], res[str(dev)]
-    out = dict(newton_cpu=nc, newton_gpu=ng, cg_cpu=kc, cg_gpu=kg)
+        runs.append((st, ni, ki))
+    (sc, nc, kc), (sg, ng, kg), (sg2, ng2, kg2) = runs
+    # The gather residual's scatter-adds go one group of distinct dofs at
+    # a time (ops/scatter.py): the card repeats its bits from run to run
+    repeat = all(torch.equal(getattr(sg, f), getattr(sg2, f))
+                 for f in ("T", "Tf", "sigma"))
+    out = dict(newton_cpu=nc, newton_gpu=ng, cg_cpu=kc, cg_gpu=kg,
+               gpu_repeats_its_bits=repeat)
+    if not repeat or (ng, kg) != (ng2, kg2):
+        fail(f"DG parity: two runs on the card differ ({ng}/{ng2} Newton, "
+             f"{kg}/{kg2} CG)")
     for f in ("T", "Tf"):
         a, b = getattr(sc, f).numpy(), getattr(sg, f).cpu().numpy()
         out[f"{f}_max_rel"] = float(np.abs(a - b).max() / np.abs(a).max())
@@ -919,15 +948,13 @@ def dg_parity_phase(dev) -> dict:
     out["sigma_rel_to_max"] = float(np.abs(a - b).max() / np.abs(a).max())
     if not out["sigma_rel_to_max"] <= 1e-6:
         fail(f"DG parity sigma: {out['sigma_rel_to_max']:.3e}")
-    # Iteration counts are held looser than in the CG-1 parity phase. At
-    # rtol 1e-12 both loops stop on the last bits: a CG solve takes ~80
-    # iterations here, and the last Newton increment of a step lies within
-    # rounding of its threshold. The card's atomic scatter-adds (six facet
-    # terms per dof, summed in an order that changes from run to run) and
-    # its reductions round differently from the CPU, so one Newton
-    # iteration per step and 5% of the CG total are ties, not faults. The
-    # fields above are the check of the result.
-    if abs(nc - ng) > DG_PARITY_STEPS or abs(kc - kg) > 0.05 * kc:
+    # Against the CPU the card rounds differently, not in another order:
+    # K3 is built with multiply-add contraction and the card's reductions
+    # and products associate their own way. At rtol 1e-12 a CG solve of
+    # ~80 iterations stops on the last bits, so the CG total moves by a
+    # few: 1,169 on the card against 1,179 (PERF.md, PR 6). Newton equal,
+    # CG within 1%
+    if nc != ng or abs(kc - kg) > 0.01 * kc:
         fail(f"DG parity iterations: newton {nc}/{ng}, cg {kc}/{kg}")
     log("DG parity " + json.dumps(out))
     return out
@@ -1260,6 +1287,377 @@ def dg_auto_plate_phase(dev, port) -> dict:
     return out
 
 
+def z_faces(mids):
+    """Flux only through the plate's z faces (z = 0 and z = 10): the
+    sides are insulated, as in the JAX package's mechanics runs."""
+    return (mids[:, 2] < 1e-9) | (mids[:, 2] > 10.0 - 1e-9)
+
+
+def mech_plate_config(tc, steps, **kw):
+    """The JAX package's coupled mechanics configurations on a CG-1
+    plate: `kw` sets the solver, the dtype, the parameters and the xi
+    formula (physics "corrected", mechanics "equilibrium")."""
+    solver = kw.pop("solver", {})
+    return tc.RunConfig(
+        fe=tc.FEConfig(T_family="CG", T_degree=1),
+        time=tc.TimeConfig(0.0, steps * 0.1, 0.1),
+        solver=tc.SolverConfig(**solver),
+        output=tc.OutputConfig(write_every=0, formats=()),
+        physics_mode="corrected", mechanics="equilibrium", **kw)
+
+
+def centre_profile(prob, st):
+    """z and sigma_xx of the sigma-space nodes on the plate's centre
+    column (x = y = 25), sorted by z."""
+    xs = prob.fs_sigma.dof_coords
+    c = (np.abs(xs[:, 0] - 25.0) < 1e-9) & (np.abs(xs[:, 1] - 25.0) < 1e-9)
+    z = xs[c][:, 2]
+    o = np.argsort(z)
+    return z[o], st.sigma[:, 0, 0].cpu().numpy()[c][o]
+
+
+def gpu_cpu_runs(dev, make, steps, port=None):
+    """The same problem `make(device)` for `steps` steps on the CPU and
+    on the card -> {where: (state, newton, cg, elasticity CG per step,
+    seconds, problem)}; with `port`, res["launches"] holds the kernel
+    launches of the card's run (counters set to 0 just before it)."""
+    res = {}
+    for where in ("cpu", dev):
+        p = make(where)
+        if port is not None and where == dev:
+            torch.cuda.synchronize()
+            reset_counts(port)
+        t0 = time.perf_counter()
+        st, ok, ni, ki = p.multi_step(p.state, steps)
+        if port is not None and where == dev:
+            torch.cuda.synchronize()
+            res["launches"] = read_counts(port)
+        if not ok:
+            fail(f"mechanics parity run did not converge on {where}")
+        res[str(where)] = (st, ni, ki, list(p.last_mech_iters),
+                           time.perf_counter() - t0, p)
+    return res
+
+
+def hold_parity(tag, res, dev, strict=True) -> dict:
+    """GPU against CPU: T, Tf max-rel 1e-9 and equal Newton and heat-CG
+    counts; with `strict`, also equal elasticity-CG counts in every step
+    and sigma, du within 1e-6 of their max. Without it (the reference xi,
+    mechanics_parity_phase) the elasticity-CG total within 5% and sigma
+    within 1e-3 of its max."""
+    (sc, nc, kc, mc, tc_, _), (sg, ng, kg, mg, tg, _) = (res["cpu"],
+                                                        res[str(dev)])
+    out = dict(newton_cpu=nc, newton_gpu=ng, cg_cpu=kc, cg_gpu=kg,
+               elast_cg_cpu=sum(mc), elast_cg_gpu=sum(mg),
+               seconds_cpu=tc_, seconds_gpu=tg)
+    for f in ("T", "Tf", "sigma", "du"):
+        a, b = getattr(sc, f).numpy(), getattr(sg, f).cpu().numpy()
+        out[f"{f}_max_rel"] = float(np.abs(a - b).max() / np.abs(a).max())
+    bad = [f for f, lim in (("T", 1e-9), ("Tf", 1e-9))
+           + ((("sigma", 1e-6), ("du", 1e-6)) if strict
+              else (("sigma", 1e-3),)) if not out[f"{f}_max_rel"] <= lim]
+    if bad or (nc, kc) != (ng, kg) or (
+            mc != mg if strict
+            else abs(sum(mc) - sum(mg)) > 0.05 * sum(mc)):
+        fail(f"{tag}: GPU against CPU {json.dumps(out)}, elasticity CG "
+             f"per step {mc} / {mg}")
+    return out
+
+
+def centre_profile_stats(prob, st) -> dict:
+    """The centre column's sigma_xx: |thickness mean|, max |.|, surfaces,
+    core, and the largest difference from its mirror image."""
+    z, pe = centre_profile(prob, st)
+    return dict(membrane_mean=float(abs(np.trapezoid(pe, z)
+                                        / (z[-1] - z[0]))),
+                sigma_xx_max_abs=float(np.abs(pe).max()),
+                sigma_xx_surfaces=(float(pe[0]), float(pe[-1])),
+                sigma_xx_core=float(pe[len(pe) // 2]),
+                asymmetry=float(np.abs(pe - pe[::-1]).max()))
+
+
+def membrane_balance(tag, prob, st) -> dict:
+    """The quench signature of tests/test_mechanics.py:98-112 on the
+    centre column: |thickness mean of sigma_xx| < 5% of max|sigma_xx|,
+    surfaces in tension, core in compression, symmetric to 5%."""
+    o = centre_profile_stats(prob, st)
+    peak = o["sigma_xx_max_abs"]
+    if not (o["membrane_mean"] < 0.05 * peak
+            and min(o["sigma_xx_surfaces"]) > 0 and o["sigma_xx_core"] < 0
+            and o["asymmetry"] <= 0.05 * peak):
+        fail(f"{tag}: no membrane balance {json.dumps(o)}")
+    return o
+
+
+def mechanics_parity_phase(dev, port) -> dict:
+    """Phase 8a: the JAX package's quenching plate (tests/
+    test_mechanics.py:60-112) with its reference xi and with the
+    trapezoid xi of phase 8b, and a DG-1 plate with mechanics, each the
+    GPU against the CPU.
+
+    With the reference xi the vector V-cycle has no dense coarse solve
+    (the frozen moduli need the trapezoid relax factor, models/
+    mechanics.py) and the elasticity CG asks for rtol 1e-12, the floor of
+    f64 for this operator: where a solve stops is decided by rounding, and
+    the 1e-2 increment tolerance lets two solves differ by up to 1e-2 of a
+    step's change. The port and the JAX package on one CPU differ so
+    (632 against 647 elasticity CG in 50 steps, sigma 8.9e-5 of its max),
+    and so may the card and the CPU: that run holds the temperatures, the
+    heat counts and the membrane balance, and sigma to 1e-3. The trapezoid
+    run (a dense coarse solve, a few iterations a step) is held strictly.
+    The card's run of the JAX test's plate counts its kernel launches: K1
+    once a step (the reference xi is K1's function), K2 in every heat
+    V-cycle, no K3."""
+    from fem_glass_tempering_tpu_torch import config as tc
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+    from fem_glass_tempering_tpu_torch.models.mechanics import (
+        DGNodeMechAdapter,
+        GridMechanicsCoupling,
+    )
+    from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
+
+    def plate(xi):
+        def make(where):
+            p = ThermoViscoProblem(
+                mesh=box_mesh_3d(4, 4, 16, 50.0, 50.0, 10.0),
+                config=mech_plate_config(tc, MECH_PLATE_STEPS[xi],
+                                         xi_formula=xi), device=where)
+            p.setup(flux_marker=z_faces)
+            if not isinstance(p._mech, GridMechanicsCoupling):
+                fail("the quenching plate does not take the grid coupling")
+            return p
+        return make
+
+    out = {}
+    for xi in ("reference", "trapezoid"):
+        tag = f"quenching plate, {xi} xi"
+        strict = xi == "trapezoid"
+        res = gpu_cpu_runs(dev, plate(xi), MECH_PLATE_STEPS[xi],
+                           port=None if strict else port)
+        o = hold_parity(tag, res, dev, strict=strict)
+        st, ni, ki, mi, _, prob = res[str(dev)]
+        if strict:
+            o["membrane_gpu"] = centre_profile_stats(prob, st)
+        else:
+            o["membrane_gpu"] = membrane_balance(tag, prob, st)
+            o["membrane_cpu"] = membrane_balance(tag, res["cpu"][5],
+                                                 res["cpu"][0])
+            # K1 once a step; one heat V-cycle per preconditioner apply
+            # (one as each CG solve starts, one per CG iteration: the
+            # outer operator is matrix-free); no K3 on the CG-1 grid
+            expect = dict(material_tspace=MECH_PLATE_STEPS[xi],
+                          stencil_matvec=k2_launches_per_vcycle(prob._mg)
+                          * (ni + ki), dg_cell_residual=0)
+            o["launches"] = res["launches"]
+            if res["launches"] != expect:
+                fail(f"{tag}: launches {res['launches']}, expected "
+                     f"{expect} ({ni} Newton + {ki} CG)")
+        o["elast_cg_per_step_gpu"] = mi
+        o["elast_cg_per_step_cpu"] = res["cpu"][3]
+        # the column solve of the plate's fine level (its smoother; the
+        # full-width plate of 8b smooths point-wise), at the final state
+        mech = prob._mech
+        mg = mech.mg
+        G, K = mech._moduli_at(st.xi.reshape(mech.el.grid))
+        Dg, Ug = mg._column_blocks(0, G.mean(-1), K.mean(-1))
+        zs = mg._column_solver(0, Dg, Ug)
+        r = torch.ones(mech.el.grid + (3,), dtype=G.dtype, device=G.device)
+        o["column_solve_ms"] = time_ms(lambda: zs(r), reps=20)
+        o["column_planes"] = mech.el.grid[mg._col_axis[0]]
+        o["dense_coarse"] = mg.coarse_inv is not None
+        log(f"mechanics {tag} " + json.dumps(o))
+        out[xi] = o
+
+    def dg_plate(where):
+        cfg = dataclasses.replace(
+            dg_plate_config(tc, DG_PARITY_STEPS, **DG_AUTO),
+            mechanics="equilibrium", physics_mode="corrected",
+            xi_formula="trapezoid")
+        p = ThermoViscoProblem(mesh=box_mesh_3d(8, 8, 4, 1.0, 1.0, 0.01),
+                               config=cfg, device=where)
+        p.setup()
+        if not isinstance(p._mech, DGNodeMechAdapter):
+            fail("the DG plate's mechanics is not the node-grid adapter")
+        return p
+
+    out["dg"] = hold_parity("DG mechanics", gpu_cpu_runs(
+        dev, dg_plate, DG_PARITY_STEPS), dev)
+    log("mechanics DG plate " + json.dumps(out["dg"]))
+    return out
+
+
+def matvec_table_terms(el, B, vg):
+    """GridElasticityOperator.matvec_table_g as the JAX version writes it:
+    a shifted multiply-reduce per stencil offset, summed in order."""
+    vp = torch.nn.functional.pad(el._mask(vg), (0, 0) + (1, 1) * el.d)
+    r = None
+    for off in el._offsets:
+        sl = tuple(slice(1 + off[i], 1 + off[i] + el.grid[i])
+                   for i in range(el.d))
+        term = (B[..., el._offset_index[off], :, :]
+                * vp[sl][..., None, :]).sum(-1)
+        r = term if r is None else r + term
+    return torch.where(el.pin_mask_g, vg, r)
+
+
+def mechanics_plate_phase(dev, port) -> dict:
+    """Phase 8b: the 128x128x32 coupled plate of the JAX package
+    (examples/mechanics_3d_tpu.py:63-80, BENCH.md "First >=500k coupled
+    row"), f32, 1 warm-up step and MECH_TIMED_STEPS timed steps."""
+    from fem_glass_tempering_tpu_torch import config as tc
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+    from fem_glass_tempering_tpu_torch.models.mechanics import (
+        GridMechanicsCoupling,
+    )
+    from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
+    from fem_glass_tempering_tpu_torch.solver.krylov import pcg
+
+    tag = "mechanics plate"
+    t0 = time.perf_counter()
+    prob = ThermoViscoProblem(
+        mesh=box_mesh_3d(*N_MECH, 50.0, 50.0, 10.0),
+        config=mech_plate_config(
+            tc, MECH_TIMED_STEPS, dtype="float32", xi_formula="trapezoid",
+            params=dataclasses.replace(tc.ModelParams(), T_0=900.0),
+            solver=dict(newton_rtol=1e-5, newton_atol=1e-6, cg_rtol=1e-5,
+                        cg_max_it=2000, preconditioner="mg",
+                        mg_smoother="chebyshev", linear_operator="stencil",
+                        jac_every="auto")),
+        device=dev)
+    prob.setup(flux_marker=z_faces)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    mech = prob._mech
+    if not isinstance(mech, GridMechanicsCoupling) or mech.mg is None:
+        fail(f"{tag}: not the grid coupling with the vector V-cycle")
+    n, nu = prob.fs_T.n_scalar_dofs, 3 * mech.el.n
+    if (n, nu) != (549_153, 1_647_459):
+        fail(f"{tag}: {n} T dofs, {nu} displacement dofs")
+    mg = mech.mg
+    levels = dict(heat=[lv.fine_dims for lv in prob._mg.levels],
+                  elasticity=[op.dims for op in mg.ops],
+                  elasticity_smoothers=mg._smoothers,
+                  elasticity_dense_coarse=mg.coarse_inv is not None)
+    log(f"{tag}: {n} T dofs, {nu} displacement dofs, setup {setup_s:.1f} s "
+        + json.dumps(prob.setup_seconds) + " " + json.dumps(levels))
+
+    st, ok, _, _ = prob.multi_step(prob.state, 1)           # warm-up
+    torch.cuda.synchronize()
+    if not ok:
+        fail(f"{tag}: warm-up step did not converge")
+    warm_mech = list(prob.last_mech_iters)
+    del st
+    state0 = prob.engine.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(port)
+    t0 = time.perf_counter()
+    st, ok, ni, ki = prob.multi_step(state0, MECH_TIMED_STEPS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_counts(port)
+    peak = torch.cuda.max_memory_allocated(dev)
+    mi = list(prob.last_mech_iters)
+    if not ok:
+        fail(f"{tag}: timed window did not converge")
+    for f in ("T", "Tf", "sigma", "du"):
+        if not bool(torch.isfinite(getattr(st, f)).all()):
+            fail(f"{tag}: non-finite {f}")
+    T_np = st.T.cpu().numpy()
+    if not (prob.params.T_ambient - 1 < T_np.min() <= T_np.max()
+            < prob.params.T_0 + 1):
+        fail(f"{tag}: T out of [T_ambient, T_0]: {T_np.min()} .. "
+             f"{T_np.max()}")
+    # K2: every Newton iteration applies the heat Jacobian (the stencil)
+    # once before its CG starts and every CG iteration once more, each
+    # with a heat V-cycle of k2_launches_per_vcycle stencil applies. No K1:
+    # the trapezoid xi is not K1's function (K1 computes the reference xi,
+    # as the JAX package's kernel does; models/viscoelastic.py), so the
+    # T-space chain is plain PyTorch here, as it is plain XLA there. The
+    # elasticity solve is plain PyTorch; no K3 on the CG-1 grid path
+    per_apply = 1 + k2_launches_per_vcycle(prob._mg)
+    expect = dict(material_tspace=0,
+                  stencil_matvec=per_apply * (ni + ki), dg_cell_residual=0)
+    if launches != expect or len(mi) != MECH_TIMED_STEPS:
+        fail(f"{tag}: launches {launches}, expected {expect} ({ni} Newton "
+             f"+ {ki} CG), elasticity CG per step {mi}")
+    z, pe = centre_profile(prob, st)
+    out = dict(dofs=n, displacement_dofs=nu, setup_s=setup_s,
+               setup_parts_s=prob.setup_seconds, levels=levels,
+               ms_per_step=elapsed / MECH_TIMED_STEPS * 1e3,
+               newton_per_step=ni / MECH_TIMED_STEPS,
+               cg_per_step=ki / MECH_TIMED_STEPS,
+               elast_cg_per_step=sum(mi) / MECH_TIMED_STEPS,
+               elast_cg_each_step=mi, elast_cg_warmup=warm_mech,
+               launches=launches, k2_launches_per_apply=per_apply,
+               max_memory_allocated_bytes=peak,
+               T_min=float(T_np.min()), T_max=float(T_np.max()),
+               sigma_xx_surface=float(pe[0]),
+               sigma_xx_core=float(pe[len(pe) // 2]),
+               sigma_xx_thickness_mean=float(
+                   np.trapezoid(pe, z) / (z[-1] - z[0])),
+               sigma_xx_max_abs=float(np.abs(pe).max()))
+
+    # the layers, at the final state: K2 on the heat V-cycle's fine level,
+    # then the elasticity solve's parts
+    fine = prob._grid
+    rng = np.random.default_rng(5)
+    vals2 = fine.stencil_values(st.T, prob.dt).reshape(27, fine.grid[0], -1)
+    x = torch.tensor(rng.standard_normal(n), dtype=prob.dtype, device=dev)
+    out["k2_fine_max_abs_err"] = check_stencil(vals2, x, fine.grid, 1e-5,
+                                               port)
+    del vals2, x
+    el = mech.el
+    G, K = mech._moduli_at(st.xi.reshape(el.grid))
+    tbl = el.stencil_table_g(G, K)
+    pc = mg.preconditioner_g(G, K, fine_table=tbl)
+    v = torch.tensor(rng.standard_normal(el.grid + (3,)), dtype=G.dtype,
+                     device=dev)
+    mv = lambda u: el.matvec_table_g(tbl, u)  # noqa: E731
+    diag = el.jacobian_diag_g(G, K)
+    # the block-table matvec in the JAX version's form (one shifted
+    # multiply-reduce per offset) gives the same bits on the card
+    if not torch.equal(mv(v), matvec_table_terms(el, tbl, v)):
+        fail(f"{tag}: the block-table matvec differs from its term-by-term "
+             f"form")
+
+    def cg(k):
+        return pcg(mv, v, diag=diag, precond=pc, rtol=0.0, max_it=k)
+
+    layers = dict(
+        elast_table_build=time_ms(lambda: el.stencil_table_g(G, K), reps=5),
+        elast_vcycle_build=time_ms(
+            lambda: mg.preconditioner_g(G, K, fine_table=tbl), reps=3,
+            warm=1),
+        elast_matvec=time_ms(lambda: mv(v), reps=10),
+        elast_matvec_term_by_term=time_ms(
+            lambda: matvec_table_terms(el, tbl, v), reps=10),
+        elast_vcycle_apply=time_ms(lambda: pc(v), reps=5),
+        elast_cg_iteration=(time_ms(lambda: cg(10), reps=2, warm=1)
+                            - time_ms(lambda: cg(0), reps=2, warm=1)) / 10,
+        material_step=time_ms(lambda: prob.engine.material_step(
+            st, st.T, prob.dt), reps=5),
+        column_solve=None)
+    out["layers_ms"] = layers
+    # the per-step estimate of the elasticity share from the layers: the
+    # CG iterations, the CG's table build, and a V-cycle build per chunk
+    out["elast_ms_per_step_estimate"] = (
+        out["elast_cg_per_step"] * layers["elast_cg_iteration"]
+        + layers["elast_table_build"]
+        + layers["elast_vcycle_build"] / MECH_TIMED_STEPS)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    del pc
+    pc = mg.preconditioner_g(G, K, fine_table=tbl)
+    torch.cuda.synchronize()
+    out["elast_vcycle_build_peak_added_bytes"] = \
+        torch.cuda.max_memory_allocated(dev) - base
+    out["elast_table_bytes"] = tbl.numel() * tbl.element_size()
+    log(tag + " " + json.dumps(out))
+    return out
+
+
 def profile(prob, dev, out_dir) -> None:
     """torch.profiler over 5 full-size steps: kernel time by name and the
     device's busy share of the window."""
@@ -1417,6 +1815,12 @@ def main() -> int:
     dg_auto_parity = dg_auto_parity_phase(dev)
     dg_auto = dg_auto_plate_phase(dev, port)
 
+    # ---- phase 8: equilibrium mechanics ----
+    drop_garbage("phase 8a")
+    mech_parity = mechanics_parity_phase(dev, port)
+    drop_garbage("phase 8b")
+    mech = mechanics_plate_phase(dev, port)
+
     k1_32 = k1["float32"]
     sigma_ms = full["material_step_ms"] - k1_32["ms"]
     log(f"material step {full['material_step_ms']:.4f} ms, of which K1 "
@@ -1430,7 +1834,11 @@ def main() -> int:
              max_abs_err=k1_32["max_abs_err"], ms=k1_32["ms"],
              plain_ms=k1_32["plain_ms"], bound_ms=k1_32["bound_ms"],
              bound_by=k1_32["bound_by"], library_ms=None,
-             device_ms=k1_32["device_ms"], f64=k1["float64"]),
+             device_ms=k1_32["device_ms"], f64=k1["float64"],
+             launches_mechanics_plate_reference_xi=mech_parity[
+                 "reference"]["launches"]["material_tspace"],
+             launches_mechanics_plate_trapezoid_xi=mech["launches"][
+                 "material_tspace"]),
         dict(name="stencil_matvec", route="cuda",
              source="fem_glass_tempering_tpu_torch/csrc/stencil_matvec.cu",
              replaces="fem_glass_tempering_tpu/ops/pallas_stencil.py:54",
@@ -1440,6 +1848,8 @@ def main() -> int:
              launches_dg_auto_f64=dg_auto["same"]["launches"][
                  "stencil_matvec"],
              launches_dg_auto_mixed=dg_auto["float32"]["launches"][
+                 "stencil_matvec"],
+             launches_mechanics_plate_trapezoid_xi=mech["launches"][
                  "stencil_matvec"]),
         # timed at the DG plate's shape (65,536 hex cells, uniform tables,
         # f64) in the heat operator's prepared call; no single PyTorch call
@@ -1465,6 +1875,8 @@ def main() -> int:
                  "dg_cell_residual"],
              launches_dg_auto_mixed=dg_auto["float32"]["launches"][
                  "dg_cell_residual"],
+             launches_mechanics_plate_trapezoid_xi=mech["launches"][
+                 "dg_cell_residual"],
              per_cell_tables=k3["per_cell"]),
     ]
     for k in kernels:
@@ -1475,6 +1887,8 @@ def main() -> int:
     log("summary DG plate " + json.dumps(plate))
     log("summary DG auto parity " + json.dumps(dg_auto_parity))
     log("summary DG auto plate " + json.dumps(dg_auto))
+    log("summary mechanics parity " + json.dumps(mech_parity))
+    log("summary mechanics plate " + json.dumps(mech))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

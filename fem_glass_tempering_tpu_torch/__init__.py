@@ -6,11 +6,14 @@ The JAX package beside it is the reference this package is tested
 against. Layout mirrors it, so each module's counterpart sits at the same
 path:
   - fem/      mesh, element tabulation, function spaces (numpy)
-  - ops/      heat operator, stencil and grid operators, interpolation,
-              and the hand-written CUDA kernels (cuda_kernels.py,
-              cuda_stencil.py; sources under csrc/)
-  - solver/   Newton, preconditioned CG, geometric multigrid
-  - models/   thermal + viscoelastic physics, the problem driver
+  - ops/      heat operator, stencil and grid operators, elasticity
+              operators, interpolation, grouped scatter-adds, and the
+              hand-written CUDA kernels (cuda_kernels.py, cuda_stencil.py,
+              cuda_dg_cell.py; sources under csrc/)
+  - solver/   Newton, preconditioned CG, geometric multigrid (heat and
+              the vector elasticity V-cycle), SA-AMG
+  - models/   thermal + viscoelastic physics, equilibrium mechanics, the
+              problem driver
   - io/       npz time series
 
 Entry points run on the GPU (`device="cuda"`, the default) and raise when

@@ -16,11 +16,12 @@ and, on boxes, stencil Krylov operators (the CG-1 nodal stencil, the DG
 block stencil); the Jacobi, multigrid (geometric MG for CG-1 boxes, the
 DG p-multigrid for DG-1 boxes), SA-AMG or no preconditioner; mixed
 precision (cg_dtype='float32' under f64: an f32 inner CG with f32 twins
-of the operator and the preconditioner); checkpoints. The default
-constructor is the reference's default workload (DG-1 on the graded 1D
-slab, matrix-free CG, SA-AMG). CG-2 and equilibrium mechanics raise
-NotImplementedError naming the slice of the port that brings them
-(ROADMAP.md).
+of the operator and the preconditioner); equilibrium mechanics
+(mechanics='equilibrium': an elasticity solve inside every material step,
+models/mechanics.py); checkpoints. The default constructor is the
+reference's default workload (DG-1 on the graded 1D slab, matrix-free CG,
+SA-AMG). CG-2 raises NotImplementedError naming the slice of the port
+that brings it (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -51,11 +52,13 @@ from fem_glass_tempering_tpu_torch.solver.newton import newton_solve
 
 @dataclass
 class StepDiagnostics:
-    """Per-solve diagnostics: Newton and CG totals, convergence flag,
-    output seconds, dt halvings taken."""
+    """Per-solve diagnostics: Newton, CG and elasticity-CG totals,
+    convergence flag, output seconds, dt halvings taken."""
 
     newton_iters: int = 0
     krylov_iters: int = 0
+    # elasticity CG iterations (mechanics='equilibrium')
+    mech_krylov_iters: int = 0
     converged: bool = True
     io_seconds: float = 0.0
     dt_halvings: int = 0
@@ -133,8 +136,6 @@ class ThermoViscoProblem:
         fe = run_cfg.fe
         if fe.T_degree != 1:
             raise _waits("a degree-2 temperature space", "Slice 4")
-        if run_cfg.mechanics != "none":
-            raise _waits("mechanics='equilibrium'", "Slice 5")
         self.fs_T = FunctionSpace(self.mesh, fe.T_family, fe.T_degree)
         self.fs_sigma = FunctionSpace(self.mesh, fe.sigma_family, fe.sigma_degree,
                                       value_shape=(self.dim, self.dim))
@@ -154,6 +155,9 @@ class ThermoViscoProblem:
         )
         self.heat: HeatOperator | None = None
         self.state: ViscoState | None = None
+        # the elasticity CG count of each step of the last step() or
+        # multi_step() call (mechanics='equilibrium'; else empty)
+        self.last_mech_iters: list[int] = []
         self._writers: list = []
         self.diagnostics = StepDiagnostics()
 
@@ -232,6 +236,13 @@ class ThermoViscoProblem:
             except ValueError:
                 if sc.grid_native == "on":
                     raise
+        # equilibrium mechanics: the grid coupling on CG-1 grids and DG
+        # boxes (through the T -> sigma cross-eval), the flat one otherwise
+        self._mech = None
+        if self.config.mechanics == "equilibrium":
+            t_mech = _time.perf_counter()
+            self._mech = self._build_mechanics()
+            self.setup_seconds["mechanics"] = _time.perf_counter() - t_mech
         # mixed precision: the inner CG runs in f32 under the f64 Newton
         # loop, on f32 twins of the operators; the multigrid hierarchy is
         # then built as its f32 twin alone
@@ -294,6 +305,37 @@ class ThermoViscoProblem:
                 self.config,
                 output=dataclasses.replace(self.config.output, output_dir=output_dir))
         self._setup_writers()
+
+    def _build_mechanics(self):
+        """The equilibrium coupling and its tolerances: the elasticity CG
+        asks for min(cg_rtol, 1e-8) (at least 2e-6 in f32, where residual
+        norms bottom out), mech_inc_rtol (None -> 1e-2) relative to a warm
+        start, and at least 2000 iterations."""
+        from fem_glass_tempering_tpu_torch.models.mechanics import (
+            DGNodeMechAdapter,
+            GridMechanicsCoupling,
+            MechanicsCoupling,
+        )
+        sc = self.config.solver
+        rtol = min(sc.cg_rtol, 1e-8)
+        if self.dtype == torch.float32:
+            rtol = max(rtol, 2e-6)
+        inc = 1e-2 if sc.mech_inc_rtol is None else sc.mech_inc_rtol
+        kw = dict(dtype=self.dtype, cg_rtol=rtol,
+                  cg_max_it=max(sc.cg_max_it, 2000), inc_rtol=inc)
+        dg_box = (self.fs_T.family == "DG"
+                  and self.mesh.structured is not None)
+        if self._grid is not None or dg_box:
+            try:
+                gm = GridMechanicsCoupling(self.fs_sigma, self.engine, **kw)
+            except ValueError:
+                pass
+            else:
+                if self.fs_T.family == "DG":
+                    return DGNodeMechAdapter(gm, self.engine.to_sigma.eval)
+                return gm
+        return MechanicsCoupling(self.fs_T, self.fs_sigma, self.engine,
+                                 **kw)
 
     def _build_multigrid(self, heat: HeatOperator, dirichlet_bc, bc_val):
         """The frozen multigrid preconditioner of `heat`'s space in its
@@ -427,12 +469,17 @@ class ThermoViscoProblem:
         if inc_forcing is None:
             inc_forcing = 0.05
 
-        def build_ops(lin_state, dt):
+        mech_fn = self._mech
+
+        def build_ops(lin_state, dt, lag_mech=False):
             """Operator bundle at the chunk-start state. With jac_lag="step"
             the Krylov operator, the preconditioner and the Jacobi diagonal
             are frozen there (one build per step, or per jac_every chunk);
             with "newton" they are rebuilt at every Newton iterate. Under
-            mixed precision they are the f32 twins', at the f32 iterate."""
+            mixed precision they are the f32 twins', at the f32 iterate.
+            `lag_mech` also freezes the elasticity V-cycle for the chunk
+            (only for chunks of several steps: per step it would repeat the
+            fine table build that the coupling shares with its V-cycle)."""
             state_T = lin_state.T
             precond_fn = matvec_fn = diag_fn = None
             if mixed:
@@ -492,8 +539,11 @@ class ThermoViscoProblem:
                     dd = inc_diag.to(state_T.dtype) * state_T
                     floor = noise_rel * torch.sqrt(torch.dot(dd, dd))
                     noise_fn = lambda T: floor
+            mech_pre = (mech_fn.build_precond(lin_state)
+                         if (lag_mech and mech_fn is not None) else None)
             return dict(precond_fn=precond_fn, matvec_fn=matvec_fn,
-                        diag_fn=diag_fn, noise_fn=noise_fn, inc_diag=inc_diag)
+                        diag_fn=diag_fn, noise_fn=noise_fn, inc_diag=inc_diag,
+                        mech_pre=mech_pre)
 
         def step(state: ViscoState, dt, ops=None):
             """One coupled step -> (state, converged, newton, cg)."""
@@ -517,7 +567,14 @@ class ThermoViscoProblem:
                                         is not None) else None),
                 inc_forcing=inc_forcing, inc_diag=ops["inc_diag"],
             )
-            new_state = engine.material_step(state, res.x, dt)
+            mech_call = mech_fn
+            if ops["mech_pre"] is not None:
+                mech_call = (lambda st, xi, th, _p=ops["mech_pre"]:
+                             mech_fn(st, xi, th, precond=_p))
+            new_state = engine.material_step(state, res.x, dt,
+                                             mech=mech_call)
+            if mech_fn is not None:
+                self.last_mech_iters.append(int(mech_fn.last_cg_iters))
             finite = bool(torch.isfinite(res.x).all())
             return new_state, res.converged and finite, res.iters, res.krylov_iters
 
@@ -529,7 +586,7 @@ class ThermoViscoProblem:
             for c0 in range(0, n, jac_every):
                 # jac_every chunking: rebuild the frozen operator bundle
                 # every jac_every steps (one step per chunk when 1)
-                ops = build_ops(state, dt)
+                ops = build_ops(state, dt, lag_mech=jac_every > 1)
                 for _ in range(min(jac_every, n - c0)):
                     state, conv, it, kit = step(state, dt, ops)
                     ok, ni, ki = ok and conv, ni + it, ki + kit
@@ -541,13 +598,17 @@ class ThermoViscoProblem:
     # ------------------------------------------------------------------
     def step(self, state: ViscoState, dt: float | None = None):
         """One coupled time step from `state` -> (state, converged,
-        newton_iters, cg_iters). Does not touch self.state."""
+        newton_iters, cg_iters). Does not touch self.state; the elasticity
+        CG count lands in last_mech_iters."""
+        self.last_mech_iters = []
         return self._step_fn(state, self.dt if dt is None else dt)
 
     def multi_step(self, state: ViscoState, n: int, dt: float | None = None):
         """n coupled steps from `state`, with the Krylov operator and the
         V-cycle rebuilt every `jac_every` steps -> (state, all converged,
-        newton_iters, cg_iters). Does not touch self.state."""
+        newton_iters, cg_iters). Does not touch self.state; the elasticity
+        CG count of each step lands in last_mech_iters."""
+        self.last_mech_iters = []
         return self._multi_step_fn(state, n, self.dt if dt is None else dt)
 
     def solve_timestep(self, check_convergence: bool = True) -> ViscoState:
@@ -560,6 +621,7 @@ class ThermoViscoProblem:
         self.t += self.dt
         self.diagnostics.newton_iters += int(iters)
         self.diagnostics.krylov_iters += int(kiters)
+        self.diagnostics.mech_krylov_iters += sum(self.last_mech_iters)
         return state
 
     def solve(self, progress: bool = False,
@@ -580,15 +642,17 @@ class ThermoViscoProblem:
             # state doubles as the retry snapshot
             snapshot = self.state
             self.state, ok, ni, ki = self.multi_step(self.state, n)
+            mi = sum(self.last_mech_iters)
             if not ok:
                 if not adaptive:
                     raise RuntimeError(
                         f"Newton failed to converge in steps {done}..{done + n}")
-                self.state, ni, ki = self._retry_chunk(snapshot, n)
+                self.state, ni, ki, mi = self._retry_chunk(snapshot, n)
             done += n
             self.t = self.time[0] + done * self.dt
             self.diagnostics.newton_iters += int(ni)
             self.diagnostics.krylov_iters += int(ki)
+            self.diagnostics.mech_krylov_iters += mi
             t_io = _time.time()
             for w in self._writers:
                 w.write(self.t, self.state)
@@ -611,24 +675,26 @@ class ThermoViscoProblem:
 
     def _retry_chunk(self, snapshot: ViscoState, n: int):
         """Rerun a failed n-step chunk at successively halved dt (2^level
-        sub-chunks of n steps each); raise after solver.max_dt_halvings."""
+        sub-chunks of n steps each) -> (state, newton, cg, elasticity CG);
+        raise after solver.max_dt_halvings."""
         sc = self.config.solver
         dt = self.dt
         for level in range(1, sc.max_dt_halvings + 1):
             dt = dt / 2.0
             state = snapshot
             ok_all = True
-            ni_tot = ki_tot = 0
+            ni_tot = ki_tot = mi_tot = 0
             for _ in range(2 ** level):
                 state, ok, ni, ki = self.multi_step(state, n, dt)
                 ni_tot += int(ni)
                 ki_tot += int(ki)
+                mi_tot += sum(self.last_mech_iters)
                 if not ok:
                     ok_all = False
                     break
             if ok_all:
                 self.diagnostics.dt_halvings += level
-                return state, ni_tot, ki_tot
+                return state, ni_tot, ki_tot, mi_tot
         raise RuntimeError(
             f"Newton failed even after {sc.max_dt_halvings} dt halvings")
 

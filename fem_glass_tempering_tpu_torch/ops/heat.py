@@ -16,7 +16,8 @@ with s = 0.001 the reference's boundary scale. The SIPG terms are
 (ThermoViscoProblem.py:318-325) with penalty = 5.0 and h = the '+' cell's
 measure over the facet's (ops/assembly.py build_interior_geometry).
 Geometry factors are setup-time numpy copied to the device; assembly is
-gather -> cell kernel / einsum -> `index_add`. The cell term (mass, source,
+gather -> cell kernel / einsum -> grouped `index_add` (ops/scatter.py: the
+same bits on every run of the card). The cell term (mass, source,
 diffusion) is the hand-written kernel of ops/cuda_dg_cell.py on CUDA
 tensors and its plain version on CPU tensors, for DG and CG spaces alike;
 its tables are fixed, so the operator prepares the call once.
@@ -41,6 +42,7 @@ from fem_glass_tempering_tpu_torch.ops.assembly import (
 from fem_glass_tempering_tpu_torch.ops.cuda_dg_cell import (
     PreparedDGCellResidual,
 )
+from fem_glass_tempering_tpu_torch.ops.scatter import GroupedScatter
 
 
 class HeatOperator:
@@ -90,6 +92,7 @@ class HeatOperator:
         self.np_b_phi = np.asarray(bg.phi)
 
         self.dofmap = i64(fs.dofmap)                      # (c, l)
+        self._sc_cell = GroupedScatter(fs.dofmap, self.n_dofs, self.device)
         # uniform box meshes: all cells congruent -> single-cell tables
         self.uniform = mesh.structured is not None
         if self.uniform:
@@ -103,6 +106,8 @@ class HeatOperator:
         self.phi = f(cg.phi)                              # (q, l)
 
         self.b_dofmap = i64(self.np_b_dofmap)             # (f, l)
+        self._sc_b = GroupedScatter(self.np_b_dofmap, self.n_dofs,
+                                    self.device)
         self.b_qw = f(bg.qweights)                        # (f, q)
         self.b_phi = f(bg.phi)                            # (f, q, l)
 
@@ -171,12 +176,10 @@ class HeatOperator:
         self.i_dnphi_p = f(self.np_i["dnphi_p"])
         self.i_dnphi_m = f(self.np_i["dnphi_m"])
         self.i_h_p = f(self.np_i["h_p"])                  # (f,)
-
-    def _scatter(self, vals_cell: torch.Tensor,
-                 dofmap: torch.Tensor) -> torch.Tensor:
-        out = torch.zeros(self.n_dofs, dtype=vals_cell.dtype,
-                          device=vals_cell.device)
-        return out.index_add(0, dofmap.reshape(-1), vals_cell.reshape(-1))
+        self._sc_p = GroupedScatter(self.np_i["dofmap_p"], self.n_dofs,
+                                    self.device)
+        self._sc_m = GroupedScatter(self.np_i["dofmap_m"], self.n_dofs,
+                                    self.device)
 
     def _base_residual(self, T, T_prev, dt=None):
         p = self.params
@@ -185,7 +188,7 @@ class HeatOperator:
         r_cell = self._cell_term(
             T[self.dofmap], T_prev[self.dofmap], dt=dt, c_mass=self.c_mass,
             c_diff=self.c_diff, f_src=p.f)
-        r = self._scatter(r_cell, self.dofmap)
+        r = self._sc_cell(r_cell)
 
         # ---- boundary (radiation + convection, Robin-type) ----
         Tb = torch.einsum("fql,fl->fq", self.b_phi, T[self.b_dofmap])
@@ -194,7 +197,7 @@ class HeatOperator:
             + p.htc * (Tb - p.T_ambient)
         )
         r_b = torch.einsum("fq,fql->fl", self.b_qw * dt * gflux, self.b_phi)
-        r = r + self._scatter(r_b, self.b_dofmap)
+        r = r + self._sc_b(r_b)
 
         # ---- SIPG interior facets (DG only) ----
         if self.is_dg:
@@ -214,8 +217,8 @@ class HeatOperator:
             r_m = (-ein("fq,fql->fl", coef * pen_h * jumpT, self.i_phi_m)
                    - ein("fq,fql->fl", coef * 0.5 * jumpT, self.i_dnphi_m)
                    + ein("fq,fql->fl", coef * avg_dT, self.i_phi_m))
-            r = r + self._scatter(r_p, self.i_dofmap_p)
-            r = r + self._scatter(r_m, self.i_dofmap_m)
+            r = r + self._sc_p(r_p)
+            r = r + self._sc_m(r_m)
         return r
 
     def residual(self, T, T_prev, dt=None):
@@ -276,7 +279,7 @@ class HeatOperator:
         d_b = torch.einsum(
             "fq,fql,fql->fl", self.b_qw * dt * dflux, self.b_phi, self.b_phi)
         d_mass, d_stiff = self._const_diag
-        d = d_mass + dt * d_stiff + self._scatter(d_b, self.b_dofmap)
+        d = d_mass + dt * d_stiff + self._sc_b(d_b)
         if self.has_bc:
             d = torch.where(self.bc_mask, torch.ones_like(d), d)
         return d

@@ -6,8 +6,8 @@ residual). For the heat Jacobian
   J(T) = M + dt*(alpha*K + SIPG) + dt*B'(T)
 only the boundary linearization B'(T) changes between CG solves, so M and
 (alpha*K + SIPG) are pre-assembled into device-resident ELL arrays at
-setup (numpy), the per-iterate boundary blocks are added with one
-scatter-add, and CG matvecs run as gather + row-sum:
+setup (numpy), the per-iterate boundary blocks are added with grouped
+scatter-adds (ops/scatter.py), and CG matvecs run as gather + row-sum:
 
   y[i] = sum_k vals[i, k] * x[cols[i, k]]
 
@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from fem_glass_tempering_tpu_torch.ops.heat import HeatOperator
+from fem_glass_tempering_tpu_torch.ops.scatter import GroupedScatter
 
 
 def _pair_keys(a: np.ndarray, b: np.ndarray, n: int) -> np.ndarray:
@@ -126,8 +127,9 @@ class EllMatrix:
         if b_keys is not None:
             self.np_b_flat_idx = flat_idx(b_keys).astype(np.int64)
             self.b_flat_idx = torch.as_tensor(self.np_b_flat_idx, device=dev)
+            self._sc_b = GroupedScatter(self.np_b_flat_idx, n * K, dev)
         else:
-            self.np_b_flat_idx = self.b_flat_idx = None
+            self.np_b_flat_idx = self.b_flat_idx = self._sc_b = None
 
     # ------------------------------------------------------------------
     def values_at(self, T: torch.Tensor, dt) -> torch.Tensor:
@@ -141,9 +143,9 @@ class EllMatrix:
                 4.0 * p.sigma * p.epsilon * Tb**3 + p.htc)
             blocks = torch.einsum("fq,fql,fqm->flm", op.b_qw * dt * dflux,
                                   op.b_phi, op.b_phi)
-            # b_flat_idx repeats (facets sharing a dof pair): index_add
-            vals = vals.reshape(-1).index_add(
-                0, self.b_flat_idx, blocks.reshape(-1)).reshape(self.n, self.K)
+            # b_flat_idx repeats (facets sharing a dof pair): grouped adds
+            vals = self._sc_b.add_(vals.reshape(-1), blocks).reshape(
+                self.n, self.K)
         return vals
 
     def matvec(self, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

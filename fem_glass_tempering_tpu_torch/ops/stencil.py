@@ -4,7 +4,8 @@ Counterpart of fem_glass_tempering_tpu/ops/stencil.py (StencilMatrix). On
 a structured grid the Jacobian is a 3^d-point stencil, so the matvec needs
 no gather: J x = sum_o vals[o] * shift(x, o). The constant mass/stiffness
 parts are laid out once at setup (numpy); the per-Newton boundary
-linearization is scattered into a precomputed index set.
+linearization is scattered into a precomputed index set, one group of
+distinct targets at a time (ops/scatter.py).
 
 The production apply is `matvec_flat`: the minor grid axes merge into one
 flat axis (gx, gy*gz), and the apply is the hand-written CUDA kernel of
@@ -24,6 +25,10 @@ import torch.nn.functional as F
 
 from fem_glass_tempering_tpu_torch.ops.cuda_stencil import stencil_matvec
 from fem_glass_tempering_tpu_torch.ops.heat import HeatOperator
+from fem_glass_tempering_tpu_torch.ops.scatter import (
+    GroupedScatter,
+    occurrence_groups,
+)
 
 
 class StencilMatrix:
@@ -129,11 +134,11 @@ class StencilMatrix:
                                      b_dofmap.shape[:1] + (nb, nb))
             b_cols = np.broadcast_to(b_dofmap[:, None, :],
                                      b_dofmap.shape[:1] + (nb, nb))
-            self.b_st_idx = torch.as_tensor(
-                offset_flat(b_rows.reshape(-1), b_cols.reshape(-1)),
-                device=op.device)
+            st_idx = offset_flat(b_rows.reshape(-1), b_cols.reshape(-1))
+            self.b_st_idx = torch.as_tensor(st_idx, device=op.device)
+            self._sc_b = GroupedScatter(st_idx, self.n_off * n, op.device)
         else:
-            self.b_st_idx = None
+            self.b_st_idx = self._sc_b = None
         self.n = n
         self.d = d
 
@@ -158,8 +163,8 @@ class StencilMatrix:
             dflux = p.boundary_scale * (4.0 * p.sigma * p.epsilon * Tb**3 + p.htc)
             blocks = torch.einsum("fq,fql,fqm->flm", op.b_qw * dt * dflux,
                                   op.b_phi, op.b_phi)
-            vals = vals.reshape(-1).index_add(
-                0, self.b_st_idx, blocks.reshape(-1)).reshape(vals.shape)
+            vals = self._sc_b.add_(vals.reshape(-1), blocks).reshape(
+                vals.shape)
         return vals
 
     def np_dense(self, T0: float, dt: float) -> np.ndarray:
@@ -241,21 +246,6 @@ def _bmv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.matmul(M, v.unsqueeze(-1)).squeeze(-1)
 
 
-def _occurrence_groups(cells: np.ndarray) -> list:
-    """Split the entries of `cells` into groups of distinct cells: group k
-    holds the k-th entry of every cell, in entry order. Adding one group
-    at a time is a scatter-add without repeated indices, so the card
-    gives the same bits on every run, and every cell receives its addends
-    in entry order, as a sequential scatter-add does."""
-    order = np.argsort(cells, kind="stable")
-    sc = cells[order]
-    start = np.r_[0, np.flatnonzero(np.diff(sc)) + 1]
-    counts = np.diff(np.r_[start, len(sc)])
-    rank = np.empty(len(sc), dtype=np.int64)
-    rank[order] = np.arange(len(sc)) - np.repeat(start, counts)
-    return [np.flatnonzero(rank == k) for k in range(int(rank.max()) + 1)]
-
-
 class DGStencilMatrix:
     """Gather-free SIPG-DG Jacobian on structured box meshes.
 
@@ -274,7 +264,8 @@ class DGStencilMatrix:
 
     Neighbour access is slicing of the (*cell_dims, nloc) cell grid. The
     boundary-facet terms are added one group of distinct cells at a time
-    (`_occurrence_groups`), never by a scatter with repeated indices.
+    (ops/scatter.py `occurrence_groups`), never by a scatter with repeated
+    indices.
     """
 
     def __init__(self, op: HeatOperator, allow_const: bool = True):
@@ -452,7 +443,7 @@ class DGStencilMatrix:
             self.b_cell = torch.as_tensor(b_cell, device=dev)
             i64 = lambda a: torch.as_tensor(a, dtype=torch.int64, device=dev)
             self._b_groups = [(i64(fi), i64(b_cell[fi]))
-                              for fi in _occurrence_groups(b_cell)]
+                              for fi in occurrence_groups(b_cell)]
         self.n = fs.n_scalar_dofs
 
     # ------------------------------------------------------------------

@@ -23,6 +23,11 @@ class PCGResult(NamedTuple):
     residual_norm: torch.Tensor
 
 
+def _vdot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """jnp.vdot's semantics: the dot product of the flattened tensors."""
+    return torch.dot(u.reshape(-1), v.reshape(-1))
+
+
 def pcg(matvec: Callable, b: torch.Tensor, *, x0: torch.Tensor | None = None,
         diag: torch.Tensor | None = None, rtol=1e-12,
         atol: float = 0.0, max_it: int = 1000,
@@ -31,9 +36,11 @@ def pcg(matvec: Callable, b: torch.Tensor, *, x0: torch.Tensor | None = None,
         replace_every: int = 0,
         stall_window: int = 0,
         rtol_r0: float = 0.0) -> PCGResult:
-    """`dot` overrides the inner product. `precond` is a general SPD
-    preconditioner apply r -> M^{-1} r (e.g. a multigrid V-cycle) and
-    takes precedence over `diag` (Jacobi). `rtol` may be a 0-d tensor.
+    """`dot` overrides the inner product (default: the dot product of the
+    flattened tensors, so grid-shaped vectors need no reshape). `precond`
+    is a general SPD preconditioner apply r -> M^{-1} r (e.g. a multigrid
+    V-cycle) and takes precedence over `diag` (Jacobi). `rtol` may be a
+    0-d tensor.
 
     `replace_every` > 0 recomputes the true residual b - A x every that
     many iterations (the search direction is kept). `stall_window` > 0
@@ -43,7 +50,7 @@ def pcg(matvec: Callable, b: torch.Tensor, *, x0: torch.Tensor | None = None,
     warm (||r0|| < 0.3 ||b||) the tolerance is at least rtol_r0 ||r0||.
     See the JAX version's docstring for the measurements behind each."""
     if dot is None:
-        dot = torch.dot
+        dot = _vdot
 
     def norm(v):
         return torch.sqrt(dot(v, v))

@@ -30,6 +30,7 @@ from fem_glass_tempering_tpu_torch.fem.mesh import (
     box_mesh_3d,
     interval_mesh,
 )
+from fem_glass_tempering_tpu_torch.ops.scatter import GroupedScatter
 from fem_glass_tempering_tpu_torch.ops.stencil import (
     DGStencilMatrix,
     StencilMatrix,
@@ -427,6 +428,10 @@ class DGMultigrid:
         # id of each DG dof
         self.cells_flat = torch.as_tensor(
             mesh.cells.reshape(-1).astype(np.int64), device=dev)
+        # the gather fallback's DG-to-CG sum, one group of distinct nodes
+        # at a time (the same bits on every run of the card)
+        self._sc_cells = GroupedScatter(mesh.cells.reshape(-1),
+                                        mesh.n_nodes, dev)
         self.n_nodes = mesh.n_nodes
         counts = np.bincount(mesh.cells.reshape(-1), minlength=mesh.n_nodes)
         self.inv_counts = torch.as_tensor(1.0 / counts, dtype=dtype,
@@ -469,9 +474,7 @@ class DGMultigrid:
 
     def restrict(self, r_dg):
         if self._vert_offs is None:
-            out = torch.zeros(self.n_nodes, dtype=r_dg.dtype,
-                              device=r_dg.device)
-            return out.index_add_(0, self.cells_flat, r_dg)
+            return self._sc_cells(r_dg)
         dims = self.stencil.cell_dims
         rg = r_dg.reshape(dims + (self.stencil.nloc,))
         out = torch.zeros(self._node_grid, dtype=r_dg.dtype,

@@ -11,7 +11,8 @@ to rtol 1e-12 (f64) / 1e-5 (f32) of the sum of
 the absolute values of its terms. K3 runs through both of its kernels:
 the direct call (tables in device memory, the split kernel) and the
 prepared call (uniform tables that fit travel by value, the row kernel),
-which must agree bit for bit.
+which must agree bit for bit. The grouped scatter-adds of the gather path
+(ops/scatter.py) must repeat their bits on the card, and equal the CPU's.
 """
 
 import numpy as np
@@ -240,3 +241,46 @@ def test_default_workload_on_cuda_matches_cpu(cuda):
                                                   dg.krylov_iters)
     T_c, T_g = sc.T.numpy(), sg.T.cpu().numpy()
     assert np.abs(T_c - T_g).max() / np.abs(T_c).max() < 1e-12
+
+
+def test_grouped_scatter_repeats_its_bits(cuda):
+    """The gather path's scatter-adds (ops/scatter.py) on the card: the
+    same bits on every run, and those of the CPU's sequential index_add,
+    for a CG-1 hex dofmap (8 addends per interior node)."""
+    from fem_glass_tempering_tpu_torch.fem.functionspace import FunctionSpace
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+    from fem_glass_tempering_tpu_torch.ops.scatter import GroupedScatter
+
+    fs = FunctionSpace(box_mesh_3d(40, 40, 10), "CG", 1)
+    flat = torch.as_tensor(fs.dofmap.reshape(-1).astype(np.int64))
+    rng = np.random.default_rng(0)
+    src = torch.tensor(rng.standard_normal((len(flat), 3)) * 10.0
+                       ** rng.integers(-8, 8, (len(flat), 3)))
+    sc = GroupedScatter(fs.dofmap, fs.n_scalar_dofs, cuda)
+    x = src.to(cuda)
+    first, second = sc(x, (3,)), sc(x, (3,))
+    want = torch.zeros(fs.n_scalar_dofs, 3, dtype=src.dtype).index_add_(
+        0, flat, src)
+    assert torch.equal(first, second)
+    assert torch.equal(first.cpu(), want)
+
+
+def test_dg_residual_repeats_its_bits(cuda):
+    """The SIPG gather residual and its jvp on the card, twice: equal bits
+    (the cell, boundary and facet sums are grouped scatter-adds)."""
+    from fem_glass_tempering_tpu_torch.config import ModelParams
+    from fem_glass_tempering_tpu_torch.fem.functionspace import FunctionSpace
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+    from fem_glass_tempering_tpu_torch.ops.heat import HeatOperator
+
+    op = HeatOperator(FunctionSpace(box_mesh_3d(8, 8, 4, 1.0, 1.0, 0.01),
+                                    "DG", 1), ModelParams(), 0.1,
+                      device=cuda)
+    rng = np.random.default_rng(1)
+    T = torch.tensor(700.0 + 50.0 * rng.random(op.n_dofs), device=cuda)
+    Tp = T + 1.0
+    v = torch.tensor(rng.standard_normal(op.n_dofs), device=cuda)
+    runs = [torch.func.jvp(lambda u: op.residual(u, Tp), (T,), (v,))
+            for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])

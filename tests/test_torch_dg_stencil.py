@@ -31,9 +31,9 @@ from fem_glass_tempering_tpu_torch.ops.heat import HeatOperator as THeat
 from fem_glass_tempering_tpu_torch.ops.stencil import (
     DGStencilMatrix,
     StencilMatrix,
-    _occurrence_groups,
     make_stencil_operator,
 )
+from fem_glass_tempering_tpu_torch.ops.scatter import occurrence_groups
 
 MESHES = {
     "hex3d": (lambda m: m.box_mesh_3d(4, 3, 2, 1.0, 1.0, 0.01), 1),
@@ -145,7 +145,7 @@ def test_boundary_groups_hold_distinct_cells(name):
     _, top, _ = _ops(name)
     ts = DGStencilMatrix(top)
     cells = top.np_b_dofmap[:, 0] // ts.nloc
-    groups = _occurrence_groups(cells)
+    groups = occurrence_groups(cells)
     assert 1 < len(groups) <= 2 * ts.d
     seen = np.concatenate(groups)
     assert sorted(seen.tolist()) == list(range(len(cells)))

@@ -86,6 +86,17 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from fem_glass_tempering_tpu_torch.io.checkpoint import load_checkpoint
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         load_checkpoint("never-opened.npz")
+    from fem_glass_tempering_tpu_torch.fem.functionspace import FunctionSpace
+    from fem_glass_tempering_tpu_torch.ops.elasticity import (
+        ElasticityOperator,
+    )
+    from fem_glass_tempering_tpu_torch.ops.grid_elasticity import (
+        GridElasticityOperator,
+    )
+    fs = FunctionSpace(box_mesh_3d(2, 2, 1), "CG", 1, value_shape=(3, 3))
+    for op in (ElasticityOperator, GridElasticityOperator):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            op(fs)
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):

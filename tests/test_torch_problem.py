@@ -150,7 +150,6 @@ def test_failed_chunk_is_retried_then_raises():
 @pytest.mark.parametrize("change,match", [
     (dict(fe=tc.FEConfig(T_family="CG", T_degree=2)), "Slice 4"),
     (dict(fe=tc.FEConfig(T_family="DG", T_degree=2)), "Slice 4"),
-    (dict(mechanics="equilibrium"), "Slice 5"),
 ])
 def test_later_slices_raise(change, match):
     cfg = dataclasses.replace(_cfg(tc), **change)
