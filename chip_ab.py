@@ -13,12 +13,16 @@ turn, e.g. parent, change, change, parent:
 
 TREE is the root of a checkout that holds `chip_smoke.py` and the port's
 package; everything is imported from there and built into TREE/build.
-`kernels` times K1 (material_tspace, n = 1,062,761, f32 and f64) and K3
+`dgparity` runs chip_smoke's 8x8x4 DG parity problem (SA-AMG,
+matrix-free: K3 carries the cell term) on the CPU and on the card and
+prints both counts, without holding them; `--plain-cell-term` runs the cell
+term's plain PyTorch version on the card in place of K3, to isolate what
+moves the counts. `kernels` times K1 (material_tspace, n = 1,062,761, f32 and f64) and K3
 (dg_cell_residual, 65,536 hex cells, f64, uniform and per-cell tables; the
 direct call, and the prepared call where the tree has one) as chip_smoke's
 `device_ms` does: captured into a CUDA graph and replayed, the median of
-five such measurements. `phase5` and `phase6` run that phase of the tree's
-chip_smoke alone. `--source-flags SRC:FLAG[,FLAG]` replaces the per-source
+five such measurements. `phase5`, `phase6` and `phase8b` run that phase
+of the tree's chip_smoke alone. `--source-flags SRC:FLAG[,FLAG]` replaces the per-source
 nvcc flags of a tree that has them, to compare builds of one source.
 Prints one line `AB {...}` of JSON with the card's name and power limit.
 """
@@ -84,12 +88,37 @@ def measure_kernels(cs, port, dev) -> dict:
     return out
 
 
+def measure_dg_parity(cs, dev) -> dict:
+    from fem_glass_tempering_tpu_torch import config as tc
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+    from fem_glass_tempering_tpu_torch.models.problem import (
+        ThermoViscoProblem,
+    )
+
+    out, fields = {}, {}
+    for tag, where in (("cpu", "cpu"), ("gpu", dev)):
+        p = ThermoViscoProblem(mesh=box_mesh_3d(8, 8, 4, 1.0, 1.0, 0.01),
+                               config=cs.dg_plate_config(
+                                   tc, cs.DG_PARITY_STEPS), device=where)
+        p.setup()
+        st, ok, ni, ki = p.multi_step(p.state, cs.DG_PARITY_STEPS)
+        out.update({f"converged_{tag}": bool(ok), f"newton_{tag}": ni,
+                    f"cg_{tag}": ki})
+        fields[tag] = st.T.cpu().numpy()
+    a, b = fields["cpu"], fields["gpu"]
+    out["T_max_rel"] = float(np.abs(a - b).max() / np.abs(a).max())
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("tree", help="root of the checkout to measure")
-    ap.add_argument("what", choices=("kernels", "phase5", "phase6"))
+    ap.add_argument("what", choices=("kernels", "phase5", "phase6",
+                                     "phase8b", "dgparity"))
     ap.add_argument("--source-flags", default="", metavar="SRC:FLAG[,FLAG]",
                     help="replace one source's nvcc flags (empty FLAG: none)")
+    ap.add_argument("--plain-cell-term", action="store_true",
+                    help="run the cell term's plain version on the card")
     args = ap.parse_args()
     root = os.path.abspath(args.tree)
     sys.path.insert(0, root)
@@ -112,6 +141,13 @@ def main() -> int:
                   file=sys.stderr)
             return 1
         kernel_lib.SOURCE_FLAGS[src] = tuple(f for f in flags.split(",") if f)
+    if args.plain_cell_term:
+        init = cuda_dg_cell.PreparedDGCellResidual.__init__
+
+        def plain_init(self, *a, **kw):
+            init(self, *a, **kw)
+            self.path = "plain"
+        cuda_dg_cell.PreparedDGCellResidual.__init__ = plain_init
     port = {name: getattr(mod, name)
             for mod in (cuda_dg_cell, cuda_kernels, cuda_stencil)
             for name in ("PreparedDGCellResidual", "dg_cell_residual",
@@ -122,6 +158,15 @@ def main() -> int:
     torch.cuda.set_device(dev)
     if args.what == "kernels":
         res = measure_kernels(cs, port, dev)
+    elif args.what == "dgparity":
+        res = measure_dg_parity(cs, dev)
+        res["k3_launches"] = cuda_dg_cell.dg_cell_residual.launches
+    elif args.what == "phase8b":
+        full = cs.mechanics_plate_phase(dev, port)
+        res = {k: full[k] for k in (
+            "ms_per_step", "newton_per_step", "cg_per_step",
+            "elast_cg_per_step", "setup_s", "layers_ms",
+            "max_memory_allocated_bytes")}
     elif args.what == "phase5":
         scratch = os.path.join(root, "build", "chip_smoke")
         os.makedirs(scratch, exist_ok=True)
@@ -135,6 +180,7 @@ def main() -> int:
             "max_memory_allocated_bytes")}
     print("AB " + json.dumps(dict(
         tree=args.tree, what=args.what, source_flags=args.source_flags,
+        plain_cell_term=args.plain_cell_term,
         card=cs.card_line(), torch=torch.__version__, **res)), flush=True)
     return 0
 

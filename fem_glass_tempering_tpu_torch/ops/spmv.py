@@ -126,10 +126,9 @@ class EllMatrix:
         # boundary-block scatter indices (values recomputed per Newton iter)
         if b_keys is not None:
             self.np_b_flat_idx = flat_idx(b_keys).astype(np.int64)
-            self.b_flat_idx = torch.as_tensor(self.np_b_flat_idx, device=dev)
             self._sc_b = GroupedScatter(self.np_b_flat_idx, n * K, dev)
         else:
-            self.np_b_flat_idx = self.b_flat_idx = self._sc_b = None
+            self.np_b_flat_idx = self._sc_b = None
 
     # ------------------------------------------------------------------
     def values_at(self, T: torch.Tensor, dt) -> torch.Tensor:
@@ -137,7 +136,7 @@ class EllMatrix:
         op = self.op
         p = op.params
         vals = self.vals_mass + dt * self.vals_stiff
-        if self.b_flat_idx is not None:
+        if self._sc_b is not None:
             Tb = torch.einsum("fql,fl->fq", op.b_phi, T[op.b_dofmap])
             dflux = p.boundary_scale * (
                 4.0 * p.sigma * p.epsilon * Tb**3 + p.htc)

@@ -25,10 +25,7 @@ import torch.nn.functional as F
 
 from fem_glass_tempering_tpu_torch.ops.cuda_stencil import stencil_matvec
 from fem_glass_tempering_tpu_torch.ops.heat import HeatOperator
-from fem_glass_tempering_tpu_torch.ops.scatter import (
-    GroupedScatter,
-    occurrence_groups,
-)
+from fem_glass_tempering_tpu_torch.ops.scatter import GroupedScatter
 
 
 class StencilMatrix:
@@ -134,11 +131,12 @@ class StencilMatrix:
                                      b_dofmap.shape[:1] + (nb, nb))
             b_cols = np.broadcast_to(b_dofmap[:, None, :],
                                      b_dofmap.shape[:1] + (nb, nb))
-            st_idx = offset_flat(b_rows.reshape(-1), b_cols.reshape(-1))
-            self.b_st_idx = torch.as_tensor(st_idx, device=op.device)
-            self._sc_b = GroupedScatter(st_idx, self.n_off * n, op.device)
+            self.np_b_st_idx = offset_flat(b_rows.reshape(-1),
+                                           b_cols.reshape(-1))
+            self._sc_b = GroupedScatter(self.np_b_st_idx, self.n_off * n,
+                                        op.device)
         else:
-            self.b_st_idx = self._sc_b = None
+            self.np_b_st_idx = self._sc_b = None
         self.n = n
         self.d = d
 
@@ -158,7 +156,7 @@ class StencilMatrix:
             raise RuntimeError(
                 "device tables not materialised — call ensure_tables()")
         vals = self.st_mass + dt * self.st_stiff
-        if self.b_st_idx is not None:
+        if self._sc_b is not None:
             Tb = torch.einsum("fql,fl->fq", op.b_phi, T[op.b_dofmap])
             dflux = p.boundary_scale * (4.0 * p.sigma * p.epsilon * Tb**3 + p.htc)
             blocks = torch.einsum("fq,fql,fqm->flm", op.b_qw * dt * dflux,
@@ -264,7 +262,7 @@ class DGStencilMatrix:
 
     Neighbour access is slicing of the (*cell_dims, nloc) cell grid. The
     boundary-facet terms are added one group of distinct cells at a time
-    (ops/scatter.py `occurrence_groups`), never by a scatter with repeated
+    (ops/scatter.py `GroupedScatter`), never by a scatter with repeated
     indices.
     """
 
@@ -436,25 +434,14 @@ class DGStencilMatrix:
             self.self_stiff = g(self_stiff)
         # boundary (exterior facet) cells, as groups of distinct cells
         b_dofmap = op.np_b_dofmap
-        self.b_cell = None
-        self._b_groups = []
+        self.b_cell = self._sc_b = None
         if len(b_dofmap):
             b_cell = (b_dofmap[:, 0] // nloc).astype(np.int64)
             self.b_cell = torch.as_tensor(b_cell, device=dev)
-            i64 = lambda a: torch.as_tensor(a, dtype=torch.int64, device=dev)
-            self._b_groups = [(i64(fi), i64(b_cell[fi]))
-                              for fi in occurrence_groups(b_cell)]
+            self._sc_b = GroupedScatter(b_cell, C, dev)
         self.n = fs.n_scalar_dofs
 
     # ------------------------------------------------------------------
-    def _add_at_cells(self, out: torch.Tensor, per_facet: torch.Tensor):
-        """out[b_cell[f]] += per_facet[f] for every boundary facet f, in
-        place on `out` (leading axis C), one group of distinct cells at a
-        time."""
-        for fi, ci in self._b_groups:
-            out.index_add_(0, ci, per_facet.index_select(0, fi))
-        return out
-
     def _bflux_blocks(self, T: torch.Tensor, dt) -> torch.Tensor:
         """Per-boundary-facet (f, nloc, nloc) linearized radiation +
         convection blocks at the frozen T."""
@@ -505,7 +492,7 @@ class DGStencilMatrix:
         else:
             vals = self.self_mass + dt * self.self_stiff
         if self.b_cell is not None:
-            self._add_at_cells(vals, self._bflux_blocks(T, dt))
+            self._sc_b.add_(vals, self._bflux_blocks(T, dt))
         return vals
 
     def _cross_apply(self, y, xg, dt):
@@ -544,7 +531,7 @@ class DGStencilMatrix:
                 y = self._cross_apply(self._self_const_mv(A0, dt, xg), xg, dt)
                 if blocks is not None:
                     yb = _bmv(blocks, v.reshape(self.C, nloc)[self.b_cell])
-                    self._add_at_cells(y.reshape(self.C, nloc), yb)
+                    self._sc_b.add_(y.reshape(self.C, nloc), yb)
                 return y.reshape(-1)
         else:
             vals = self.values_at(T, dt)
@@ -588,7 +575,7 @@ class DGStencilMatrix:
                 (p.sigma * p.epsilon) * (Tb**4 - p.T_ambient**4)
                 + p.htc * (Tb - p.T_ambient))
             r_b = torch.einsum("fq,fql->fl", op.b_qw * dt * gflux, op.b_phi)
-            r = self._add_at_cells(r.reshape(self.C, nloc), r_b).reshape(-1)
+            r = self._sc_b.add_(r.reshape(self.C, nloc), r_b).reshape(-1)
         return r
 
     def residual(self, T: torch.Tensor, T_prev: torch.Tensor,
@@ -615,7 +602,7 @@ class DGStencilMatrix:
             if self.b_cell is not None:
                 db = torch.diagonal(self._bflux_blocks(T, dt), dim1=-2,
                                     dim2=-1)
-                self._add_at_cells(d, db)
+                self._sc_b.add_(d, db)
             d = d.reshape(-1)
         else:
             vals = self.values_at(T, dt)                 # (C, nloc, nloc)

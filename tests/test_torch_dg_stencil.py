@@ -152,7 +152,7 @@ def test_boundary_groups_hold_distinct_cells(name):
     for g in groups:
         assert len(np.unique(cells[g])) == len(g)
         assert np.all(np.diff(g) > 0)
-    assert [len(fi) for fi, _ in ts._b_groups] == [len(g) for g in groups]
+    assert [b - a for a, b in ts._sc_b.bounds] == [len(g) for g in groups]
 
 
 def test_make_stencil_operator_picks_the_space():

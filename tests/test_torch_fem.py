@@ -120,6 +120,6 @@ def test_stencil_tables_equal(name):
     assert ja.gersh.keys() == tb.gersh.keys()
     for k in ja.gersh:
         _equal(ja.gersh[k], tb.gersh[k], k)
-    _equal(np.asarray(ja.b_st_idx), tb.b_st_idx.numpy(), "b_st_idx")
+    _equal(np.asarray(ja.b_st_idx), tb.np_b_st_idx, "b_st_idx")
     _equal(ja.np_dense(800.0, 0.1), tb.np_dense(800.0, 0.1), "dense")
     assert tb.st_mass.dtype == torch.float64

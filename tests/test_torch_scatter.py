@@ -17,6 +17,10 @@ from fem_glass_tempering_tpu_torch.ops.scatter import (
     occurrence_groups,
 )
 from fem_glass_tempering_tpu_torch.ops.spmv import EllMatrix
+from fem_glass_tempering_tpu_torch.ops.stencil import (
+    DGStencilMatrix,
+    StencilMatrix,
+)
 
 
 def _maps():
@@ -28,6 +32,8 @@ def _maps():
                       ModelParams(), 0.1, device="cpu")
     cg_op = HeatOperator(quad, ModelParams(), 0.1, device="cpu")
     ell = EllMatrix(cg_op)
+    st = StencilMatrix(cg_op, make_tables=False)
+    dgs = DGStencilMatrix(dg)
     return {
         "cg1_hex_dofmap": (hex3.dofmap, hex3.n_scalar_dofs),
         "cg1_quad_dofmap": (quad.dofmap, quad.n_scalar_dofs),
@@ -36,6 +42,8 @@ def _maps():
         "sipg_minus": (dg.np_i["dofmap_m"], dg.n_dofs),
         "dg_cell_dofmap": (dg.np_dofmap, dg.n_dofs),
         "ell_boundary_blocks": (ell.np_b_flat_idx, ell.n * ell.K),
+        "stencil_boundary_blocks": (st.np_b_st_idx, st.n_off * st.n),
+        "dg_stencil_boundary_cells": (dgs.b_cell.numpy(), dgs.C),
     }
 
 
