@@ -15,9 +15,18 @@ TREE is the root of a checkout that holds `chip_smoke.py` and the port's
 package; everything is imported from there and built into TREE/build.
 `dgparity` runs chip_smoke's 8x8x4 DG parity problem (SA-AMG,
 matrix-free: K3 carries the cell term) on the CPU and on the card and
-prints both counts, without holding them; `--plain-cell-term` runs the cell
-term's plain PyTorch version on the card in place of K3, to isolate what
-moves the counts. `kernels` times K1 (material_tspace, n = 1,062,761, f32 and f64) and K3
+prints both counts, without holding them. To isolate what moves the card's
+count, each of these flags moves one part of the card's arithmetic (it
+leaves the CPU run's bits as they are): `--plain-cell-term` runs the cell
+term's plain PyTorch version on the card in place of K3; `--cpu-dots`
+computes the Newton and Krylov dot products and norms from CPU copies in
+f64; `--cpu-spmv` computes every ELL SpMV (ops/spmv.py EllMatrix.matvec
+and the SA-AMG levels' and transfers' ELL products) on CPU copies;
+`--cpu-amg` runs the whole SA-AMG V-cycle on CPU copies of its levels;
+`--cpu-residual` evaluates the gather residual (and so the matrix-free
+Jacobian action, its jvp) and the diagonal on a CPU twin of the card's
+heat operator.
+`phase9` runs chip_smoke's phase 9 (the CG-2 lattice path) alone. `kernels` times K1 (material_tspace, n = 1,062,761, f32 and f64) and K3
 (dg_cell_residual, 65,536 hex cells, f64, uniform and per-cell tables; the
 direct call, and the prepared call where the tree has one) as chip_smoke's
 `device_ms` does: captured into a CUDA graph and replayed, the median of
@@ -110,15 +119,102 @@ def measure_dg_parity(cs, dev) -> dict:
     return out
 
 
+def _on_cpu(fn):
+    """fn computed from CPU copies of its tensor arguments, the result
+    moved back to the first tensor argument's device."""
+    import torch
+
+    def wrapped(*args):
+        dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+        out = fn(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                   for a in args))
+        return out.to(dev)
+    return wrapped
+
+
+def patch_parity_variants(args) -> None:
+    """Monkeypatch the parts of the card's arithmetic that the dgparity
+    flags move onto the CPU (nothing in the package has a switch)."""
+    import functools
+
+    import torch
+
+    from fem_glass_tempering_tpu_torch.models import problem
+    from fem_glass_tempering_tpu_torch.ops import cuda_dg_cell, heat, spmv
+    from fem_glass_tempering_tpu_torch.solver import amg, newton
+    if args.plain_cell_term:
+        init = cuda_dg_cell.PreparedDGCellResidual.__init__
+
+        def plain_init(self, *a, **kw):
+            init(self, *a, **kw)
+            self.path = "plain"
+        cuda_dg_cell.PreparedDGCellResidual.__init__ = plain_init
+    if args.cpu_dots:
+        cpu_dot = _on_cpu(lambda u, v: torch.dot(u.reshape(-1),
+                                                 v.reshape(-1)))
+        problem.newton_solve = functools.partial(newton.newton_solve,
+                                                 dot=cpu_dot)
+    if args.cpu_spmv:
+        ell_mv = _on_cpu(lambda cols, vals, x: (vals * x[cols]).sum(dim=1))
+        spmv.EllMatrix.matvec = lambda self, vals, x: ell_mv(self.cols,
+                                                             vals, x)
+        amg.SmoothedAggregationMG._ell_mv = staticmethod(ell_mv)
+    if args.cpu_amg:
+        pre = amg.SmoothedAggregationMG.preconditioner
+
+        def cpu_preconditioner(self, T=None, dt=None):
+            if not hasattr(self, "_cpu_twin"):
+                twin = object.__new__(type(self))
+                twin.__dict__.update(self.__dict__)
+                twin.levels = [{k: (v.cpu() if isinstance(v, torch.Tensor)
+                                    else v) for k, v in lv.items()}
+                               for lv in self.levels]
+                twin.transfers = [{k: (v.cpu() if isinstance(v, torch.Tensor)
+                                       else v) for k, v in t.items()}
+                                  for t in self.transfers]
+                self._cpu_twin = twin
+            apply = pre(self._cpu_twin, T, dt)
+            return lambda r: apply(r.cpu()).to(r.device)
+        amg.SmoothedAggregationMG.preconditioner = cpu_preconditioner
+    if args.cpu_residual:
+        H = heat.HeatOperator
+        h_init, residual, diag = H.__init__, H.residual, H.jacobian_diag
+
+        def init_with_twin(self, fs, params, dt, **kw):
+            h_init(self, fs, params, dt, **kw)
+            if self.device.type == "cuda":
+                self._cpu_twin = H(fs, params, dt, **dict(kw, device="cpu"))
+
+        def twin_call(fn):
+            def call(self, T, *rest, **kw):
+                twin = getattr(self, "_cpu_twin", None)
+                if twin is None:
+                    return fn(self, T, *rest, **kw)
+                return fn(twin, T.cpu(), *(r.cpu() if isinstance(
+                    r, torch.Tensor) else r for r in rest), **kw).to(T.device)
+            return call
+        H.__init__ = init_with_twin
+        H.residual = twin_call(residual)
+        H.jacobian_diag = twin_call(diag)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("tree", help="root of the checkout to measure")
     ap.add_argument("what", choices=("kernels", "phase5", "phase6",
-                                     "phase8b", "dgparity"))
+                                     "phase8b", "phase9", "dgparity"))
     ap.add_argument("--source-flags", default="", metavar="SRC:FLAG[,FLAG]",
                     help="replace one source's nvcc flags (empty FLAG: none)")
     ap.add_argument("--plain-cell-term", action="store_true",
                     help="run the cell term's plain version on the card")
+    ap.add_argument("--cpu-dots", action="store_true",
+                    help="Newton and Krylov dot products on CPU copies")
+    ap.add_argument("--cpu-spmv", action="store_true",
+                    help="every ELL SpMV on CPU copies")
+    ap.add_argument("--cpu-amg", action="store_true",
+                    help="the SA-AMG V-cycle on CPU copies")
+    ap.add_argument("--cpu-residual", action="store_true",
+                    help="the gather residual and diagonal on a CPU twin")
     args = ap.parse_args()
     root = os.path.abspath(args.tree)
     sys.path.insert(0, root)
@@ -141,13 +237,7 @@ def main() -> int:
                   file=sys.stderr)
             return 1
         kernel_lib.SOURCE_FLAGS[src] = tuple(f for f in flags.split(",") if f)
-    if args.plain_cell_term:
-        init = cuda_dg_cell.PreparedDGCellResidual.__init__
-
-        def plain_init(self, *a, **kw):
-            init(self, *a, **kw)
-            self.path = "plain"
-        cuda_dg_cell.PreparedDGCellResidual.__init__ = plain_init
+    patch_parity_variants(args)
     port = {name: getattr(mod, name)
             for mod in (cuda_dg_cell, cuda_kernels, cuda_stencil)
             for name in ("PreparedDGCellResidual", "dg_cell_residual",
@@ -161,6 +251,11 @@ def main() -> int:
     elif args.what == "dgparity":
         res = measure_dg_parity(cs, dev)
         res["k3_launches"] = cuda_dg_cell.dg_cell_residual.launches
+    elif args.what == "phase9":
+        parity = cs.cg2_parity_phase(dev, port)
+        cs.drop_garbage("phase 9b")
+        full = cs.cg2_plate_phase(dev, port)
+        res = dict(parity=parity, plate=full)
     elif args.what == "phase8b":
         full = cs.mechanics_plate_phase(dev, port)
         res = {k: full[k] for k in (
@@ -180,7 +275,9 @@ def main() -> int:
             "max_memory_allocated_bytes")}
     print("AB " + json.dumps(dict(
         tree=args.tree, what=args.what, source_flags=args.source_flags,
-        plain_cell_term=args.plain_cell_term,
+        plain_cell_term=args.plain_cell_term, cpu_dots=args.cpu_dots,
+        cpu_spmv=args.cpu_spmv, cpu_amg=args.cpu_amg,
+        cpu_residual=args.cpu_residual,
         card=cs.card_line(), torch=torch.__version__, **res)), flush=True)
     return 0
 

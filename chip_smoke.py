@@ -62,10 +62,24 @@ Phases (each raises on failure; the exit code is then nonzero):
      128x128x32 plate (549,153 T dofs, 1,647,459 displacement dofs), f32,
      1 warm-up step and 5 timed steps: ms per step, the three iteration
      counts, exact K1/K2 launches, layer times, setup by part, peak
-     memory, the residual-stress profile.
-Every main path (4, 5, 6, 7b f64, 7b mixed, 8b) runs with the launch
-counters set to 0 just before it and read just after. Then one JSON line per
-kernel, one {"kernels": [...]} line, the card's name and power limit,
+     memory, the residual-stress profile;
+  9. the CG-2 lattice path (GridHeatOperator2 + Q2MG, ops/grid2.py, over
+     the CG-1 GeometricMG, solver/multigrid.py): (a) the 5x5x3 and the
+     32x32x4 CG-2 plates through "auto", f64, rtol 1e-12, 3 steps, the
+     GPU against the CPU (the second with one smoothed coarse level, so K2
+     runs inside the compared solve), then the lattice operator on the
+     card against the gather operator at 1e-12 (K3 at nloc 27 held to its
+     plain version there); (b) the JAX
+     package's largest CG-2 row, the 64x64x16 plate (549,153 T dofs), f32,
+     1 warm-up step and 5 timed steps: ms per step, Newton and CG per
+     step, the layers (Q2MG apply and build, line factorisation and
+     solve, coarse V-cycle apply), setup by part, peak memory, exact
+     K1/K2/K3 launches, K2 on every smoothed coarse level, and K3 at
+     nloc 27 at the plate's 65,536 cells against its bound.
+Every main path (4, 5, 6, 7b f64, 7b mixed, 8b, 9b) runs with the launch
+counters set to 0 just before it and read just after. A line "phase N ends
+at S s" follows each phase (seconds since the kernel build began). Then one
+JSON line per kernel, one {"kernels": [...]} line, the card's name and power limit,
 and last {"ok": true, "device": {...}}.
 
 A kernel's `ms` and `plain_ms` are CUDA-event means over back-to-back
@@ -105,6 +119,8 @@ MECH_TIMED_STEPS = 5
 # the quenching plate: 50 steps with the reference xi, as the JAX
 # package's test; 20 with the trapezoid xi, the strict parity run
 MECH_PLATE_STEPS = dict(reference=50, trapezoid=20)
+N_CG2 = (64, 64, 16)             # 65,536 hex cells, 549,153 CG-2 T dofs
+CG2_TIMED_STEPS = 5
 KERNELS = ("material_tspace", "stencil_matvec", "dg_cell_residual")
 # the golden values of the default run (CPU reference, confirmed by the
 # independent numpy/scipy oracle of the JAX package's test-suite)
@@ -950,10 +966,12 @@ def dg_parity_phase(dev) -> dict:
         fail(f"DG parity sigma: {out['sigma_rel_to_max']:.3e}")
     # Against the CPU the card rounds differently, not in another order,
     # and at rtol 1e-12 a CG solve of ~80 iterations stops on the last
-    # bits: 1,169 CG on the card against 1,179. Not K3's doing: built
-    # without contraction the card takes 1,163, with the plain cell term
-    # 1,173 (chip_ab.py dgparity; ROADMAP.md Queue 3 keeps it open).
-    # Newton equal, CG within 1%
+    # bits: 1,169 CG on the card against 1,179. Each part of the card's
+    # arithmetic moved alone to the CPU (K3, the dot products, the ELL
+    # SpMVs, the AMG cycle, the gather residual) moves the count to either
+    # side (1,163 .. 1,181), and with all of them there the card's run
+    # equals the CPU's bit for bit (chip_ab.py dgparity). Newton equal,
+    # CG within 1%
     if nc != ng or abs(kc - kg) > 0.01 * kc:
         fail(f"DG parity iterations: newton {nc}/{ng}, cg {kc}/{kg}")
     log("DG parity " + json.dumps(out))
@@ -1646,6 +1664,374 @@ def mechanics_plate_phase(dev, port) -> dict:
     return out
 
 
+def cg2_config(tc, steps, f32_bench):
+    """The CG-2 plate configurations of the JAX package: with `f32_bench`
+    the 64x64x16 row of BENCH.md:398 (examples/highorder_tpu.py:59-81:
+    f32, rtol 1e-5, "mg"), else the f64 parity configuration of tests/
+    test_grid2.py:173-205 (rtol 1e-12, "auto"); both on the lattice path
+    ("stencil") with a Chebyshev-smoothed CG-1 GeometricMG under Q2MG."""
+    if f32_bench:
+        solver = tc.SolverConfig(newton_rtol=1e-5, newton_atol=1e-6,
+                                 cg_rtol=1e-5, cg_max_it=4000,
+                                 linear_operator="stencil",
+                                 preconditioner="mg",
+                                 mg_smoother="chebyshev")
+        dtype = "float32"
+    else:
+        solver = tc.SolverConfig(newton_rtol=1e-12, newton_atol=1e-10,
+                                 cg_rtol=1e-12, cg_max_it=500,
+                                 linear_operator="stencil",
+                                 preconditioner="auto",
+                                 mg_smoother="chebyshev")
+        dtype = "float64"
+    return tc.RunConfig(
+        fe=tc.FEConfig(T_family="CG", T_degree=2, sigma_family="CG",
+                       sigma_degree=1),
+        time=tc.TimeConfig(0.0, steps * 0.1, 0.1), solver=solver,
+        output=tc.OutputConfig(write_every=0, formats=()), dtype=dtype)
+
+
+def device_bytes(obj, seen=None) -> int:
+    """Bytes of the distinct CUDA tensors that `obj` holds in its
+    attributes, its lists, tuples and dicts, and the port's objects it
+    holds in turn."""
+    seen = set() if seen is None else seen
+    if id(obj) in seen:
+        return 0
+    seen.add(id(obj))
+    if isinstance(obj, torch.Tensor):
+        if obj.device.type != "cuda" or obj.data_ptr() in seen:
+            return 0
+        seen.add(obj.data_ptr())
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, (list, tuple)):
+        return sum(device_bytes(v, seen) for v in obj)
+    if isinstance(obj, dict):
+        return sum(device_bytes(v, seen) for v in obj.values())
+    if type(obj).__module__.startswith("fem_glass_tempering_tpu_torch"):
+        return sum(device_bytes(v, seen) for v in vars(obj).values())
+    return 0
+
+
+def cg2_parity_case(dev, port, dims) -> tuple[dict, object]:
+    """One phase 9a run: the CG-2 plate of `dims` cells through "auto"
+    (Q2MG with the line smoother over the CG-1 GeometricMG), f64, rtol
+    1e-12, 3 steps, the GPU against the CPU, with the K2 launches of the
+    GPU run held to the count its hierarchy implies."""
+    from fem_glass_tempering_tpu_torch import config as tc
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+    from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
+    from fem_glass_tempering_tpu_torch.ops.grid2 import Q2MG
+
+    tag = "CG-2 parity " + "x".join(map(str, dims))
+    steps = DG_PARITY_STEPS
+    res = {}
+    for where in ("cpu", dev):
+        p = ThermoViscoProblem(
+            mesh=box_mesh_3d(*dims, lx=1.0, ly=1.0, lz=0.01),
+            config=cg2_config(tc, steps, False), device=where)
+        p.setup()
+        if not isinstance(p._mg, Q2MG) or p._mg.smoother != "line":
+            fail(f"{tag}: 'auto' is not Q2MG with the line smoother on "
+                 f"{where}")
+        st, counts = p.state, []
+        k2_before = port["stencil_matvec"].launches
+        for _ in range(steps):
+            st, ok, ni, ki = p.step(st)
+            if not ok:
+                fail(f"{tag}: no convergence on {where}")
+            counts.append((ni, ki))
+        k2_run = port["stencil_matvec"].launches - k2_before
+        res[str(where)] = (st, counts, p, k2_run)
+    (sc, cc, _, _), (sg, cgc, pg, k2_gpu) = res["cpu"], res[str(dev)]
+    nc, kc = (sum(c[i] for c in cc) for i in (0, 1))
+    ng, kg = (sum(c[i] for c in cgc) for i in (0, 1))
+    gmg = pg._mg.gmg
+    smoothed = sum(lv.coarse_dims is not None for lv in gmg.levels)
+    # one Q2MG apply (one coarse V-cycle) before each CG solve and one per
+    # CG iteration
+    k2_expect = k2_launches_per_vcycle(gmg) * (ng + kg)
+    out = dict(dims=dims, dofs=pg.fs_T.n_scalar_dofs,
+               coarse_levels=[lv.fine_dims for lv in gmg.levels],
+               coarse_smoothed_levels=smoothed, counts_cpu=cc,
+               counts_gpu=cgc, newton_cpu=nc, newton_gpu=ng, cg_cpu=kc,
+               cg_gpu=kg, k2_launches_gpu_run=k2_gpu)
+    if k2_gpu != k2_expect:
+        fail(f"{tag}: {k2_gpu} K2 launches, expected {k2_expect}")
+    for f in ("T", "Tf"):
+        a, b = getattr(sc, f).numpy(), getattr(sg, f).cpu().numpy()
+        out[f"{f}_max_rel"] = float(np.abs(a - b).max() / np.abs(a).max())
+        if not out[f"{f}_max_rel"] <= 1e-9:
+            fail(f"{tag} {f}: {out[f'{f}_max_rel']:.3e}")
+    a, b = sc.sigma.numpy(), sg.sigma.cpu().numpy()
+    out["sigma_rel_to_max"] = float(np.abs(a - b).max() / np.abs(a).max())
+    if not out["sigma_rel_to_max"] <= 1e-6:
+        fail(f"{tag} sigma: {out['sigma_rel_to_max']:.3e}")
+    # Newton equal; CG equal, or within 1% where a solve that stops on
+    # its last bits (rtol 1e-12) ends one iteration apart, as the port and
+    # JAX do on the CPU from starts one ulp apart (tests/
+    # test_torch_grid_mg.py)
+    if nc != ng or abs(kc - kg) > 0.01 * kc:
+        fail(f"{tag} iterations: {cc} / {cgc}")
+    log(tag + " " + json.dumps(out))
+    return out, pg
+
+
+def cg2_parity_phase(dev, port) -> dict:
+    """Phase 9a: the CG-2 plate GPU against CPU on the 5x5x3 plate of
+    tests/test_grid2.py:173-205 (its coarse V-cycle one dense level) and
+    on the 32x32x4 plate (5,445 CG-1 nodes: one smoothed coarse level,
+    whose K2 runs inside the solve, over a dense one); then, on the first,
+    GridHeatOperator2's residual, diagonal and Jacobian action on the card
+    against the gather HeatOperator's (residual, diagonal,
+    torch.func.jvp) at 1e-12, which runs K3 at nloc 27, held to its plain
+    version on the same tables."""
+    out, pg = cg2_parity_case(dev, port, (5, 5, 3))
+    out["smoothed_case"], _ = cg2_parity_case(dev, port, (32, 32, 4))
+    if out["smoothed_case"]["coarse_smoothed_levels"] < 1:
+        fail("CG-2 parity 32x32x4: no smoothed coarse level")
+
+    # the lattice operator against the gather operator, on the card, on
+    # the inputs of tests/test_grid2.py (a residual of the size of its
+    # terms: at a converged state it is their cancellation)
+    heat, g2 = pg.heat, pg._grid2
+    rng = np.random.default_rng(9)
+    n = g2.n
+    t = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)
+    T = t(800.0 + 10.0 * rng.standard_normal(n))
+    Tp = t(800.0 + 10.0 * rng.standard_normal(n))
+    v = t(rng.standard_normal(n))
+    k3_before = port["dg_cell_residual"].launches
+    r_gather = heat.residual(T, Tp)
+    d_gather = heat.jacobian_diag(T)
+    jv_gather = torch.func.jvp(lambda u: heat.residual(u, Tp), (T,),
+                               (v,))[1]
+    torch.cuda.synchronize()
+    k3_calls = port["dg_cell_residual"].launches - k3_before
+    if k3_calls == 0:
+        fail("the CG-2 gather residual did not launch K3")
+    for name, got, want in (
+            ("residual", g2.residual(T, Tp), r_gather),
+            ("diagonal", g2.jacobian_diag(T), d_gather),
+            ("Jacobian action", g2.make_matvec(T, pg.dt)(v), jv_gather)):
+        rel = float((got - want).abs().max() / want.abs().max())
+        out[f"grid2_vs_gather_{name.replace(' ', '_')}_max_rel"] = rel
+        if not rel <= 1e-12:
+            fail(f"GridHeatOperator2 {name} against the gather operator on "
+                 f"the card: {rel:.3e}")
+    out["k3_launches_operator_check"] = k3_calls
+    # K3 at nloc 27 on the operator's own tables: its prepared call and
+    # the direct one against the plain version, forward and jvp
+    shape = tuple(heat.dofmap.shape)
+    out["k3_nloc27_path"] = heat._cell_term.path
+    out["k3_nloc27_max_abs_err"] = max(
+        check_dg_cell_case(shape, heat.qw, heat.gphi, heat.phi, 1e-12, port,
+                           c_mass=cm, with_src=ws, seed=i, prepared=pr)
+        for i, (cm, ws) in enumerate(K3_CASES) for pr in (True, False))
+    log("CG-2 parity " + json.dumps(out))
+    return out
+
+
+def cg2_plate_phase(dev, port) -> dict:
+    """Phase 9b: the JAX package's largest CG-2 row (BENCH.md:398), the
+    64x64x16 plate with CG-2 T and CG-1 sigma, 549,153 T dofs, f32, 1
+    warm-up step and CG2_TIMED_STEPS timed ones; then the layers, K2 on
+    every smoothed coarse level's real tables, and K3 at nloc 27 at the
+    plate's cell count (65,536 cells, f64, its prepared call) against its
+    bound."""
+    from fem_glass_tempering_tpu_torch import config as tc
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+    from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
+    from fem_glass_tempering_tpu_torch.ops.grid2 import Q2MG
+
+    tag = "CG-2 plate"
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    prob = ThermoViscoProblem(mesh=box_mesh_3d(*N_CG2, lx=1.0, ly=1.0,
+                                               lz=0.01),
+                              config=cg2_config(tc, CG2_TIMED_STEPS, True),
+                              device=dev)
+    prob.setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated(dev)
+    setup_held = torch.cuda.memory_allocated(dev)
+    mg = prob._mg
+    n = prob.fs_T.n_scalar_dofs
+    if (not isinstance(mg, Q2MG) or mg.smoother != "line"
+            or prob._ell is not prob._grid2 or n != 549_153):
+        fail(f"{tag}: {n} dofs, not the lattice path with the line-smoothed "
+             f"Q2MG")
+    gmg = mg.gmg
+    levels = dict(coarse_mg=[lv.fine_dims for lv in gmg.levels],
+                  coarse_mg_smoothed=sum(lv.coarse_dims is not None
+                                         for lv in gmg.levels),
+                  coarse_mg_dense_nodes=(
+                      int(gmg.coarse_inv.shape[0])
+                      if gmg.coarse_inv is not None else None),
+                  line_axis=mg.line_axis)
+    # the gather HeatOperator the lattice operator was built from: its
+    # dofmap, cell scatter and boundary tables stay on the card, and the
+    # lattice step never reads them
+    gather_bytes = device_bytes(prob.heat)
+    log(f"{tag}: {n} dofs, setup {setup_s:.1f} s "
+        + json.dumps(prob.setup_seconds) + " " + json.dumps(levels)
+        + f", held {setup_held} bytes, of them the gather heat operator "
+        f"{gather_bytes}")
+
+    st, ok, ni0, ki0 = prob.multi_step(prob.state, 1)      # warm-up
+    torch.cuda.synchronize()
+    if not ok:
+        fail(f"{tag}: warm-up step did not converge")
+    del st
+    state0 = prob.engine.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(port)
+    t0 = time.perf_counter()
+    st, ok, ni, ki = prob.multi_step(state0, CG2_TIMED_STEPS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_counts(port)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not ok:
+        fail(f"{tag}: timed window did not converge")
+    for f in ("T", "Tf", "sigma"):
+        if not bool(torch.isfinite(getattr(st, f)).all()):
+            fail(f"{tag}: non-finite {f}")
+    T_np = st.T.cpu().numpy()
+    if not (prob.params.T_ambient - 1 < T_np.min() <= T_np.max()
+            < prob.params.T_0 + 1):
+        fail(f"{tag}: T out of [T_ambient, T_0]: {T_np.min()} .. "
+             f"{T_np.max()}")
+    # K1 once a step; one Q2MG apply before each CG solve (one per Newton
+    # iteration) and one per CG iteration, each with one coarse V-cycle;
+    # the fine lattice is sum-factorised plain PyTorch (no K2), and
+    # GridHeatOperator2 carries the residual (no K3)
+    per_apply = k2_launches_per_vcycle(gmg)
+    expect = dict(material_tspace=CG2_TIMED_STEPS,
+                  stencil_matvec=per_apply * (ni + ki), dg_cell_residual=0)
+    if launches != expect or launches["stencil_matvec"] == 0:
+        fail(f"{tag}: launches {launches}, expected {expect} ({ni} Newton "
+             f"+ {ki} CG)")
+    out = dict(dofs=n, setup_s=setup_s, setup_parts_s=prob.setup_seconds,
+               levels=levels, ms_per_step=elapsed / CG2_TIMED_STEPS * 1e3,
+               newton_per_step=ni / CG2_TIMED_STEPS,
+               cg_per_step=ki / CG2_TIMED_STEPS,
+               warmup_newton=ni0, warmup_cg=ki0, launches=launches,
+               k2_launches_per_q2mg_apply=per_apply, q2mg_applies=ni + ki,
+               max_memory_allocated_bytes=peak,
+               setup_max_memory_allocated_bytes=setup_peak,
+               held_after_setup_bytes=setup_held,
+               gather_heat_operator_bytes=gather_bytes,
+               T_min=float(T_np.min()), T_max=float(T_np.max()))
+
+    # K2 on the real value tables of every smoothed coarse level, f32
+    # (outside the counted window)
+    rng = np.random.default_rng(6)
+    T_levels = mg.linearization_states(st.T)
+    k2_levels = []
+    for lvl, Tl in zip(gmg.levels, T_levels[1:]):
+        if lvl.coarse_dims is None:
+            continue
+        op = gmg._grid_for(lvl)
+        vals2 = op.stencil_values(Tl, prob.dt).reshape(27, op.grid[0], -1)
+        x = torch.tensor(rng.standard_normal(op.n), dtype=prob.dtype,
+                         device=dev)
+        k2_levels.append(dict(grid=op.grid, max_abs_err=check_stencil(
+            vals2, x, op.grid, 1e-5, port)))
+    out["k2_levels"] = k2_levels
+
+    # the layers of one CG iteration and of a build, at the final state
+    fine = prob._grid2
+    dt = prob.dt
+    v = torch.tensor(rng.standard_normal(n), dtype=prob.dtype, device=dev)
+    vg = v.reshape(fine.grid)
+    mv = fine.make_matvec(st.T, dt)
+    pc = mg.preconditioner(T_levels, dt)
+    zsolve = mg._line_solver(T_levels[0], dt)
+    coarse = gmg.preconditioner(T_levels[1:], dt)
+    vc = mg._restrict(vg).reshape(-1)
+    layers = dict(
+        q2mg_apply=time_ms(lambda: pc(v), reps=10),
+        q2mg_build=time_ms(lambda: mg.preconditioner(T_levels, dt),
+                           reps=3, warm=1),
+        line_factorisation=time_ms(
+            lambda: mg._ldl(*mg._line_bands(T_levels[0], dt)), reps=5),
+        line_solve=time_ms(lambda: zsolve(vg), reps=10),
+        power_rho=time_ms(lambda: mg._power_rho(
+            fine.make_matvec_g(T_levels[0], dt), zsolve, fine.grid,
+            fine.dtype, fine.device), reps=3, warm=1),
+        coarse_mg_apply=time_ms(lambda: coarse(vc), reps=10),
+        coarse_mg_build=time_ms(lambda: gmg.preconditioner(T_levels[1:],
+                                                           dt), reps=5),
+        fine_matvec=time_ms(lambda: mv(v), reps=20),
+        fine_matvec_build=time_ms(lambda: fine.make_matvec(st.T, dt),
+                                  reps=5),
+        residual=time_ms(lambda: fine.residual(st.T, st.T_prev, dt),
+                         reps=20),
+        jacobian_diag=time_ms(lambda: fine.jacobian_diag(st.T, dt), reps=20),
+        material_step=time_ms(lambda: prob.engine.material_step(
+            st, st.T, dt), reps=5))
+    # the device's own time of a Q2MG apply and a fine matvec: the same
+    # calls captured into a CUDA graph and replayed; the rest of a call's
+    # time is the host's
+    for key, fn in (("q2mg_apply", lambda: pc(v)),
+                    ("fine_matvec", lambda: mv(v))):
+        layers[f"{key}_device"] = device_ms(fn, reps=2, replays=5)
+    out["layers_ms"] = layers
+    out["q2mg_apply_host_share"] = (
+        1.0 - layers["q2mg_apply_device"] / layers["q2mg_apply"])
+    out["cg_iteration_ms_estimate"] = layers["q2mg_apply"] \
+        + layers["fine_matvec"]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    pc2 = mg.preconditioner(T_levels, dt)
+    pc2(v)
+    torch.cuda.synchronize()
+    out["q2mg_build_apply_peak_added_bytes"] = \
+        torch.cuda.max_memory_allocated(dev) - base
+    del pc2
+
+    # K3 at nloc 27 at the plate's cell count, f64, on the heat operator's
+    # tables in the call the operator makes; no single PyTorch call
+    # computes the cell term
+    heat = prob.heat
+    f64 = torch.float64
+    t64 = lambda a: torch.tensor(np.ascontiguousarray(a), dtype=f64,
+                                 device=dev)
+    qw, gphi, phi = t64(heat.np_qw), t64(heat.np_gphi), t64(heat.np_phi)
+    c, nloc = tuple(heat.dofmap.shape)
+    q, g = phi.shape[0], gphi.shape[-1]
+    Tc = st.T.to(f64)[heat.dofmap]
+    Tpc = Tc + 1.0
+    kw = dict(dt=dt, c_mass=heat.c_mass, c_diff=heat.c_diff, f_src=0.0)
+    call = port["PreparedDGCellResidual"](qw, gphi, phi)
+    k, ref = port["dg_cell_residual"], port["dg_cell_residual_reference"]
+    got, got_direct = call(Tc, Tpc, **kw), k(Tc, Tpc, qw, gphi, phi, **kw)
+    want = ref(Tc, Tpc, qw, gphi, phi, **kw)
+    mag = ref(Tc.abs(), -Tpc.abs(), qw, gphi.abs(), phi.abs(), **kw)
+    torch.cuda.synchronize()
+    if (not torch.equal(got, got_direct)
+            or bool(((got - want).abs() > 1e-12 * mag).any())):
+        fail(f"{tag}: K3 at nloc 27 disagrees with its plain version")
+    b, by = bound_ms(8 * c * k3_values_per_cell(nloc, q, g, True, False),
+                     c * k3_ops_per_cell(nloc, q, g), f64)
+    out["k3_nloc27"] = dict(
+        cells=c, nloc=nloc, q=q, g=g, path=call.path,
+        max_abs_err=float((got - want).abs().max()),
+        ms=time_ms(lambda: call(Tc, Tpc, **kw)),
+        device_ms=device_ms(lambda: call(Tc, Tpc, **kw)),
+        device_cold_ms=device_cold_ms(lambda: call(Tc, Tpc, **kw)),
+        direct_call_device_ms=device_ms(
+            lambda: k(Tc, Tpc, qw, gphi, phi, **kw)),
+        plain_ms=time_ms(lambda: ref(Tc, Tpc, qw, gphi, phi, **kw), reps=5),
+        bound_ms=b, bound_by=by)
+    log(tag + " " + json.dumps(out))
+    return out
+
+
 def profile(prob, dev, out_dir) -> None:
     """torch.profiler over 5 full-size steps: kernel time by name and the
     device's busy share of the window."""
@@ -1745,13 +2131,22 @@ def main() -> int:
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
+    # seconds since the build started at the end of each phase: what a
+    # later phase may spend within the script's time limit
     t0 = time.perf_counter()
+    ends = {}
+
+    def phase_end(name):
+        ends[name] = round(time.perf_counter() - t0, 1)
+        log(f"phase {name} ends at {ends[name]} s")
+
     lib = kernel_lib.library()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc {lib.build_seconds:.1f} s) -> {lib.path}")
     for line in lib.build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             log("  " + line.strip())
+    phase_end("1")
 
     # ---- phase 2: kernels against their plain versions ----
     k1 = check_material_tspace(dev, port)
@@ -1761,9 +2156,11 @@ def main() -> int:
         k2_small.append(check_stencil(v2, x, grid, 1e-12, port))
     log(f"K2 zero-at-missing-neighbour grids f64 max |diff| {k2_small}")
     k3 = check_dg_cell(dev, port)
+    phase_end("2")
 
     # ---- phase 3: parity of the whole path, GPU vs CPU ----
     parity_phase(dev)
+    phase_end("3")
 
     # ---- phase 4: the full-size main path ----
     drop_garbage("phase 4")
@@ -1785,6 +2182,7 @@ def main() -> int:
     del y_lib
     del vals2, x
     torch.cuda.empty_cache()
+    phase_end("4")
 
     # ---- phase 5: the default workload ----
     scratch_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1792,22 +2190,35 @@ def main() -> int:
     os.makedirs(scratch_dir, exist_ok=True)
     drop_garbage("phase 5")
     default = default_workload_phase(dev, port, scratch_dir)
+    phase_end("5")
 
     # ---- phase 6: the DG-1 plate, small against the CPU, then full ----
     dg_parity_phase(dev)
     drop_garbage("phase 6")
     plate = dg_plate_phase(dev, port)
+    phase_end("6")
 
     # ---- phase 7: the DG-1 plate through "auto" (DG p-multigrid) ----
     drop_garbage("phase 7a")
     dg_auto_parity = dg_auto_parity_phase(dev)
     dg_auto = dg_auto_plate_phase(dev, port)
+    phase_end("7")
 
     # ---- phase 8: equilibrium mechanics ----
     drop_garbage("phase 8a")
     mech_parity = mechanics_parity_phase(dev, port)
+    phase_end("8a")
     drop_garbage("phase 8b")
     mech = mechanics_plate_phase(dev, port)
+    phase_end("8b")
+
+    # ---- phase 9: the CG-2 plate on the lattice path ----
+    drop_garbage("phase 9a")
+    cg2_parity = cg2_parity_phase(dev, port)
+    phase_end("9a")
+    drop_garbage("phase 9b")
+    cg2 = cg2_plate_phase(dev, port)
+    phase_end("9b")
 
     k1_32 = k1["float32"]
     sigma_ms = full["material_step_ms"] - k1_32["ms"]
@@ -1826,7 +2237,8 @@ def main() -> int:
              launches_mechanics_plate_reference_xi=mech_parity[
                  "reference"]["launches"]["material_tspace"],
              launches_mechanics_plate_trapezoid_xi=mech["launches"][
-                 "material_tspace"]),
+                 "material_tspace"],
+             launches_cg2_plate=cg2["launches"]["material_tspace"]),
         dict(name="stencil_matvec", route="cuda",
              source="fem_glass_tempering_tpu_torch/csrc/stencil_matvec.cu",
              replaces="fem_glass_tempering_tpu/ops/pallas_stencil.py:54",
@@ -1838,7 +2250,9 @@ def main() -> int:
              launches_dg_auto_mixed=dg_auto["float32"]["launches"][
                  "stencil_matvec"],
              launches_mechanics_plate_trapezoid_xi=mech["launches"][
-                 "stencil_matvec"]),
+                 "stencil_matvec"],
+             launches_cg2_plate=cg2["launches"]["stencil_matvec"],
+             cg2_coarse_levels=cg2["k2_levels"]),
         # timed at the DG plate's shape (65,536 hex cells, uniform tables,
         # f64) in the heat operator's prepared call; no single PyTorch call
         # computes this function
@@ -1865,7 +2279,12 @@ def main() -> int:
                  "dg_cell_residual"],
              launches_mechanics_plate_trapezoid_xi=mech["launches"][
                  "dg_cell_residual"],
-             per_cell_tables=k3["per_cell"]),
+             launches_cg2_plate=cg2["launches"]["dg_cell_residual"],
+             launches_cg2_operator_check=cg2_parity[
+                 "k3_launches_operator_check"],
+             per_cell_tables=k3["per_cell"],
+             nloc27=dict(cg2["k3_nloc27"], max_abs_err_operator_check=(
+                 cg2_parity["k3_nloc27_max_abs_err"]))),
     ]
     for k in kernels:
         log(json.dumps(k))
@@ -1877,6 +2296,9 @@ def main() -> int:
     log("summary DG auto plate " + json.dumps(dg_auto))
     log("summary mechanics parity " + json.dumps(mech_parity))
     log("summary mechanics plate " + json.dumps(mech))
+    log("summary CG-2 parity " + json.dumps(cg2_parity))
+    log("summary CG-2 plate " + json.dumps(cg2))
+    log("summary phase end times, s " + json.dumps(ends))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

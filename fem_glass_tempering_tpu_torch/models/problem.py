@@ -18,10 +18,15 @@ DG p-multigrid for DG-1 boxes), SA-AMG or no preconditioner; mixed
 precision (cg_dtype='float32' under f64: an f32 inner CG with f32 twins
 of the operator and the preconditioner); equilibrium mechanics
 (mechanics='equilibrium': an elasticity solve inside every material step,
-models/mechanics.py); checkpoints. The default constructor is the
-reference's default workload (DG-1 on the graded 1D slab, matrix-free CG,
-SA-AMG). CG-2 raises NotImplementedError naming the slice of the port
-that brings it (ROADMAP.md).
+models/mechanics.py); checkpoints. A CG-2 temperature space runs on a
+structured box through the lattice path: the sum-factorised operator
+ops/grid2.py GridHeatOperator2 with linear_operator='stencil', and the
+Q2MG p-multigrid (its coarse solve the CG-1 GeometricMG V-cycle) for
+'mg' / 'auto', or Jacobi. The default constructor is the reference's
+default workload (DG-1 on the graded 1D slab, matrix-free CG, SA-AMG). The
+rest of degree 2 (the gather paths, DG-2, the f32 twins) raises
+NotImplementedError naming the slice of the port that brings it
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -135,7 +140,7 @@ class ThermoViscoProblem:
 
         fe = run_cfg.fe
         if fe.T_degree != 1:
-            raise _waits("a degree-2 temperature space", "Slice 4")
+            self._check_lattice_path(run_cfg)
         self.fs_T = FunctionSpace(self.mesh, fe.T_family, fe.T_degree)
         self.fs_sigma = FunctionSpace(self.mesh, fe.sigma_family, fe.sigma_degree,
                                       value_shape=(self.dim, self.dim))
@@ -160,6 +165,31 @@ class ThermoViscoProblem:
         self.last_mech_iters: list[int] = []
         self._writers: list = []
         self.diagnostics = StepDiagnostics()
+
+    def _check_lattice_path(self, cfg: RunConfig) -> None:
+        """Degree 2 runs on the CG-2 lattice path alone: a CG-2 space on a
+        structured box with the lattice stencil operator and the Q2
+        p-multigrid ('mg' / 'auto'), Jacobi or no preconditioner. Every
+        other configuration waits for Slice 4b (ROADMAP.md)."""
+        fe, sc = cfg.fe, cfg.solver
+        other = None
+        if fe.T_family != "CG" or fe.T_degree != 2:
+            other = f"a {fe.T_family}-{fe.T_degree} temperature space"
+        elif self.mesh.structured is None:
+            other = "a CG-2 temperature space on an unstructured mesh"
+        elif sc.grid_native == "off":
+            other = "a CG-2 temperature space with grid_native='off'"
+        elif sc.linear_operator != "stencil":
+            other = (f"a CG-2 temperature space with linear_operator="
+                     f"{sc.linear_operator!r}")
+        elif sc.preconditioner == "amg":
+            other = "a CG-2 temperature space with preconditioner='amg'"
+        elif sc.cg_dtype == "float32" and self.dtype == torch.float64:
+            other = "mixed precision (cg_dtype='float32') on a CG-2 space"
+        elif cfg.mechanics == "equilibrium":
+            other = "equilibrium mechanics on a CG-2 temperature space"
+        if other is not None:
+            raise _waits(other, "Slice 4b")
 
     # ------------------------------------------------------------------
     def setup(self, dirichlet_bc: bool = False, output_dir: str | None = None,
@@ -202,7 +232,8 @@ class ThermoViscoProblem:
             bc_dofs = self.fs_T.boundary_scalar_dofs()
             bc_val = self.params.T_ambient
         heat_form = self.config.heat_form
-        # host seconds of the setup's parts: "heat", "twins" (the f32
+        # host seconds of the setup's parts: "heat", "grid" (the grid-native
+        # operator: CG-1 grid or CG-2 lattice), "twins" (the f32
         # operators of mixed precision), "mg" (the multigrid hierarchy and
         # its frozen smoothers; of it "freeze", the DG multigrid's), and
         # "ell" / "amg" where an SA-AMG hierarchy is built
@@ -227,6 +258,7 @@ class ThermoViscoProblem:
         self.heat = heat_operator(self.dtype)
         self.setup_seconds["heat"] = _time.perf_counter() - t_setup
         # gather-free grid-native path when the mesh/space qualify
+        t_grid = _time.perf_counter()
         self._grid = None
         if sc.grid_native != "off":
             from fem_glass_tempering_tpu_torch.ops.grid import GridHeatOperator
@@ -236,6 +268,20 @@ class ThermoViscoProblem:
             except ValueError:
                 if sc.grid_native == "on":
                     raise
+        # the CG-2 lattice path (ops/grid2.py): the sum-factorised operator
+        # on the Q2 dof lattice of a uniform box
+        self._grid2 = None
+        if self.fs_T.degree == 2:
+            from fem_glass_tempering_tpu_torch.ops.grid2 import (
+                GridHeatOperator2,
+            )
+            try:
+                self._grid2 = GridHeatOperator2(self.heat,
+                                                flux_marker=flux_marker)
+            except ValueError as e:
+                raise _waits(f"a CG-2 space off the lattice path ({e})",
+                             "Slice 4b") from e
+        self.setup_seconds["grid"] = _time.perf_counter() - t_grid
         # equilibrium mechanics: the grid coupling on CG-1 grids and DG
         # boxes (through the T -> sigma cross-eval), the flat one otherwise
         self._mech = None
@@ -339,8 +385,9 @@ class ThermoViscoProblem:
 
     def _build_multigrid(self, heat: HeatOperator, dirichlet_bc, bc_val):
         """The frozen multigrid preconditioner of `heat`'s space in its
-        dtype -> (GeometricMG, None) for CG-1, (None, DGMultigrid) for
-        DG-1; the coarse levels are rediscretised CG-1 heat operators."""
+        dtype -> (GeometricMG, None) for CG-1, (Q2MG, None) for CG-2,
+        (None, DGMultigrid) for DG-1; the coarse levels are rediscretised
+        CG-1 heat operators."""
         from fem_glass_tempering_tpu_torch.solver.multigrid import (
             DGMultigrid,
             GeometricMG,
@@ -354,6 +401,15 @@ class ThermoViscoProblem:
                                 device=self.device, bc_dofs=bd,
                                 bc_value=bc_val, form=self.config.heat_form)
 
+        if self.fs_T.degree == 2:
+            # CG-2: p-multigrid over the embedded CG-1 lattice, whose
+            # GeometricMG takes the smoother and keeps Q2MG's defaults
+            from fem_glass_tempering_tpu_torch.ops.grid2 import Q2MG
+            mg = Q2MG(self._grid2, make_operator, nu_pre=sc.mg_nu_pre,
+                      nu_post=sc.mg_nu_post,
+                      mg_kwargs={"smoother": sc.mg_smoother})
+            mg.freeze_rhos(self.dt)
+            return mg, None
         mg_kwargs = dict(smoother=sc.mg_smoother, nu_pre=sc.mg_nu_pre,
                          nu_post=sc.mg_nu_post, max_levels=sc.mg_max_levels,
                          coarse=sc.mg_coarse)
@@ -442,7 +498,9 @@ class ThermoViscoProblem:
     def _build_step(self) -> None:
         heat, engine, sc = self.heat, self.engine, self.config.solver
         mg, dg_mg, amg = self._mg, self._dg_mg, self._amg
-        grid = self._grid
+        # the CG-1 grid operator or the CG-2 lattice operator: one surface
+        # for the residual, the diagonal and the Jacobian action
+        grid = self._grid if self._grid is not None else self._grid2
         ell = self._krylov_operator(heat, grid, dg_mg)
         self._ell = ell
         hres = self._residual_operator(heat, grid, ell)

@@ -1,0 +1,810 @@
+"""Gather-free heat operator for CG-2 (Q2) on uniform box meshes, and its
+p-multigrid preconditioner.
+
+Counterpart of fem_glass_tempering_tpu/ops/grid2.py (GridHeatOperator2,
+Q2MG). On a uniform box the Q2 dof lattice is the 2x-refined CG-1 node
+lattice, L = (2*n0+1, ..., 2*n_{d-1}+1) in C order, and the assembled mass
+and stiffness are Kronecker products of 1D assembled 5-band matrices:
+
+    M3 = M1x (x) M1y (x) M1z
+    K3 = K1x (x) M1y (x) M1z + M1x (x) K1y (x) M1z + M1x (x) M1y (x) K1z
+
+so every operator apply is a few sum-factorised 1D banded passes (5 static
+shifted slices per pass with per-plane weights). The nonlinear boundary
+flux is evaluated per box face from the 9 face-local basis columns read by
+strided lattice slices; the per-cell face contributions go back onto the
+face plane by pad + interleave and one contiguous plane add (no strided
+scatter, no repeated-index add: the card repeats its bits).
+
+`Q2MG` smooths on the Q2 lattice (Chebyshev over a point diagonal, or over
+a batched pentadiagonal line solve along the strongly coupled axis of an
+anisotropic plate), transfers to the embedded CG-1 node grid (even lattice
+points) by the exact Q1 -> Q2 embedding, and takes one CG-1 V-cycle as
+its coarse solve, whose smoothed levels apply the hand-written stencil
+kernel (ops/cuda_stencil.py) on the GPU. The JAX version's coarse V-cycle
+is its grid-shaped `GridMG` (solver/grid_mg.py), kept apart from
+`GeometricMG` for the ghost-padded fine level of the sharded step; without
+that padding the two compute the same cycle, so the port takes
+`GeometricMG` (solver/multigrid.py) on the flattened coarse residual until
+Slice 7 brings the padding.
+
+Everything here is plain PyTorch, as it is plain XLA in the JAX package,
+in the JAX version's order of operations. Waiting for Slice 4b of the port
+(ROADMAP.md): the materialised 5^d-offset table form (`matvec_form` /
+`form="table"`). Waiting for Slice 7: a ghost-padded coarse chain
+(`coarse_pad0`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from fem_glass_tempering_tpu_torch.fem.elements import lagrange_element
+from fem_glass_tempering_tpu_torch.fem.quadrature import gauss_legendre_01
+from fem_glass_tempering_tpu_torch.ops.assembly import build_boundary_geometry
+from fem_glass_tempering_tpu_torch.ops.heat import HeatOperator
+
+
+def _table_form_waits() -> NotImplementedError:
+    return NotImplementedError(
+        "the table form of GridHeatOperator2 waits for Slice 4b of the "
+        "PyTorch port (ROADMAP.md); use matvec_form='kron'")
+
+
+def _pad_axis(x: torch.Tensor, axis: int, lo: int, hi: int) -> torch.Tensor:
+    """Zero-pad `x` by (lo, hi) along `axis`."""
+    return F.pad(x, [0, 0] * (x.dim() - 1 - axis) + [lo, hi])
+
+
+class _Face2:
+    __slots__ = ("axis", "side", "qw", "phi", "np_qw", "np_phi", "cols",
+                 "phi_c", "plane_pos")
+
+    def __init__(self, axis, side, qw, phi):
+        self.axis = axis
+        self.side = side
+        self.qw = qw          # (q,) facet weights * |detJ|
+        self.phi = phi        # (q, nloc) cell basis on the facet
+
+
+def _assemble_1d_bands(n_cells: int, h: float):
+    """Assembled 1D Q2 mass/stiffness on n_cells uniform cells of size h,
+    as (5, g) band arrays with band index b = column-row offset + 2 and
+    g = 2*n_cells + 1 lattice points. Out-of-range couplings are exact
+    zeros (the pad-slice matvec relies on that)."""
+    e1 = lagrange_element("interval", 2)
+    x, w = gauss_legendre_01(3)               # exact to degree 5 (>= phi*phi)
+    phi = e1.tabulate(x.reshape(-1, 1))       # (q, 3)
+    dphi = e1.tabulate_grad(x.reshape(-1, 1))[:, :, 0]
+    m_el = h * np.einsum("q,ql,qm->lm", w, phi, phi)
+    k_el = (1.0 / h) * np.einsum("q,ql,qm->lm", w, dphi, dphi)
+    off1 = np.rint(e1.nodes[:, 0] * 2).astype(int)        # local -> lattice
+    g = 2 * n_cells + 1
+    M = np.zeros((5, g))
+    K = np.zeros((5, g))
+    for c in range(n_cells):
+        base = 2 * c
+        for l in range(3):
+            row = base + off1[l]
+            for m in range(3):
+                delta = off1[m] - off1[l]
+                M[delta + 2, row] += m_el[l, m]
+                K[delta + 2, row] += k_el[l, m]
+    return M, K
+
+
+def _np_outer(vs):
+    out = vs[0]
+    for v in vs[1:]:
+        out = np.multiply.outer(out, v)
+    return out
+
+
+class GridHeatOperator2:
+    """Replacement for HeatOperator.residual / jacobian_diag / make_matvec
+    for CG-2 spaces on uniform box meshes with whole-boundary (or
+    whole-face) radiation + convection flux and no MMS source."""
+
+    def __init__(self, op: HeatOperator, flux_marker=None,
+                 matvec_form: str = "kron"):
+        fs = op.fs
+        mesh = fs.mesh
+        if mesh.structured is None or fs.family != "CG" or fs.degree != 2:
+            raise ValueError("GridHeatOperator2 needs a structured box mesh "
+                             "with a CG-2 space")
+        if op.source_q is not None:
+            raise ValueError("GridHeatOperator2 does not support MMS sources")
+        if matvec_form == "table":
+            raise _table_form_waits()
+        if matvec_form != "kron":
+            raise ValueError(matvec_form)
+        self.op = op
+        self.params = op.params
+        self.dtype = op.dtype
+        self.device = op.device
+        self.matvec_form = matvec_form
+        self.dims = tuple(mesh.structured["dims"])
+        self.d = d = len(self.dims)
+        self.grid = tuple(2 * n + 1 for n in self.dims)
+        self.n = fs.n_scalar_dofs
+        assert int(np.prod(self.grid)) == self.n
+        nloc = fs.element.nloc
+        self.nloc = nloc
+
+        # local node l <-> lattice offset (in {0,1,2}^d): reference axis i
+        # maps to grid axis i, the CG-1 vertex-bit convention
+        self.loffs = [tuple(int(v) for v in np.rint(fs.element.nodes[l] * 2))
+                      for l in range(nloc)]
+        # the geometric-dedup dofmap must coincide with C-order lattice
+        # numbering (fem/functionspace.py sorts quantized coordinates
+        # lexicographically, which is exactly this layout on a box)
+        strides = np.array([int(np.prod(self.grid[i + 1:]))
+                            for i in range(d)])
+        cidx = np.stack(np.meshgrid(*[np.arange(n) for n in self.dims],
+                                    indexing="ij"), axis=-1).reshape(-1, d)
+        loff_arr = np.array(self.loffs)                     # (nloc, d)
+        expected = ((2 * cidx[:, None, :] + loff_arr[None, :, :])
+                    @ strides).astype(np.int32)
+        if not np.array_equal(expected, fs.dofmap):
+            raise ValueError("CG-2 dofmap is not lattice-ordered")
+
+        # 1D assembled band matrices per axis (numpy at setup)
+        lengths = tuple(mesh.structured["lengths"])
+        self.np_bands = []
+        for a in range(d):
+            h = lengths[a] / self.dims[a]
+            self.np_bands.append(_assemble_1d_bands(self.dims[a], h))
+        f = lambda arr: torch.as_tensor(np.array(arr), dtype=op.dtype,
+                                        device=op.device)
+        self.bands_m = [f(M) for M, _ in self.np_bands]
+        self.bands_k = [f(K) for _, K in self.np_bands]
+
+        # UNSCALED mass row sums M3 @ 1 for the constant source term (the
+        # -dt*f*v*dx term carries no c_mass factor): Kron of 1D row sums
+        self.M1g = f(_np_outer([M.sum(axis=0) for M, _ in self.np_bands]))
+
+        # ---- boundary faces (radiation + convection flux) -------------
+        bq = 5 * fs.degree
+        bg = build_boundary_geometry(mesh, fs, bq)
+        if len(bg.cell) != len(mesh.boundary_cell):
+            raise ValueError("flux restricted to a facet subset — grid path "
+                             "requires whole-boundary flux or a whole-face "
+                             "flux_marker")
+        if flux_marker is not None:
+            mids = bg.qpoints_phys.mean(axis=1)
+            keep = np.asarray(flux_marker(mids), dtype=bool)
+        else:
+            keep = np.ones(len(bg.cell), dtype=bool)
+        normal = bg.normal[:, 0, :]
+        axis = np.argmax(np.abs(normal), axis=1)
+        side = (normal[np.arange(len(axis)), axis] > 0).astype(int)
+        cells = bg.cell
+        cstrides = np.array([int(np.prod(self.dims[i + 1:]))
+                             for i in range(d)])
+        self.faces: list[_Face2] = []
+        for a in range(d):
+            for s in (0, 1):
+                sel = (axis == a) & (side == s)
+                if not sel.any():
+                    continue
+                k = keep[sel]
+                if not k.any():
+                    continue
+                if not k.all():
+                    raise ValueError("flux_marker cuts through a box face")
+                qw = bg.qweights[sel]
+                phi = bg.phi[sel]
+                if (np.abs(qw - qw[0]).max() > 1e-12 * max(qw.max(), 1e-30)
+                        or np.abs(phi - phi[0]).max() > 1e-12):
+                    raise ValueError("non-uniform face tables — mesh is not "
+                                     "a uniform box")
+                layer = cells[sel]
+                ca = (layer // cstrides[a]) % self.dims[a]
+                expect = 0 if s == 0 else self.dims[a] - 1
+                n_layer = int(np.prod(self.dims)) // self.dims[a]
+                if not (len(layer) == n_layer and np.all(ca == expect)
+                        and len(np.unique(layer)) == n_layer):
+                    raise ValueError("face layer mismatch — mesh is not a "
+                                     "uniform box")
+                fc = _Face2(a, s, f(qw[0]), f(phi[0]))
+                fc.np_qw = np.asarray(qw[0])
+                fc.np_phi = np.asarray(phi[0])
+                fc.cols = [l for l in range(nloc)
+                           if float(np.abs(fc.np_phi[:, l]).max()) > 1e-14]
+                fc.phi_c = f(fc.np_phi[:, fc.cols])          # (q, lc)
+                # position of col j in the (3,)*len(plane axes) local box
+                plane_axes = [i for i in range(d) if i != a]
+                pos = np.zeros((3,) * len(plane_axes), dtype=np.int64)
+                for j, l in enumerate(fc.cols):
+                    pos[tuple(self.loffs[l][i] for i in plane_axes)] = j
+                fc.plane_pos = torch.as_tensor(pos.reshape(-1),
+                                               device=op.device)
+                self.faces.append(fc)
+        # per-face (q, lc, lc) basis products for the linearized flux
+        self._face_phiphi = [
+            f(np.einsum("ql,qm->qlm", fc.np_phi[:, fc.cols],
+                        fc.np_phi[:, fc.cols]))
+            for fc in self.faces]
+
+        # ---- Dirichlet lifting ----------------------------------------
+        self.bc_mask = op.bc_mask
+        self.bc_values = op.bc_values
+        self.bc_mask_g = op.bc_mask.reshape(self.grid)
+        self.bc_values_g = op.bc_values.reshape(self.grid)
+        self.has_bc = op.has_bc
+
+        # host Gershgorin statistics for the smoother bounds (Q2MG):
+        # |A| row sums <= sum_t outer(|band_t| row sums); diag exact
+        p = op.params
+        dabs_m, dabs_k, dg_m, dg_k = [], [], [], []
+        for a in range(d):
+            M, K = self.np_bands[a]
+            dabs_m.append(np.abs(M).sum(axis=0))
+            dabs_k.append(np.abs(K).sum(axis=0))
+            dg_m.append(M[2])
+            dg_k.append(K[2])
+        mass_abs = _np_outer(dabs_m)
+        stiff_abs = sum(_np_outer([dabs_k[t] if t == a else dabs_m[t]
+                                   for t in range(d)]) for a in range(d))
+        mass_diag = _np_outer(dg_m)
+        stiff_diag = sum(_np_outer([dg_k[t] if t == a else dg_m[t]
+                                    for t in range(d)]) for a in range(d))
+        # boundary linearization at T_0 (abs-sum and diagonal per face)
+        b_abs = np.zeros(self.grid)
+        b_diag = np.zeros(self.grid)
+        dflux0 = p.boundary_scale * (4.0 * p.sigma * p.epsilon
+                                     * p.T_0 ** 3 + p.htc)
+        for fc in self.faces:
+            phi = fc.np_phi[:, fc.cols]
+            blocks = dflux0 * np.einsum("q,ql,qm->lm", fc.np_qw, phi, phi)
+            for jl, l in enumerate(fc.cols):
+                sl = self._corner_slices(fc, l)
+                b_abs[sl] += np.abs(blocks[jl]).sum()
+                b_diag[sl] += blocks[jl, jl]
+        self.gersh = {
+            "mass_abs": op.c_mass * mass_abs,
+            "mass_diag": op.c_mass * mass_diag,
+            "stiff_abs": op.c_diff * stiff_abs,
+            "stiff_diag": op.c_diff * stiff_diag,
+            "b_abs": b_abs, "b_diag": b_diag,
+        }
+
+    # ------------------------------------------------------------------
+    def _corner_slices(self, face: _Face2, l: int):
+        """Static strided lattice slices addressing local node l of every
+        cell in the face's boundary layer (stride 2: cell i -> lattice
+        2*i + off)."""
+        off = self.loffs[l]
+        idx = []
+        for i in range(self.d):
+            if i == face.axis:
+                base = (0 if face.side == 0
+                        else 2 * (self.dims[i] - 1)) + off[i]
+                idx.append(slice(base, base + 1))
+            else:
+                idx.append(slice(off[i], off[i] + 2 * self.dims[i] - 1, 2))
+        return tuple(idx)
+
+    def _face_corners(self, Tg, face: _Face2):
+        return torch.stack(
+            [Tg[self._corner_slices(face, l)] for l in face.cols], dim=-1)
+
+    # ---- gather-free face scatter ------------------------------------
+    @staticmethod
+    def _interleave_axis(even, odd, axis):
+        """even (n+1) and odd (n) along `axis` -> interleaved (2n+1)."""
+        n = odd.shape[axis]
+        head = even.narrow(axis, 0, n)
+        pairs = torch.stack([head, odd], dim=axis + 1)
+        shp = list(even.shape)
+        shp[axis] = 2 * n
+        pairs = pairs.reshape(shp)
+        last = even.narrow(axis, n, 1)
+        return torch.cat([pairs, last], dim=axis)
+
+    @classmethod
+    def _assemble_cells_to_lattice(cls, arr, n_cell_axes):
+        """(*cell_dims, 3, ..., 3) with one trailing local axis per cell
+        axis -> lattice array (*[2n+1]): per axis, out[2i + o] += arr[i, o]
+        via pad + interleave (no scatter)."""
+        for a in range(n_cell_axes):
+            la = arr.dim() - (n_cell_axes - a)
+            c0 = arr.select(la, 0)
+            c1 = arr.select(la, 1)
+            c2 = arr.select(la, 2)
+            even = _pad_axis(c0, a, 0, 1) + _pad_axis(c2, a, 1, 0)
+            arr = cls._interleave_axis(even, c1, a)
+        return arr
+
+    def _face_plane_add(self, yg, face: _Face2, contrib):
+        """Add per-cell face contributions (face-layer cells x len(cols))
+        into the lattice array yg in place, gather-free: the columns are
+        placed in a (3,)*(d-1) local box, assembled onto the face plane by
+        pad + interleave, and added with one contiguous plane slice. yg
+        must be a tensor the caller owns."""
+        az = face.axis
+        c = contrib.squeeze(az)                # (*plane_cells, lc)
+        if self.d == 1:                        # a single end point
+            base = 0 if face.side == 0 else self.grid[0] - 1
+            yg.narrow(0, base, 1).add_(c.reshape(1))
+            return yg
+        npa = self.d - 1
+        c3 = c[..., face.plane_pos].reshape(c.shape[:-1] + (3,) * npa)
+        plane = self._assemble_cells_to_lattice(c3, npa)
+        base = 0 if face.side == 0 else self.grid[az] - 1
+        yg.narrow(az, base, 1).add_(plane.unsqueeze(az))
+        return yg
+
+    # ---- 1D banded applies (sum factorization) -----------------------
+    def _apply1d(self, band, xg, axis, diff: bool = False):
+        """Apply a (5, g) banded 1D operator along `axis` of the lattice:
+        5 static shifted slices with per-plane weights, in band order.
+        `diff=True` is the difference form sum_{o != 2} band_o (x_{i+o} -
+        x_i), which annihilates along-axis-constant fields exactly in
+        floating point (zero-row-sum stiffness)."""
+        g = xg.shape[axis]
+        xp = _pad_axis(xg, axis, 2, 2)
+        shape = [1] * xg.dim()
+        shape[axis] = g
+        acc = None
+        for o in range(5):
+            if diff and o == 2:
+                continue
+            sl = xp.narrow(axis, o, g)
+            term = band[o].reshape(shape) * ((sl - xg) if diff else sl)
+            acc = term if acc is None else acc + term
+        return acc
+
+    def _mass3(self, xg):
+        for a in range(self.d):
+            xg = self._apply1d(self.bands_m[a], xg, a)
+        return xg
+
+    def _stiff3(self, xg):
+        """K3 x by sum factorization with difference-form 1D stiffness
+        passes (7 banded applies in 3D instead of 9: the trailing-axis
+        mass chain is shared)."""
+        d = self.d
+        if d == 1:
+            return self._apply1d(self.bands_k[0], xg, 0, diff=True)
+        # suffix[a] = M_{a+1} ... M_{d-1} x
+        suffix = [xg]
+        for a in range(d - 1, 0, -1):
+            suffix.insert(0, self._apply1d(self.bands_m[a], suffix[0], a))
+        # Horner over the shared prefix: R_a = K_a suffix[a] + M_a R_{a+1}
+        acc = self._apply1d(self.bands_k[d - 1], suffix[d - 1], d - 1,
+                            diff=True)
+        for a in range(d - 2, -1, -1):
+            acc = self._apply1d(self.bands_m[a], acc, a)
+            acc = acc + self._apply1d(self.bands_k[a], suffix[a], a,
+                                      diff=True)
+        return acc
+
+    def _face_Tb(self, Tg, fc: _Face2):
+        """The temperature at the face's quadrature points, per cell."""
+        return torch.einsum("...l,ql->...q", self._face_corners(Tg, fc),
+                            fc.phi_c)
+
+    # ------------------------------------------------------------------
+    def residual(self, T: torch.Tensor, T_prev: torch.Tensor,
+                 dt=None) -> torch.Tensor:
+        return self.residual_g(T.reshape(self.grid),
+                               T_prev.reshape(self.grid), dt).reshape(-1)
+
+    def residual_g(self, Tg, Tpg, dt=None):
+        dt = self.op.dt if dt is None else dt
+        if not self.has_bc:
+            return self._base_residual_g(Tg, Tpg, dt)
+        T_eff = torch.where(self.bc_mask_g, self.bc_values_g, Tg)
+        r = self._base_residual_g(T_eff, Tpg, dt)
+        return torch.where(self.bc_mask_g, Tg - self.bc_values_g, r)
+
+    def _base_residual_g(self, Tg, Tpg, dt):
+        p = self.params
+        # mass on the per-step DIFFERENCE + difference-form stiffness: no
+        # ~800 K cancellation, constants annihilated exactly
+        rg = (self.op.c_mass * self._mass3(Tg - Tpg)
+              + (dt * self.op.c_diff) * self._stiff3(Tg)
+              - (dt * p.f) * self.M1g)
+        for fc in self.faces:
+            Tb = self._face_Tb(Tg, fc)
+            gflux = p.boundary_scale * (
+                (p.sigma * p.epsilon) * (Tb**4 - p.T_ambient**4)
+                + p.htc * (Tb - p.T_ambient))
+            contrib = torch.einsum("...q,q,ql->...l", gflux, dt * fc.qw,
+                                   fc.phi_c)
+            rg = self._face_plane_add(rg, fc, contrib)
+        return rg
+
+    # ------------------------------------------------------------------
+    def jacobian_diag(self, T: torch.Tensor, dt=None) -> torch.Tensor:
+        return self.jacobian_diag_g(T.reshape(self.grid), dt).reshape(-1)
+
+    def jacobian_diag_g(self, Tg, dt=None):
+        p = self.params
+        dt = self.op.dt if dt is None else dt
+        d = self.d
+
+        def outer(vs):
+            out = vs[0]
+            for v in vs[1:]:
+                out = out[..., None] * v
+            return out
+
+        dm = [self.bands_m[a][2] for a in range(d)]
+        dk = [self.bands_k[a][2] for a in range(d)]
+        dg = self.op.c_mass * outer(dm)
+        for a in range(d):
+            dg = dg + (dt * self.op.c_diff) * outer(
+                [dk[t] if t == a else dm[t] for t in range(d)])
+        for fc in self.faces:
+            Tb = self._face_Tb(Tg, fc)
+            dflux = p.boundary_scale * (
+                4.0 * p.sigma * p.epsilon * Tb**3 + p.htc)
+            contrib = torch.einsum("...q,q,ql->...l", dflux, dt * fc.qw,
+                                   fc.phi_c * fc.phi_c)
+            dg = self._face_plane_add(dg, fc, contrib)
+        if self.has_bc:
+            dg = torch.where(self.bc_mask_g, torch.ones_like(dg), dg)
+        return dg
+
+    # ---- linearized boundary flux (frozen T) -------------------------
+    def _flux_lin_tables(self, Tg, dt):
+        p = self.params
+        out = []
+        for fc, phiphi in zip(self.faces, self._face_phiphi):
+            Tb = self._face_Tb(Tg, fc)
+            w = (p.boundary_scale
+                 * (4.0 * p.sigma * p.epsilon * Tb**3 + p.htc)
+                 * (dt * fc.qw))
+            # multiply + reduce, as the JAX version
+            out.append((w[..., :, None, None] * phiphi).sum(-3))
+        return out
+
+    def _apply_flux_lin(self, WW, xg, yg):
+        for fc, W in zip(self.faces, WW):
+            xc = self._face_corners(xg, fc)                  # (..., m)
+            contrib = (W * xc[..., None, :]).sum(-1)         # (..., l)
+            yg = self._face_plane_add(yg, fc, contrib)
+        return yg
+
+    # ---- Jacobian action ---------------------------------------------
+    def _kron_jac_g(self, dt):
+        """Linear-part Jacobian apply (sum-factorized): c_mass*M3 +
+        dt*c_diff*K3, 2d+1 banded passes."""
+        d = self.d
+        cm = self.op.c_mass
+        ck = self.op.c_diff
+
+        def mv(xg):
+            suffix = [xg]
+            for a in range(d - 1, 0, -1):
+                suffix.insert(0, self._apply1d(self.bands_m[a],
+                                               suffix[0], a))
+            if d == 1:
+                acc = (dt * ck) * self._apply1d(self.bands_k[0], xg, 0,
+                                                diff=True)
+                return acc + cm * self._apply1d(self.bands_m[0], xg, 0)
+            acc = (dt * ck) * self._apply1d(self.bands_k[d - 1],
+                                            suffix[d - 1], d - 1, diff=True)
+            for a in range(d - 2, -1, -1):
+                acc = self._apply1d(self.bands_m[a], acc, a)
+                acc = acc + (dt * ck) * self._apply1d(
+                    self.bands_k[a], suffix[a], a, diff=True)
+            # add cm * M3 x: reuse suffix[0] = M_{1..d-1} x
+            return acc + cm * self._apply1d(self.bands_m[0], suffix[0], 0)
+        return mv
+
+    def make_matvec_g(self, Tg, dt, form: str | None = None):
+        """Grid-shaped Jacobian action at the frozen linearization Tg."""
+        if (form or self.matvec_form) != "kron":
+            raise _table_form_waits()
+        lin = self._kron_jac_g(dt)
+        WW = self._flux_lin_tables(Tg, dt)
+
+        def mv0(v):
+            y = lin(v)
+            if WW:
+                y = self._apply_flux_lin(WW, v, y)
+            return y
+        if self.has_bc:
+            mask = self.bc_mask_g
+            return lambda v: torch.where(
+                mask, v, mv0(torch.where(mask, torch.zeros_like(v), v)))
+        return mv0
+
+    def make_matvec(self, T: torch.Tensor, dt, form: str | None = None):
+        """Flat-vector Jacobian action (the Krylov-loop operator)."""
+        g_mv = self.make_matvec_g(T.reshape(self.grid), dt, form=form)
+        return lambda v: g_mv(v.reshape(self.grid)).reshape(-1)
+
+
+class Q2MG:
+    """p-multigrid preconditioner for GridHeatOperator2: smoothing on the
+    Q2 lattice, exact-embedding transfers to the CG-1 node grid (even
+    lattice points), and one GeometricMG V-cycle as the coarse solve. The
+    interface mirrors GeometricMG's (models/problem.py):
+
+        mg = Q2MG(grid2_op, make_heat_operator)
+        mg.freeze_rhos(dt)
+        precond = mg.preconditioner(mg.linearization_states(T), dt)
+
+    Smoother: 'auto' resolves to a Chebyshev-accelerated pentadiagonal
+    LINE smoother along the strongly coupled (small-h) axis on plates
+    anisotropic by more than 3:1 (point smoothers cannot damp the
+    through-thickness lattice modes), and to point Chebyshev-Jacobi on
+    isotropic boxes. Each lattice line's restriction of the operator is
+    alpha(line)*M1_az + beta(line)*K1_az with per-line scalars, factorised
+    once per operator build by a batched banded LDL^T."""
+
+    def __init__(self, fine: GridHeatOperator2, make_heat_operator, *,
+                 nu_pre: int = 2, nu_post: int = 2, smoother: str = "auto",
+                 mg_kwargs: dict | None = None, coarse_pad0: int = 0):
+        from fem_glass_tempering_tpu_torch.solver.multigrid import (
+            GeometricMG,
+        )
+        if coarse_pad0:
+            raise NotImplementedError(
+                "a ghost-padded coarse chain (coarse_pad0) waits for Slice 7 "
+                "of the PyTorch port (ROADMAP.md)")
+        self.fine = fine
+        self.nu_pre, self.nu_post = nu_pre, nu_post
+        mesh = fine.op.fs.mesh
+        h = [ln / dd for ln, dd in zip(mesh.structured["lengths"],
+                                       fine.dims)]
+        if smoother == "auto":
+            smoother = ("line" if (max(h) / min(h) > 3.0 and fine.d >= 2)
+                        else "chebyshev")
+        if smoother not in ("chebyshev", "jacobi", "line"):
+            raise ValueError(smoother)
+        self.smoother = smoother
+        self.line_axis = None
+        if smoother == "line":
+            # lines along the strongly coupled axis: it goes last, so a
+            # line is a contiguous run of the lattice
+            self.line_axis = int(np.argmin(h))
+            self._perm = tuple(j for j in range(fine.d)
+                               if j != self.line_axis) + (self.line_axis,)
+            self._inv_perm = tuple(int(j) for j in np.argsort(self._perm))
+        # the coarse V-cycle's defaults are those of the JAX version's
+        # GridMG: Chebyshev smoothing, a dense coarsest level
+        self.gmg = GeometricMG(mesh, make_heat_operator, dtype=fine.dtype,
+                               **{"smoother": "chebyshev",
+                                  **(mg_kwargs or {})})
+        heat1 = self.gmg.levels[0].op
+        if heat1.fs.degree != 1 or heat1.fs.family != "CG":
+            raise ValueError("make_heat_operator must build the CG-1 "
+                             "operator for the coarse chain")
+        self._rho2 = None
+
+    def freeze_rhos(self, dt: float) -> None:
+        g = self.fine.gersh
+        num = (g["mass_abs"] + dt * g["stiff_abs"] + dt * g["b_abs"])
+        den = (g["mass_diag"] + dt * g["stiff_diag"] + dt * g["b_diag"])
+        self._rho2 = float(np.max(num / den))
+        self.gmg.freeze_omegas(None, dt)
+
+    # GeometricMG-compatible alias
+    def freeze_omegas(self, T0, dt) -> None:
+        self.freeze_rhos(dt)
+
+    def linearization_states_g(self, Tg: torch.Tensor):
+        """Per-level frozen temperatures: the Q2 lattice grid, then the
+        CG-1 chain's flat states by injection (even lattice points are the
+        CG-1 nodal values; deeper levels by GeometricMG's even-node
+        injection)."""
+        T1 = Tg
+        for a in range(self.fine.d):
+            T1 = T1[(slice(None),) * a + (slice(0, None, 2),)]
+        return [Tg] + self.gmg.linearization_states(T1.reshape(-1))
+
+    def linearization_states(self, T: torch.Tensor):
+        return self.linearization_states_g(T.reshape(self.fine.grid))
+
+    def _restrict(self, rg):
+        from fem_glass_tempering_tpu_torch.solver.multigrid import (
+            GeometricMG,
+        )
+        for a in range(self.fine.d):
+            rg = GeometricMG._restrict_axis(rg, a)
+        return rg
+
+    def _prolong(self, xc):
+        from fem_glass_tempering_tpu_torch.solver.multigrid import (
+            GeometricMG,
+        )
+        for a in range(self.fine.d):
+            xc = GeometricMG._prolong_axis(xc, a)
+        return xc
+
+    # ---- batched pentadiagonal line solver ---------------------------
+    def _line_bands(self, T_lin, dt):
+        """The line matrices along `line_axis` of the frozen operator as
+        (a0, a1, a2) of shape (ncol, nz): the diagonal, and the couplings
+        A[k+1, k] and A[k+2, k]. Off the diagonal the line matrix is
+        alpha*M1_az + beta*K1_az (Kronecker separability); the diagonal is
+        the exact operator diagonal (it folds in the linearized boundary
+        flux and the Dirichlet identity rows), and the couplings at
+        Dirichlet rows are severed.
+
+        alpha is the JAX version's as it stands: the cross-axis stiffness
+        enters it without the dt factor that the operator c_mass*M +
+        dt*c_diff*K gives it (JAX ops/grid2.py:821-827; ROADMAP.md Queue 3
+        records the gap)."""
+        fine = self.fine
+        az = self.line_axis
+        d = fine.d
+        cm = fine.op.c_mass
+        ck = fine.op.c_diff
+        L = fine.grid
+        dm = [np.asarray(fine.np_bands[t][0][2]) for t in range(d)]
+        dk = [np.asarray(fine.np_bands[t][1][2]) for t in range(d)]
+
+        def outer_except(vs):
+            out = None
+            for t in range(d):
+                if t == az:
+                    continue
+                v = vs[t]
+                out = v if out is None else np.multiply.outer(out, v)
+            return out
+
+        alpha_np = cm * outer_except(dm)
+        for a in range(d):
+            if a == az:
+                continue
+            alpha_np = alpha_np + ck * outer_except(
+                [dk[t] if t == a else dm[t] for t in range(d)])
+        beta_np = ck * outer_except(dm)
+        f = lambda a: torch.as_tensor(a, dtype=fine.dtype,
+                                      device=fine.device)
+        Mb, Kb = fine.bands_m[az], fine.bands_k[az]    # (5, Lz)
+        nz = L[az]
+        ncol = int(np.prod(L)) // nz
+        a0 = self._to_lines(fine.jacobian_diag_g(T_lin, dt))
+        ab = f(alpha_np).reshape(ncol, 1)
+        bb = f(beta_np).reshape(ncol, 1)
+        # the symmetric band layout stores band b of row r as the coupling
+        # to column r + b - 2, so A[k+1, k] = band 3 at row k and
+        # A[k+2, k] = band 4 at row k; the stiffness part carries dt
+        a1 = ab * Mb[3] + (dt * bb) * Kb[3]            # (ncol, nz)
+        a2 = ab * Mb[4] + (dt * bb) * Kb[4]
+        if fine.has_bc:
+            free = 1.0 - self._to_lines(fine.bc_mask_g.to(fine.dtype))
+            free_n1 = torch.cat(
+                [free[:, 1:], torch.zeros_like(free[:, :1])], dim=1)
+            free_n2 = torch.cat(
+                [free[:, 2:], torch.zeros_like(free[:, :2])], dim=1)
+            a1 = a1 * free * free_n1
+            a2 = a2 * free * free_n2
+        return a0, a1, a2
+
+    def _to_lines(self, x):
+        return x.permute(self._perm).reshape(-1, self.fine.grid[
+            self.line_axis])
+
+    def _from_lines(self, x2):
+        L = self.fine.grid
+        return x2.reshape(tuple(L[j] for j in self._perm)).permute(
+            self._inv_perm)
+
+    @staticmethod
+    def _ldl(a0, a1, a2):
+        """Batched banded LDL^T (bandwidth 2) of the (ncol, nz) line
+        matrices, a Python loop over the line -> (d0, l1, l2) lists of
+        (ncol,) columns."""
+        nz = a0.shape[1]
+        d0 = [a0[:, 0]]
+        l1 = [a1[:, 0] / d0[0]]
+        l2 = [a2[:, 0] / d0[0]]
+        for k in range(1, nz):
+            dk_ = a0[:, k] - l1[k - 1] ** 2 * d0[k - 1]
+            if k >= 2:
+                dk_ = dk_ - l2[k - 2] ** 2 * d0[k - 2]
+            d0.append(dk_)
+            if k < nz - 1:
+                lk = a1[:, k] - l2[k - 1] * l1[k - 1] * d0[k - 1]
+                l1.append(lk / dk_)
+            if k < nz - 2:
+                l2.append(a2[:, k] / dk_)
+        return d0, l1, l2
+
+    def _line_solver(self, T_lin, dt):
+        """Factorise every lattice line along `line_axis` of the frozen
+        operator and return zsolve(r_grid) -> Z^{-1} r_grid."""
+        d0, l1, l2 = self._ldl(*self._line_bands(T_lin, dt))
+        nz = len(d0)
+
+        def zsolve(rg):
+            r2 = self._to_lines(rg)
+            y = [r2[:, 0]]
+            for k in range(1, nz):
+                yk = r2[:, k] - l1[k - 1] * y[k - 1]
+                if k >= 2:
+                    yk = yk - l2[k - 2] * y[k - 2]
+                y.append(yk)
+            z = [y[k] / d0[k] for k in range(nz)]
+            x = [None] * nz
+            x[-1] = z[-1]
+            if nz >= 2:
+                x[-2] = z[-2] - l1[nz - 2] * x[-1]
+            for k in range(nz - 3, -1, -1):
+                x[k] = z[k] - l1[k] * x[k + 1] - l2[k] * x[k + 2]
+            return self._from_lines(torch.stack(x, dim=1))
+        return zsolve
+
+    @staticmethod
+    def _power_rho(mv, zsolve, shape, dtype, device, iters: int = 8):
+        """Power-iteration bound on rho(Z^{-1}A) from the fixed start
+        sin(0.7 k) + 0.01 (the line coefficients move with dt and T, so the
+        Chebyshev bound is computed per operator build), times 1.1."""
+        n = int(np.prod(shape))
+        v = (torch.sin(torch.arange(n, dtype=dtype, device=device) * 0.7)
+             + 0.01).reshape(shape)
+        rho = torch.ones((), dtype=dtype, device=device)
+        for _ in range(iters):
+            w = zsolve(mv(v))
+            nw = torch.sqrt(torch.dot(w.reshape(-1), w.reshape(-1)))
+            rho = nw / torch.sqrt(torch.dot(v.reshape(-1), v.reshape(-1)))
+            v = w / nw
+        return rho * 1.1
+
+    def preconditioner_g(self, T_levels, dt):
+        """Grid-shaped V-cycle apply (r_lattice -> ~A^-1 r_lattice)."""
+        assert self._rho2 is not None, "call freeze_rhos(dt) first"
+        fine = self.fine
+        mv = fine.make_matvec_g(T_levels[0], dt)
+        coarse = self.gmg.preconditioner(T_levels[1:], dt)
+        nu_pre, nu_post = self.nu_pre, self.nu_post
+        if self.smoother == "line":
+            zapply = self._line_solver(T_levels[0], dt)
+            rho = self._power_rho(mv, zapply, fine.grid, fine.dtype,
+                                  fine.device)
+        else:
+            diag = fine.jacobian_diag_g(T_levels[0], dt)
+            zapply = lambda r: r / diag
+            rho = self._rho2
+
+        def smooth_cheb(x, b, nu):
+            lmax = rho
+            lmin = lmax / 4.0
+            theta = 0.5 * (lmax + lmin)
+            delta = 0.5 * (lmax - lmin)
+            sigma = theta / delta
+            rho_k = 1.0 / sigma
+            r = b - mv(x)
+            p = zapply(r) / theta
+            x = x + p
+            for _ in range(max(nu - 1, 0)):
+                r = b - mv(x)
+                z = zapply(r)
+                rho_next = 1.0 / (2.0 * sigma - rho_k)
+                p = rho_next * rho_k * p + (2.0 * rho_next / delta) * z
+                x = x + p
+                rho_k = rho_next
+            return x
+
+        def smooth_jac(x, b, nu):
+            omega = 4.0 / (3.0 * rho)
+            for _ in range(nu):
+                x = x + omega * zapply(b - mv(x))
+            return x
+
+        smooth = smooth_jac if self.smoother == "jacobi" else smooth_cheb
+
+        def apply_g(rg):
+            x = smooth(torch.zeros_like(rg), rg, nu_pre)
+            res = rg - mv(x)
+            rc = self._restrict(res)
+            xc = coarse(rc.reshape(-1)).reshape(rc.shape)
+            x = x + self._prolong(xc)
+            return smooth(x, rg, nu_post)
+        return apply_g
+
+    def preconditioner(self, T_levels, dt):
+        """Flat-vector apply (the interface models/problem.py calls)."""
+        apply_g = self.preconditioner_g(T_levels, dt)
+        grid = self.fine.grid
+        return lambda r: apply_g(r.reshape(grid)).reshape(-1)

@@ -22,8 +22,12 @@ displacement grid-shaped (*grid, d) end to end:
 Everything is plain PyTorch, as it is plain XLA in the JAX package. The
 small-block algebra is written as multiply + reduce and the 3x3 inverse as
 the closed-form adjugate, in the JAX version's order of operations.
-`GridMG` (the heat V-cycle of the sharded and CG-2 paths) waits for
-Slice 4 of the port.
+
+The JAX version's `GridMG`, the grid-shaped heat V-cycle, differs from its
+`GeometricMG` only by the ghost-padded fine level of the sharded step
+(`pad0`). The port maps it to `GeometricMG` (solver/multigrid.py): the
+CG-2 path's Q2MG (ops/grid2.py) runs that cycle on the flattened coarse
+residual. The padded cycle waits for Slice 7 of the port.
 """
 
 from __future__ import annotations

@@ -284,3 +284,77 @@ def test_dg_residual_repeats_its_bits(cuda):
             for _ in range(2)]
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_q2mg_coarse_levels_launch_k2(cuda, dtype):
+    """Every smoothed level of the CG-2 path's coarse V-cycle (the CG-1
+    GeometricMG that Q2MG builds) applies its Jacobian through K2 on the
+    card (one launch a call), equal bit for bit to its plain twin on the
+    same tables (K2 is built without contraction)."""
+    from fem_glass_tempering_tpu_torch.config import ModelParams
+    from fem_glass_tempering_tpu_torch.fem.functionspace import FunctionSpace
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+    from fem_glass_tempering_tpu_torch.ops.cuda_stencil import (
+        stencil_matvec,
+        stencil_matvec_reference,
+    )
+    from fem_glass_tempering_tpu_torch.ops.grid2 import GridHeatOperator2, Q2MG
+    from fem_glass_tempering_tpu_torch.ops.heat import HeatOperator
+
+    def heat(m, degree=1):
+        return HeatOperator(FunctionSpace(m, "CG", degree), ModelParams(),
+                            0.1, dtype=dtype, device=cuda)
+
+    mesh = box_mesh_3d(32, 32, 8, 1.0, 1.0, 0.01)
+    mg = Q2MG(GridHeatOperator2(heat(mesh, 2)), heat).gmg
+    smoothed = [lv for lv in mg.levels if lv.coarse_dims is not None]
+    assert len(smoothed) >= 2
+    rng = np.random.default_rng(2)
+    n0 = int(np.prod([n + 1 for n in mg.levels[0].fine_dims]))
+    T0 = torch.tensor(700.0 + 100.0 * rng.random(n0), dtype=dtype,
+                      device=cuda)
+    for lvl, Tl in zip(mg.levels, mg.linearization_states(T0)):
+        if lvl.coarse_dims is None:
+            continue
+        op = mg._grid_for(lvl)
+        vals = op.stencil_values(Tl, 0.1)
+        x = torch.tensor(rng.standard_normal(op.n), dtype=dtype,
+                         device=cuda)
+        mv = op.make_matvec(Tl, 0.1)
+        before = stencil_matvec.launches
+        y = mv(x)
+        assert stencil_matvec.launches == before + 1
+        want = stencil_matvec_reference(vals.reshape(27, op.grid[0], -1),
+                                        x, op.grid)
+        torch.cuda.synchronize()
+        assert torch.equal(y, want)
+
+
+def test_grid2_jacobian_action_repeats_its_bits(cuda):
+    """GridHeatOperator2's residual, diagonal and Jacobian action on the
+    card, twice: equal bits (the face adds are plane adds, no atomics),
+    and within 1e-12 of the CPU's."""
+    from fem_glass_tempering_tpu_torch.config import ModelParams
+    from fem_glass_tempering_tpu_torch.fem.functionspace import FunctionSpace
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+    from fem_glass_tempering_tpu_torch.ops.grid2 import GridHeatOperator2
+    from fem_glass_tempering_tpu_torch.ops.heat import HeatOperator
+
+    fs = FunctionSpace(box_mesh_3d(8, 8, 4, 1.0, 1.0, 0.01), "CG", 2)
+    rng = np.random.default_rng(3)
+    T = 700.0 + 100.0 * rng.random(fs.n_scalar_dofs)
+    Tp = T + rng.normal(0.0, 2.0, fs.n_scalar_dofs)
+    v = rng.standard_normal(fs.n_scalar_dofs)
+    out = {}
+    for dev in ("cpu", cuda):
+        g = GridHeatOperator2(HeatOperator(fs, ModelParams(), 0.1,
+                                           device=dev))
+        t = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)
+        runs = [(g.residual(t(T), t(Tp)), g.jacobian_diag(t(T)),
+                 g.make_matvec(t(T), 0.1)(t(v))) for _ in range(2)]
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+        out[str(dev)] = [a.cpu().numpy() for a in runs[0]]
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        assert np.abs(a - b).max() <= 1e-12 * np.abs(a).max()
