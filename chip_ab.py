@@ -26,7 +26,10 @@ and the SA-AMG levels' and transfers' ELL products) on CPU copies;
 `--cpu-residual` evaluates the gather residual (and so the matrix-free
 Jacobian action, its jvp) and the diagonal on a CPU twin of the card's
 heat operator.
-`phase9` runs chip_smoke's phase 9 (the CG-2 lattice path) alone. `kernels` times K1 (material_tspace, n = 1,062,761, f32 and f64) and K3
+`phase9` runs chip_smoke's phase 9 (the CG-2 lattice path) alone;
+`phase10` runs phase 2's degree-2 K3 checks and phase 10 (the degree-2
+parity cases, the CG-2 gather plate, the mixed CG-2 plate) alone.
+`kernels` times K1 (material_tspace, n = 1,062,761, f32 and f64) and K3
 (dg_cell_residual, 65,536 hex cells, f64, uniform and per-cell tables; the
 direct call, and the prepared call where the tree has one) as chip_smoke's
 `device_ms` does: captured into a CUDA graph and replayed, the median of
@@ -202,7 +205,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("tree", help="root of the checkout to measure")
     ap.add_argument("what", choices=("kernels", "phase5", "phase6",
-                                     "phase8b", "phase9", "dgparity"))
+                                     "phase8b", "phase9", "phase10",
+                                     "dgparity"))
     ap.add_argument("--source-flags", default="", metavar="SRC:FLAG[,FLAG]",
                     help="replace one source's nvcc flags (empty FLAG: none)")
     ap.add_argument("--plain-cell-term", action="store_true",
@@ -256,6 +260,14 @@ def main() -> int:
         cs.drop_garbage("phase 9b")
         full = cs.cg2_plate_phase(dev, port)
         res = dict(parity=parity, plate=full)
+    elif args.what == "phase10":
+        k3 = cs.check_dg_cell_degree2(dev, port)
+        parity = cs.degree2_parity_phase(dev, port)
+        cs.drop_garbage("phase 10b")
+        gather = cs.gather_plate_phase(dev, port)
+        cs.drop_garbage("phase 10c")
+        mixed = cs.mixed_plate_phase(dev, port)
+        res = dict(k3_degree2=k3, parity=parity, gather=gather, mixed=mixed)
     elif args.what == "phase8b":
         full = cs.mechanics_plate_phase(dev, port)
         res = {k: full[k] for k in (

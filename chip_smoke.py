@@ -75,10 +75,28 @@ Phases (each raises on failure; the exit code is then nonzero):
      step, the layers (Q2MG apply and build, line factorisation and
      solve, coarse V-cycle apply), setup by part, peak memory, exact
      K1/K2/K3 launches, K2 on every smoothed coarse level, and K3 at
-     nloc 27 at the plate's 65,536 cells against its bound.
-Every main path (4, 5, 6, 7b f64, 7b mixed, 8b, 9b) runs with the launch
-counters set to 0 just before it and read just after. A line "phase N ends
-at S s" follows each phase (seconds since the kernel build began). Then one
+     nloc 27 at the plate's 65,536 cells against its bound;
+ 10. the rest of degree 2: (a) every degree-2 configuration the port runs
+     (the DG-2 slab, the 2D CG-2 plate with CG-2 sigma, the CG-2 tet
+     plate, the DG-2 box matrix-free and with the block stencil, the CG-2
+     plate with grid_native="off" and SA-AMG, CG-2 mechanics, the 5x5x3
+     CG-2 plate in mixed precision), f64, rtol 1e-12, 2 steps, the GPU
+     against the CPU, with K3 launched exactly where the gather residual
+     runs; (b) the 48x48x12 CG-2 plate (235,225 T dofs) on the gather
+     path (grid_native="off", matrix-free, SA-AMG, f32, rtol 1e-5,
+     jac_every 5), 1 warm-up step and 3 timed steps: ms per step, counts,
+     setup by part, peak memory, K3 launches per step and K3 on the
+     operator's tables against its bound; (c) the 64x64x16 CG-2 plate of
+     phase 9b in f64 with the f32 twins of the lattice operator and of
+     Q2MG (cg_dtype="float32", rtol 1e-12, "auto"), 1 + 3 steps, K1/K2
+     launches exact, T after one step within 5e-3 K of an f64 run's.
+Phase 2 also holds K3 at every degree-2 cell shape (nloc 3, 6, 9, 10, 27)
+on the port's HeatOperator tables, f64 and f32, and times nloc 27 (uniform
+f32, 65,536 cells) and nloc 10 (per-cell f64, 67,584 tetrahedra).
+Every main path (4, 5, 6, 7b f64, 7b mixed, 8b, 9b, 10b, 10c) runs with
+the launch counters set to 0 just before it and read just after. A line
+"phase N ends at S s" follows each phase (seconds since the kernel build
+began). Then one
 JSON line per kernel, one {"kernels": [...]} line, the card's name and power limit,
 and last {"ok": true, "device": {...}}.
 
@@ -121,6 +139,14 @@ MECH_TIMED_STEPS = 5
 MECH_PLATE_STEPS = dict(reference=50, trapezoid=20)
 N_CG2 = (64, 64, 16)             # 65,536 hex cells, 549,153 CG-2 T dofs
 CG2_TIMED_STEPS = 5
+# the CG-2 plate on the gather path: the 48x48x12 row of the JAX
+# package's CG-2 table (BENCH.md:355), 27,648 hex cells, 235,225 T dofs;
+# at 64x64x16 its ELL and SA-AMG setup on the host took 98-135 s and the
+# script 1,131 s of its 1,200 (an NVIDIA H100 80GB HBM3 at 700 W)
+N_GATHER = (48, 48, 12)
+GATHER_TIMED_STEPS = 3
+MIXED_TIMED_STEPS = 3
+DEGREE2_PARITY_STEPS = 2
 KERNELS = ("material_tspace", "stencil_matvec", "dg_cell_residual")
 # the golden values of the default run (CPU reference, confirmed by the
 # independent numpy/scipy oracle of the JAX package's test-suite)
@@ -658,6 +684,119 @@ def check_dg_cell(dev, port) -> dict:
     for form, entry in out.items():
         log(f"K3 {form} tables f64 " + json.dumps(entry))
     out["host_us"] = k3_host_breakdown(dev, port)
+    return out
+
+
+def heat_tables(mesh, family, dtype, dev, interior=False):
+    """The port's own HeatOperator of a degree-2 space of `family` on
+    `mesh` in `dtype` on `dev` -> (operator, cell shape): its cell term's
+    tables are heat.qw, heat.gphi, heat.phi (uniform on a box)."""
+    from fem_glass_tempering_tpu_torch.config import ModelParams
+    from fem_glass_tempering_tpu_torch.fem.functionspace import FunctionSpace
+    from fem_glass_tempering_tpu_torch.ops.heat import HeatOperator
+
+    heat = HeatOperator(FunctionSpace(mesh, family, 2), ModelParams(), 0.1,
+                        dtype=dtype, device=dev,
+                        interior_device_tables=interior)
+    return heat, tuple(heat.dofmap.shape)
+
+
+def k3_degree2_meshes():
+    """(label, mesh, family) of every degree-2 cell shape: nloc 3
+    (interval), 6 (triangle), 9 (quadrilateral), 10 (tetrahedron, per-cell
+    tables) and 27 (hexahedron, uniform tables)."""
+    from fem_glass_tempering_tpu_torch.fem.mesh import (
+        box_mesh_2d,
+        box_mesh_3d,
+        reference_glass_mesh_1d,
+    )
+    return (("nloc 3 interval (DG-2 slab)", reference_glass_mesh_1d(), "DG"),
+            ("nloc 6 triangle", box_mesh_2d(9, 7, cell_type="triangle"),
+             "CG"),
+            ("nloc 9 quadrilateral", box_mesh_2d(40, 33, 2.0, 1.0), "CG"),
+            ("nloc 10 tetrahedron", box_mesh_3d(4, 4, 3, cell_type="tet"),
+             "CG"),
+            ("nloc 27 hexahedron", box_mesh_3d(16, 16, 4, 1.0, 1.0, 0.01),
+             "CG"))
+
+
+def time_k3(port, call, Tc, Tpc, kw, qw, gphi, phi, uniform, rtol) -> dict:
+    """K3's prepared call `call` on (Tc, Tpc) against its plain version and
+    its bound: times (call, device, cold, plain) in ms."""
+    ref = port["dg_cell_residual_reference"]
+    got = call(Tc, Tpc, **kw)
+    want = ref(Tc, Tpc, qw, gphi, phi, **kw)
+    mag = ref(Tc.abs(), -Tpc.abs(), qw, gphi.abs(), phi.abs(), **kw)
+    torch.cuda.synchronize()
+    c, nloc = Tc.shape
+    q, g = phi.shape[0], gphi.shape[-1]
+    if bool(((got - want).abs() > rtol * mag).any()):
+        fail(f"K3 ({c}, {nloc}) q={q} {Tc.dtype}: max |diff| "
+             f"{float((got - want).abs().max()):.3e}")
+    b, by = bound_ms(Tc.element_size() * c * k3_values_per_cell(
+        nloc, q, g, uniform, False), c * k3_ops_per_cell(nloc, q, g),
+        Tc.dtype)
+    return dict(
+        cells=c, nloc=nloc, q=q, g=g, dtype=str(Tc.dtype).split(".")[-1],
+        tables="uniform" if uniform else "per-cell", path=call.path,
+        max_abs_err=float((got - want).abs().max()),
+        ms=time_ms(lambda: call(Tc, Tpc, **kw)),
+        device_ms=device_ms(lambda: call(Tc, Tpc, **kw)),
+        device_cold_ms=device_cold_ms(lambda: call(Tc, Tpc, **kw)),
+        plain_ms=time_ms(lambda: ref(Tc, Tpc, qw, gphi, phi, **kw), reps=5),
+        bound_ms=b, bound_by=by)
+
+
+def check_dg_cell_degree2(dev, port) -> dict:
+    """K3 at every degree-2 cell shape on the tables of the port's own
+    HeatOperator, f64 (1e-12) and f32 (1e-5 of the terms' magnitudes, as
+    at degree 1), in the operator's prepared call and in the direct call,
+    forward and through torch.func.jvp; then timed at the main paths'
+    sizes: nloc 27 with uniform f32 tables at 65,536 cells (the cell of
+    the 64x64x16 CG-2 plate of phase 9b) and nloc 10 with per-cell f64
+    tables at 67,584 tetrahedra."""
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+
+    errs = {}
+    for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for label, mesh, family in k3_degree2_meshes():
+            heat, shape = heat_tables(mesh, family, dtype, dev)
+            uniform = heat.qw.dim() == 1
+            if uniform != (shape[1] in (3, 9, 27) and mesh.structured
+                           is not None) or shape[1] != int(label.split()[1]):
+                fail(f"K3 {label}: tables {tuple(heat.qw.shape)}, cells "
+                     f"{shape}")
+            errs[f"{label} {str(dtype).split('.')[-1]}"] = dict(
+                cells=shape[0], q=int(heat.phi.shape[0]),
+                tables="uniform" if uniform else "per-cell",
+                path=heat._cell_term.path, max_abs_err=max(
+                    check_dg_cell_case(shape, heat.qw, heat.gphi, heat.phi,
+                                       rtol, port, c_mass=cm, with_src=ws,
+                                       seed=i, prepared=pr)
+                    for i, (cm, ws) in enumerate(K3_CASES)
+                    for pr in (True, False)))
+    log("K3 degree-2 shapes " + json.dumps(errs))
+    rng = np.random.default_rng(12)
+    out = dict(shapes=errs)
+    kw = dict(dt=0.1, c_mass=1.0, c_diff=0.83, f_src=0.0)
+    # the hex of the 64x64x16 plate (1 x 1 x 0.01): a 4 x 4 x 1 box of it
+    for key, mesh, family, dtype, cells in (
+            ("nloc27_uniform_f32",
+             box_mesh_3d(4, 4, 1, 4 / N_CG2[0], 4 / N_CG2[1],
+                         0.01 / N_CG2[2]), "CG", torch.float32,
+             int(np.prod(N_CG2))),
+            ("nloc10_per_cell_f64", box_mesh_3d(32, 32, 11, cell_type="tet"),
+             "CG", torch.float64, None)):
+        heat, shape = heat_tables(mesh, family, dtype, dev)
+        shape = (cells or shape[0], shape[1])
+        Tc = torch.tensor(700.0 + 100.0 * rng.random(shape), dtype=dtype,
+                          device=dev)
+        Tpc = Tc + 1.0
+        out[key] = time_k3(port, heat._cell_term, Tc, Tpc, kw, heat.qw,
+                           heat.gphi, heat.phi, heat.qw.dim() == 1,
+                           1e-12 if dtype == torch.float64 else 1e-5)
+        log(f"K3 {key} " + json.dumps(out[key]))
+        del heat, Tc, Tpc
     return out
 
 
@@ -2032,6 +2171,317 @@ def cg2_plate_phase(dev, port) -> dict:
     return out
 
 
+def degree2_config(tc, steps, fe, dtype="float64", mechanics="none",
+                   **solver):
+    return tc.RunConfig(
+        fe=tc.FEConfig(**fe), time=tc.TimeConfig(0.0, steps * 0.1, 0.1),
+        solver=tc.SolverConfig(**solver),
+        output=tc.OutputConfig(write_every=0, formats=()), dtype=dtype,
+        mechanics=mechanics)
+
+
+def degree2_cases():
+    """Phase 10a's configurations: (label, mesh builder, FE choice,
+    config keywords, CG band). The meshes and settings are those the port
+    is held to the JAX package with (tests/test_torch_degree2_gather.py,
+    tests/test_torch_degree2_twins.py); the defaults resolve "auto" to
+    SA-AMG off the lattice path and to Q2MG on it. CG is held equal or
+    within the band: 1% where the solves stop on rounding; 2% for the
+    SA-AMG solve of the CG-2 plate, whose count moves by 4 in one step
+    between starts one ulp apart on the CPU (ROADMAP.md Queue 3); 5% for
+    mixed precision, whose f32 inner solves stop near the f32 floor."""
+    from fem_glass_tempering_tpu_torch.fem.mesh import (
+        box_mesh_2d,
+        box_mesh_3d,
+        reference_glass_mesh_1d,
+    )
+    cg2 = dict(T_family="CG", T_degree=2)
+    dg2 = dict(T_family="DG", T_degree=2)
+    plate = lambda: box_mesh_3d(3, 3, 2, 1.0, 1.0, 0.01)  # noqa: E731
+    box = lambda: box_mesh_3d(3, 3, 2)                      # noqa: E731
+    return (
+        ("DG-2 slab", reference_glass_mesh_1d, dg2, {}, 0.01),
+        ("2D CG-2 plate, sigma CG-2", lambda: box_mesh_2d(6, 3, 2.0, 1.0),
+         dict(cg2, sigma_family="CG", sigma_degree=2), {}, 0.01),
+        ("CG-2 tet plate", lambda: box_mesh_3d(2, 2, 2, cell_type="tet"),
+         cg2, {}, 0.01),
+        ("DG-2 box", box, dg2, {}, 0.01),
+        ("DG-2 box, stencil", box, dg2, dict(linear_operator="stencil"),
+         0.01),
+        ("CG-2 plate, grid_native off, amg", plate, cg2,
+         dict(grid_native="off", preconditioner="amg"), 0.02),
+        ("CG-2 mechanics", lambda: box_mesh_3d(3, 3, 2, 1.0, 1.0, 0.1), cg2,
+         dict(linear_operator="stencil", mechanics="equilibrium"), 0.01),
+        ("CG-2 5x5x3 plate, mixed",
+         lambda: box_mesh_3d(5, 5, 3, 1.0, 1.0, 0.01), cg2,
+         dict(linear_operator="stencil", preconditioner="mg",
+              mg_smoother="chebyshev", cg_max_it=500, cg_dtype="float32"),
+         0.05))
+
+
+def degree2_parity_case(dev, port, label, make_mesh, fe, kw, band) -> dict:
+    """One phase 10a case, DEGREE2_PARITY_STEPS steps on the CPU and on the
+    card: Newton equal in every step, the CG total within `band`, T and Tf
+    within 1e-9 relative, sigma within 1e-6 of its max; K3 launched in the
+    card's run exactly where the gather residual runs."""
+    from fem_glass_tempering_tpu_torch import config as tc
+    from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
+    from fem_glass_tempering_tpu_torch.ops.stencil import DGStencilMatrix
+
+    steps = DEGREE2_PARITY_STEPS
+    res = {}
+    for where in ("cpu", dev):
+        p = ThermoViscoProblem(mesh=make_mesh(), config=degree2_config(
+            tc, steps, fe, **kw), device=where)
+        p.setup()
+        gather = p._grid2 is None and not isinstance(p._ell,
+                                                     DGStencilMatrix)
+        torch.cuda.synchronize()
+        k3_before = port["dg_cell_residual"].launches
+        t0 = time.perf_counter()
+        st, counts, mech = p.state, [], []
+        for _ in range(steps):
+            st, ok, ni, ki = p.step(st)
+            if not ok:
+                fail(f"{label}: no convergence on {where}")
+            counts.append((ni, ki))
+            mech += p.last_mech_iters
+        torch.cuda.synchronize()
+        res[str(where)] = (st, counts, mech, time.perf_counter() - t0,
+                           port["dg_cell_residual"].launches - k3_before,
+                           gather, p)
+    (sc, cc, mc, tcpu, _, _, pc), (sg, cgc, mg, tgpu, k3, gather, pg) = (
+        res["cpu"], res[str(dev)])
+    kc, kg = sum(c[1] for c in cc), sum(c[1] for c in cgc)
+    out = dict(dofs=pg.fs_T.n_scalar_dofs, cells=int(pg.heat.dofmap.shape[0]),
+               nloc=int(pg.heat.dofmap.shape[1]),
+               preconditioner=pg.config.solver.preconditioner,
+               operator=type(pg._ell).__name__ if pg._ell is not None
+               else "matrix_free", gather_residual=gather,
+               counts_cpu=cc, counts_gpu=cgc, elast_cg_cpu=mc,
+               elast_cg_gpu=mg, cg_band=band, k3_launches_gpu=k3,
+               k3_launches_per_step_gpu=k3 / steps, seconds_cpu=tcpu,
+               seconds_gpu=tgpu)
+    for f in ("T", "Tf", "sigma"):
+        a, b = getattr(sc, f).numpy(), getattr(sg, f).cpu().numpy()
+        out[f"{f}_max_rel"] = float(np.abs(a - b).max() / np.abs(a).max())
+    bad = [f for f, lim in (("T", 1e-9), ("Tf", 1e-9), ("sigma", 1e-6))
+           if not out[f"{f}_max_rel"] <= lim]
+    if (bad or [c[0] for c in cc] != [c[0] for c in cgc]
+            or abs(kc - kg) > band * kc):
+        fail(f"{label}: GPU against CPU {json.dumps(out)}")
+    if (k3 > 0) != gather:
+        fail(f"{label}: {k3} K3 launches, the gather residual "
+             f"{'runs' if gather else 'does not run'}")
+    log(f"degree-2 parity {label} " + json.dumps(out))
+    return out
+
+
+def degree2_parity_phase(dev, port) -> dict:
+    """Phase 10a: every degree-2 configuration the port runs, GPU against
+    CPU (f64 Newton, rtol 1e-12)."""
+    return {label: degree2_parity_case(dev, port, label, *rest)
+            for label, *rest in degree2_cases()}
+
+
+def gather_plate_config(tc, steps):
+    """BENCH.md:351-354's CG-2 gather settings (matrix-free CG, frozen
+    SA-AMG, f32, rtol 1e-5) with the lattice operator turned off, at the
+    size BENCH.md:355 could not run; jac_every 5."""
+    return degree2_config(
+        tc, steps, dict(T_family="CG", T_degree=2, sigma_family="CG",
+                        sigma_degree=1), dtype="float32",
+        newton_rtol=1e-5, newton_atol=1e-6, cg_rtol=1e-5, cg_max_it=4000,
+        linear_operator="matrix_free", preconditioner="amg",
+        grid_native="off", jac_every=5)
+
+
+def gather_plate_phase(dev, port) -> dict:
+    """Phase 10b: the N_GATHER CG-2 plate on the gather path: the gather
+    residual (K3 at nloc 27 with uniform f32 tables) under torch.func.jvp,
+    SA-AMG over the assembled ELL Jacobian; 1 warm-up step and
+    GATHER_TIMED_STEPS timed ones; then the layers and K3 on the
+    operator's own tables against its bound."""
+    from fem_glass_tempering_tpu_torch import config as tc
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+    from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
+
+    tag = "CG-2 gather plate"
+    steps = GATHER_TIMED_STEPS
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    prob = ThermoViscoProblem(mesh=box_mesh_3d(*N_GATHER, lx=1.0, ly=1.0,
+                                               lz=0.01),
+                              config=gather_plate_config(tc, steps),
+                              device=dev)
+    prob.setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated(dev)
+    n = prob.fs_T.n_scalar_dofs
+    amg = prob._amg
+    if (prob._grid2 is not None or amg is None or prob._ell is not None
+            or prob.heat.dofmap.shape[1] != 27
+            or n != int(np.prod([2 * d + 1 for d in N_GATHER]))):
+        fail(f"{tag}: not the gather path with SA-AMG")
+    levels = [tuple(lv["vals"].shape) for lv in amg.levels]
+    held = torch.cuda.memory_allocated(dev)
+    log(f"{tag}: {n} dofs, setup {setup_s:.1f} s "
+        + json.dumps(prob.setup_seconds) + f" amg levels {levels}, held "
+        f"{held} bytes")
+
+    st, ok, ni0, ki0 = prob.multi_step(prob.state, 1)      # warm-up
+    torch.cuda.synchronize()
+    if not ok:
+        fail(f"{tag}: warm-up step did not converge")
+    del st
+    state0 = prob.engine.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(port)
+    t0 = time.perf_counter()
+    st, ok, ni, ki = prob.multi_step(state0, steps)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_counts(port)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not ok:
+        fail(f"{tag}: timed window did not converge")
+    for f in ("T", "Tf", "sigma"):
+        if not bool(torch.isfinite(getattr(st, f)).all()):
+            fail(f"{tag}: non-finite {f}")
+    T_np = st.T.cpu().numpy()
+    if not (prob.params.T_ambient - 1 < T_np.min() <= T_np.max()
+            < prob.params.T_0 + 1):
+        fail(f"{tag}: T out of [T_ambient, T_0]: {T_np.min()} .. "
+             f"{T_np.max()}")
+    # K1 once a step (the reference xi), no stencil kernel off the
+    # lattice, K3 in every residual and twice in every Jacobian action
+    if (launches["material_tspace"] != steps
+            or launches["stencil_matvec"] != 0
+            or launches["dg_cell_residual"] == 0):
+        fail(f"{tag}: launches {launches}")
+    out = dict(dofs=n, cells=int(prob.heat.dofmap.shape[0]),
+               setup_s=setup_s, setup_parts_s=prob.setup_seconds,
+               amg_levels=levels, ms_per_step=elapsed / steps * 1e3,
+               newton_per_step=ni / steps, cg_per_step=ki / steps,
+               warmup_newton=ni0, warmup_cg=ki0, launches=launches,
+               k3_launches_per_step=launches["dg_cell_residual"] / steps,
+               max_memory_allocated_bytes=peak,
+               setup_max_memory_allocated_bytes=setup_peak,
+               held_after_setup_bytes=held,
+               amg_bytes=device_bytes(amg),
+               gather_heat_operator_bytes=device_bytes(prob.heat),
+               T_min=float(T_np.min()), T_max=float(T_np.max()))
+
+    # the layers of one CG iteration at the final state
+    heat, dt = prob.heat, prob.dt
+    rng = np.random.default_rng(7)
+    v = torch.tensor(rng.standard_normal(n), dtype=prob.dtype, device=dev)
+    pc = amg.preconditioner()
+    jvp = lambda: torch.func.jvp(                           # noqa: E731
+        lambda u: heat.residual(u, st.T_prev, dt), (st.T,), (v,))[1]
+    out["layers_ms"] = dict(
+        residual=time_ms(lambda: heat.residual(st.T, st.T_prev, dt),
+                         reps=10),
+        jvp_matvec=time_ms(jvp, reps=10),
+        amg_vcycle=time_ms(lambda: pc(v), reps=10))
+    # K3 on the operator's own tables, in the call the residual makes
+    Tc = st.T[heat.dofmap]
+    Tpc = st.T_prev[heat.dofmap]
+    out["k3_in_path"] = time_k3(
+        port, heat._cell_term, Tc, Tpc,
+        dict(dt=dt, c_mass=heat.c_mass, c_diff=heat.c_diff,
+             f_src=prob.params.f), heat.qw, heat.gphi, heat.phi, True, 1e-5)
+    log(tag + " " + json.dumps(out))
+    return out
+
+
+def mixed_plate_config(tc, steps, cg_dtype):
+    """BENCH.md:400's row (examples/highorder_tpu.py --rtol12): f64
+    Newton at rtol 1e-12 over an f32 inner CG (cg_dtype "float32"), the
+    lattice operator, "auto" (Q2MG, Chebyshev-smoothed coarse V-cycle)."""
+    return degree2_config(
+        tc, steps, dict(T_family="CG", T_degree=2, sigma_family="CG",
+                        sigma_degree=1), dtype="float64",
+        newton_rtol=1e-12, newton_atol=1e-10, cg_rtol=1e-12,
+        cg_max_it=2000, linear_operator="stencil", preconditioner="auto",
+        mg_smoother="chebyshev", cg_dtype=cg_dtype)
+
+
+def mixed_plate_phase(dev, port) -> dict:
+    """Phase 10c: the 64x64x16 CG-2 plate in f64 with the f32 twins of the
+    lattice operator and of Q2MG, 1 warm-up step and MIXED_TIMED_STEPS
+    timed ones; its first step's T against an f64 run's within 5e-3 K."""
+    from fem_glass_tempering_tpu_torch import config as tc
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+    from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
+    from fem_glass_tempering_tpu_torch.ops.grid2 import Q2MG
+
+    tag = "CG-2 mixed plate"
+    steps = MIXED_TIMED_STEPS
+    mesh = lambda: box_mesh_3d(*N_CG2, lx=1.0, ly=1.0, lz=0.01)  # noqa
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    prob = ThermoViscoProblem(mesh=mesh(), config=mixed_plate_config(
+        tc, steps, "float32"), device=dev)
+    prob.setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    mg = prob._mg32
+    if (not isinstance(mg, Q2MG) or prob._mg is not None
+            or prob._ell32 is not prob._grid2_32
+            or prob._grid2_32.dtype != torch.float32):
+        fail(f"{tag}: 'auto' is not the f32 Q2MG twin on the f32 lattice "
+             f"operator")
+    st1, ok, ni0, ki0 = prob.multi_step(prob.state, 1)     # warm-up
+    torch.cuda.synchronize()
+    if not ok:
+        fail(f"{tag}: warm-up step did not converge")
+    T1 = st1.T.cpu()
+    del st1
+    state0 = prob.engine.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(port)
+    t0 = time.perf_counter()
+    st, ok, ni, ki = prob.multi_step(state0, steps)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_counts(port)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not ok or not bool(torch.isfinite(st.T).all()):
+        fail(f"{tag}: timed window did not converge")
+    per_apply = k2_launches_per_vcycle(mg.gmg)
+    expect = dict(material_tspace=steps,
+                  stencil_matvec=per_apply * (ni + ki), dg_cell_residual=0)
+    if launches != expect or launches["stencil_matvec"] == 0:
+        fail(f"{tag}: launches {launches}, expected {expect} ({ni} Newton "
+             f"+ {ki} CG)")
+    out = dict(dofs=prob.fs_T.n_scalar_dofs, setup_s=setup_s,
+               setup_parts_s=prob.setup_seconds,
+               ms_per_step=elapsed / steps * 1e3, newton_per_step=ni / steps,
+               cg_per_step=ki / steps, warmup_newton=ni0, warmup_cg=ki0,
+               launches=launches, k2_launches_per_q2mg_apply=per_apply,
+               q2mg_applies=ni + ki, max_memory_allocated_bytes=peak)
+    del prob, st, state0
+    drop_garbage(f"{tag}: the f64 run")
+    ref = ThermoViscoProblem(mesh=mesh(), config=mixed_plate_config(
+        tc, 1, "same"), device=dev)
+    ref.setup()
+    st64, ok, n64, k64 = ref.multi_step(ref.state, 1)
+    if not ok:
+        fail(f"{tag}: the f64 step did not converge")
+    out["f64_step1_counts"] = (n64, k64)
+    out["mixed_step1_counts"] = (ni0, ki0)
+    out["mixed_vs_f64_T_max_abs_K"] = float((T1 - st64.T.cpu()).abs().max())
+    if not out["mixed_vs_f64_T_max_abs_K"] <= 5e-3:
+        fail(f"{tag}: T differs from the f64 run by "
+             f"{out['mixed_vs_f64_T_max_abs_K']:.3e} K")
+    log(tag + " " + json.dumps(out))
+    return out
+
+
 def profile(prob, dev, out_dir) -> None:
     """torch.profiler over 5 full-size steps: kernel time by name and the
     device's busy share of the window."""
@@ -2156,6 +2606,7 @@ def main() -> int:
         k2_small.append(check_stencil(v2, x, grid, 1e-12, port))
     log(f"K2 zero-at-missing-neighbour grids f64 max |diff| {k2_small}")
     k3 = check_dg_cell(dev, port)
+    k3_d2 = check_dg_cell_degree2(dev, port)
     phase_end("2")
 
     # ---- phase 3: parity of the whole path, GPU vs CPU ----
@@ -2220,6 +2671,17 @@ def main() -> int:
     cg2 = cg2_plate_phase(dev, port)
     phase_end("9b")
 
+    # ---- phase 10: the rest of degree 2 (gather paths, mixed twins) ----
+    drop_garbage("phase 10a")
+    d2_parity = degree2_parity_phase(dev, port)
+    phase_end("10a")
+    drop_garbage("phase 10b")
+    gather = gather_plate_phase(dev, port)
+    phase_end("10b")
+    drop_garbage("phase 10c")
+    mixed = mixed_plate_phase(dev, port)
+    phase_end("10c")
+
     k1_32 = k1["float32"]
     sigma_ms = full["material_step_ms"] - k1_32["ms"]
     log(f"material step {full['material_step_ms']:.4f} ms, of which K1 "
@@ -2238,7 +2700,9 @@ def main() -> int:
                  "reference"]["launches"]["material_tspace"],
              launches_mechanics_plate_trapezoid_xi=mech["launches"][
                  "material_tspace"],
-             launches_cg2_plate=cg2["launches"]["material_tspace"]),
+             launches_cg2_plate=cg2["launches"]["material_tspace"],
+             launches_cg2_gather_plate=gather["launches"]["material_tspace"],
+             launches_cg2_mixed_plate=mixed["launches"]["material_tspace"]),
         dict(name="stencil_matvec", route="cuda",
              source="fem_glass_tempering_tpu_torch/csrc/stencil_matvec.cu",
              replaces="fem_glass_tempering_tpu/ops/pallas_stencil.py:54",
@@ -2252,6 +2716,8 @@ def main() -> int:
              launches_mechanics_plate_trapezoid_xi=mech["launches"][
                  "stencil_matvec"],
              launches_cg2_plate=cg2["launches"]["stencil_matvec"],
+             launches_cg2_gather_plate=gather["launches"]["stencil_matvec"],
+             launches_cg2_mixed_plate=mixed["launches"]["stencil_matvec"],
              cg2_coarse_levels=cg2["k2_levels"]),
         # timed at the DG plate's shape (65,536 hex cells, uniform tables,
         # f64) in the heat operator's prepared call; no single PyTorch call
@@ -2282,9 +2748,19 @@ def main() -> int:
              launches_cg2_plate=cg2["launches"]["dg_cell_residual"],
              launches_cg2_operator_check=cg2_parity[
                  "k3_launches_operator_check"],
+             launches_cg2_gather_plate=gather["launches"][
+                 "dg_cell_residual"],
+             launches_per_step_cg2_gather_plate=gather[
+                 "k3_launches_per_step"],
+             launches_cg2_mixed_plate=mixed["launches"]["dg_cell_residual"],
+             launches_degree2_parity={
+                 label: case["k3_launches_gpu"]
+                 for label, case in d2_parity.items()},
              per_cell_tables=k3["per_cell"],
              nloc27=dict(cg2["k3_nloc27"], max_abs_err_operator_check=(
-                 cg2_parity["k3_nloc27_max_abs_err"]))),
+                 cg2_parity["k3_nloc27_max_abs_err"])),
+             degree2=dict(k3_d2, in_path_cg2_gather_plate=gather[
+                 "k3_in_path"])),
     ]
     for k in kernels:
         log(json.dumps(k))
@@ -2298,6 +2774,9 @@ def main() -> int:
     log("summary mechanics plate " + json.dumps(mech))
     log("summary CG-2 parity " + json.dumps(cg2_parity))
     log("summary CG-2 plate " + json.dumps(cg2))
+    log("summary degree-2 parity " + json.dumps(d2_parity))
+    log("summary CG-2 gather plate " + json.dumps(gather))
+    log("summary CG-2 mixed plate " + json.dumps(mixed))
     log("summary phase end times, s " + json.dumps(ends))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

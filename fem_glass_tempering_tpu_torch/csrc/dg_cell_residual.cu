@@ -338,12 +338,15 @@ __global__ void __launch_bounds__(kSplitThreads) dg_cell_split_kernel(
   }
 }
 
-// blocks the card keeps resident for this kernel and launch shape
+// blocks the card keeps resident for this kernel and launch shape (the
+// kernels of one T share a function type, so the kernel is in the key)
 template <typename K>
 int resident_blocks(K kernel, int threads, size_t smem) {
   static int key_threads = 0, cached = 0;
   static size_t key_smem = 0;
-  if (cached == 0 || key_threads != threads || key_smem != smem) {
+  static K key_kernel = nullptr;
+  if (cached == 0 || key_kernel != kernel || key_threads != threads ||
+      key_smem != smem) {
     int dev = 0, sms = 0, per_sm = 0;
     if (cudaGetDevice(&dev) != cudaSuccess ||
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
@@ -351,6 +354,7 @@ int resident_blocks(K kernel, int threads, size_t smem) {
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
             &per_sm, kernel, threads, smem) != cudaSuccess)
       return 0;
+    key_kernel = kernel;
     key_threads = threads;
     key_smem = smem;
     cached = sms * per_sm;
@@ -367,8 +371,22 @@ int launch_split(const void* Tc, const void* Tpc, const void* qw,
   const int threads = cpb * nloc;
   const SplitLayout L(nloc, nq, g, uniform, cpb, (int)sizeof(T));
   const size_t smem = (size_t)L.total * sizeof(T);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   auto kernel = dg_cell_split_kernel<T, NLOC, G>;
+  if (smem > 48 * 1024) {
+    // above the default 48 KB a block's dynamic shared memory must be
+    // asked for (the degree-2 tetrahedron in f64: 64 points, 62 KB)
+    int dev = 0, optin = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return (int)e;
+    if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   const int resident = resident_blocks(kernel, threads, smem);
   if (resident <= 0) return (int)cudaErrorInvalidValue;
   const int64_t n_tiles = (n_cells + cpb - 1) / cpb;

@@ -11,22 +11,22 @@ arguments (mesh_path/config/time/dt/model_parameters, reference
 main.py:57-59) as well as a typed RunConfig; `setup(dirichlet_bc=False)`
 and `solve()` match the reference entry points (main.py:61-62).
 
-Ported: CG-1 and DG-1 temperature spaces; the matrix-free, assembled (ELL)
-and, on boxes, stencil Krylov operators (the CG-1 nodal stencil, the DG
-block stencil); the Jacobi, multigrid (geometric MG for CG-1 boxes, the
-DG p-multigrid for DG-1 boxes), SA-AMG or no preconditioner; mixed
-precision (cg_dtype='float32' under f64: an f32 inner CG with f32 twins
-of the operator and the preconditioner); equilibrium mechanics
+Ported: CG and DG temperature spaces of degree 1 and 2; the matrix-free,
+assembled (ELL) and, on boxes, stencil Krylov operators (the CG-1 nodal
+stencil, the DG block stencil, the CG-2 lattice operator); the Jacobi,
+multigrid (geometric MG for CG-1 boxes, the DG p-multigrid for DG-1 boxes,
+Q2MG for CG-2 boxes), SA-AMG or no preconditioner; mixed precision
+(cg_dtype='float32' under f64: an f32 inner CG with f32 twins of the
+operator and the preconditioner); equilibrium mechanics
 (mechanics='equilibrium': an elasticity solve inside every material step,
-models/mechanics.py); checkpoints. A CG-2 temperature space runs on a
-structured box through the lattice path: the sum-factorised operator
-ops/grid2.py GridHeatOperator2 with linear_operator='stencil', and the
-Q2MG p-multigrid (its coarse solve the CG-1 GeometricMG V-cycle) for
-'mg' / 'auto', or Jacobi. The default constructor is the reference's
-default workload (DG-1 on the graded 1D slab, matrix-free CG, SA-AMG). The
-rest of degree 2 (the gather paths, DG-2, the f32 twins) raises
-NotImplementedError naming the slice of the port that brings it
-(ROADMAP.md).
+models/mechanics.py); checkpoints. On a structured box a CG-2 space takes
+the lattice path unless grid_native='off': the sum-factorised operator
+ops/grid2.py GridHeatOperator2 carries the residual and the diagonal, and
+with linear_operator='stencil' the Jacobian action, and Q2MG (its coarse
+solve the CG-1 GeometricMG V-cycle) preconditions 'mg' / 'auto'. Every
+other degree-2 configuration runs the gather HeatOperator, as in the JAX
+version. The default constructor is the reference's default workload
+(DG-1 on the graded 1D slab, matrix-free CG, SA-AMG).
 """
 
 from __future__ import annotations
@@ -139,8 +139,6 @@ class ThermoViscoProblem:
         self.dim = self.mesh.tdim
 
         fe = run_cfg.fe
-        if fe.T_degree != 1:
-            self._check_lattice_path(run_cfg)
         self.fs_T = FunctionSpace(self.mesh, fe.T_family, fe.T_degree)
         self.fs_sigma = FunctionSpace(self.mesh, fe.sigma_family, fe.sigma_degree,
                                       value_shape=(self.dim, self.dim))
@@ -165,31 +163,6 @@ class ThermoViscoProblem:
         self.last_mech_iters: list[int] = []
         self._writers: list = []
         self.diagnostics = StepDiagnostics()
-
-    def _check_lattice_path(self, cfg: RunConfig) -> None:
-        """Degree 2 runs on the CG-2 lattice path alone: a CG-2 space on a
-        structured box with the lattice stencil operator and the Q2
-        p-multigrid ('mg' / 'auto'), Jacobi or no preconditioner. Every
-        other configuration waits for Slice 4b (ROADMAP.md)."""
-        fe, sc = cfg.fe, cfg.solver
-        other = None
-        if fe.T_family != "CG" or fe.T_degree != 2:
-            other = f"a {fe.T_family}-{fe.T_degree} temperature space"
-        elif self.mesh.structured is None:
-            other = "a CG-2 temperature space on an unstructured mesh"
-        elif sc.grid_native == "off":
-            other = "a CG-2 temperature space with grid_native='off'"
-        elif sc.linear_operator != "stencil":
-            other = (f"a CG-2 temperature space with linear_operator="
-                     f"{sc.linear_operator!r}")
-        elif sc.preconditioner == "amg":
-            other = "a CG-2 temperature space with preconditioner='amg'"
-        elif sc.cg_dtype == "float32" and self.dtype == torch.float64:
-            other = "mixed precision (cg_dtype='float32') on a CG-2 space"
-        elif cfg.mechanics == "equilibrium":
-            other = "equilibrium mechanics on a CG-2 temperature space"
-        if other is not None:
-            raise _waits(other, "Slice 4b")
 
     # ------------------------------------------------------------------
     def setup(self, dirichlet_bc: bool = False, output_dir: str | None = None,
@@ -269,18 +242,18 @@ class ThermoViscoProblem:
                 if sc.grid_native == "on":
                     raise
         # the CG-2 lattice path (ops/grid2.py): the sum-factorised operator
-        # on the Q2 dof lattice of a uniform box
+        # on the Q2 dof lattice of a uniform box; where it does not apply
+        # the gather HeatOperator stays, as in the JAX version
         self._grid2 = None
-        if self.fs_T.degree == 2:
+        if self._grid is None and sc.grid_native != "off":
             from fem_glass_tempering_tpu_torch.ops.grid2 import (
                 GridHeatOperator2,
             )
             try:
                 self._grid2 = GridHeatOperator2(self.heat,
                                                 flux_marker=flux_marker)
-            except ValueError as e:
-                raise _waits(f"a CG-2 space off the lattice path ({e})",
-                             "Slice 4b") from e
+            except ValueError:
+                pass
         self.setup_seconds["grid"] = _time.perf_counter() - t_grid
         # equilibrium mechanics: the grid coupling on CG-1 grids and DG
         # boxes (through the T -> sigma cross-eval), the flat one otherwise
@@ -294,7 +267,7 @@ class ThermoViscoProblem:
         # then built as its f32 twin alone
         self._mixed = (sc.cg_dtype == "float32"
                        and self.dtype == torch.float64)
-        self._heat32 = self._grid32 = None
+        self._heat32 = self._grid32 = self._grid2_32 = None
         if self._mixed:
             t_twins = _time.perf_counter()
             self._heat32 = heat_operator(torch.float32)
@@ -304,23 +277,36 @@ class ThermoViscoProblem:
                 )
                 self._grid32 = GridHeatOperator(self._heat32,
                                                 flux_marker=flux_marker)
+            if self._grid2 is not None:
+                from fem_glass_tempering_tpu_torch.ops.grid2 import (
+                    GridHeatOperator2,
+                )
+                self._grid2_32 = GridHeatOperator2(self._heat32,
+                                                   flux_marker=flux_marker)
             self.setup_seconds["twins"] = _time.perf_counter() - t_twins
         self._mg = self._dg_mg = self._mg32 = self._dg_mg32 = None
         if sc.preconditioner == "mg":
-            if self.mesh.structured is None:
+            fs = self.fs_T
+            if (self.mesh.structured is None or (fs.family, fs.degree)
+                    not in (("CG", 1), ("DG", 1), ("CG", 2))):
                 raise ValueError(
                     "preconditioner='mg' needs a structured box mesh with a "
-                    "CG-1 or DG-1 temperature space; use 'jacobi' otherwise")
+                    "CG-1/CG-2 or DG-1 temperature space; use 'jacobi' "
+                    "otherwise")
+            if fs.degree == 2 and self._grid2 is None:
+                raise ValueError(
+                    "CG-2 'mg' needs the lattice-native operator "
+                    "(grid_native must not be 'off')")
             if sc.mg_table_dtype != "same":
                 raise _waits("mg_table_dtype='bfloat16'",
                              "the Slice 1 deferrals")
             t_mg = _time.perf_counter()
             if self._mixed:
                 self._mg32, self._dg_mg32 = self._build_multigrid(
-                    self._heat32, dirichlet_bc, bc_val)
+                    self._heat32, self._grid2_32, dirichlet_bc, bc_val)
             else:
                 self._mg, self._dg_mg = self._build_multigrid(
-                    self.heat, dirichlet_bc, bc_val)
+                    self.heat, self._grid2, dirichlet_bc, bc_val)
             self.setup_seconds["mg"] = _time.perf_counter() - t_mg
         # smoothed-aggregation AMG (solver/amg.py): the mesh-agnostic GAMG
         # stand-in for unstructured meshes; hierarchy frozen at (T_0, dt),
@@ -383,11 +369,12 @@ class ThermoViscoProblem:
         return MechanicsCoupling(self.fs_T, self.fs_sigma, self.engine,
                                  **kw)
 
-    def _build_multigrid(self, heat: HeatOperator, dirichlet_bc, bc_val):
+    def _build_multigrid(self, heat: HeatOperator, grid2, dirichlet_bc,
+                         bc_val):
         """The frozen multigrid preconditioner of `heat`'s space in its
-        dtype -> (GeometricMG, None) for CG-1, (Q2MG, None) for CG-2,
-        (None, DGMultigrid) for DG-1; the coarse levels are rediscretised
-        CG-1 heat operators."""
+        dtype -> (GeometricMG, None) for CG-1, (Q2MG over `heat`'s lattice
+        operator `grid2`, None) for CG-2, (None, DGMultigrid) for DG-1; the
+        coarse levels are rediscretised CG-1 heat operators."""
         from fem_glass_tempering_tpu_torch.solver.multigrid import (
             DGMultigrid,
             GeometricMG,
@@ -405,7 +392,7 @@ class ThermoViscoProblem:
             # CG-2: p-multigrid over the embedded CG-1 lattice, whose
             # GeometricMG takes the smoother and keeps Q2MG's defaults
             from fem_glass_tempering_tpu_torch.ops.grid2 import Q2MG
-            mg = Q2MG(self._grid2, make_operator, nu_pre=sc.mg_nu_pre,
+            mg = Q2MG(grid2, make_operator, nu_pre=sc.mg_nu_pre,
                       nu_post=sc.mg_nu_post,
                       mg_kwargs={"smoother": sc.mg_smoother})
             mg.freeze_rhos(self.dt)
@@ -511,8 +498,10 @@ class ThermoViscoProblem:
         mg32, dg_mg32, amg32 = self._mg32, self._dg_mg32, self._amg32
         ell32 = hres32 = None
         if mixed:
-            ell32 = self._krylov_operator(heat32, self._grid32, dg_mg32)
-            hres32 = self._residual_operator(heat32, self._grid32, ell32)
+            grid32 = (self._grid32 if self._grid32 is not None
+                      else self._grid2_32)
+            ell32 = self._krylov_operator(heat32, grid32, dg_mg32)
+            hres32 = self._residual_operator(heat32, grid32, ell32)
         self._ell32 = ell32
         # the f32 inner tolerance: tighter than ~1e-6 is not representable
         # in f32 residual norms, and the SIPG operator's f32 floor is

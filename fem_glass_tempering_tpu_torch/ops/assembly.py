@@ -193,15 +193,15 @@ def cell_volumes(mesh: Mesh) -> np.ndarray:
 
 
 def _facet_side_tables(mesh: Mesh, fs: FunctionSpace, cells: np.ndarray,
-                       xi_cell: np.ndarray):
+                       xi_cell: np.ndarray, with_grad: bool = True):
     """Tabulate basis values/physical gradients of `fs` at per-facet cell
-    reference points xi_cell (f, q, t). Returns phi (f,q,l), grad (f,q,l,g),
-    J-related per-point quantities. Tabulation is ONE merged call over all
-    f*q points (a per-facet Python loop costs minutes at 100k+ facets)."""
+    reference points xi_cell (f, q, t). Returns phi (f,q,l), grad (f,q,l,g)
+    (None without `with_grad`), J-related per-point quantities. Tabulation
+    is ONE merged call over all f*q points (a per-facet Python loop costs
+    minutes at 100k+ facets)."""
     f, q, t = xi_cell.shape
     pts = xi_cell.reshape(f * q, t)
     phi = fs.element.tabulate(pts).reshape(f, q, -1)
-    dphi = fs.element.tabulate_grad(pts).reshape(f, q, phi.shape[-1], t)
     geom = geometry_element(mesh.cell_type)
     xc = mesh.nodes[mesh.cells[cells]]
     gdt = geom.tabulate_grad(pts).reshape(f, q, -1, t)      # (f, q, v, t)
@@ -212,6 +212,9 @@ def _facet_side_tables(mesh: Mesh, fs: FunctionSpace, cells: np.ndarray,
     else:
         invJ = np.linalg.inv(Jl)
         detJ = np.linalg.det(Jl)
+    if not with_grad:
+        return phi, None, Jl, detJ, invJ
+    dphi = fs.element.tabulate_grad(pts).reshape(f, q, phi.shape[-1], t)
     grad_phys = np.einsum("fqtg,fqlt->fqlg", invJ, dphi)
     return phi, grad_phys, Jl, detJ, invJ
 
@@ -255,7 +258,11 @@ def _facet_measure_and_normal(mesh: Mesh, local_facets: np.ndarray,
 
 
 def build_boundary_geometry(mesh: Mesh, fs: FunctionSpace,
-                            quad_degree: int | None = None) -> FacetGeometry:
+                            quad_degree: int | None = None,
+                            with_grad: bool = True) -> FacetGeometry:
+    """The boundary facets' quadrature tables; `with_grad=False` leaves out
+    the basis gradients (grad_phys None), which the heat operators do not
+    read: at degree 2 they are most of the build's time."""
     qd = quad_degree if quad_degree is not None else 2 * fs.degree + 1
     fq, fw = facet_quadrature(mesh.cell_type, qd)
     rc = mesh.ref_cell
@@ -265,7 +272,8 @@ def build_boundary_geometry(mesh: Mesh, fs: FunctionSpace,
     xi_all = np.stack([rc.map_facet_points(lf, fq)
                        for lf in range(rc.n_facets)])
     xi = xi_all[lfs]                                        # (f, q, t)
-    phi, grad_phys, Jl, detJ, invJ = _facet_side_tables(mesh, fs, cells, xi)
+    phi, grad_phys, Jl, detJ, invJ = _facet_side_tables(mesh, fs, cells, xi,
+                                                        with_grad)
     w, n = _facet_measure_and_normal(mesh, lfs, Jl, detJ, invJ, fw)
     geom = geometry_element(mesh.cell_type)
     xc = mesh.nodes[mesh.cells[cells]]

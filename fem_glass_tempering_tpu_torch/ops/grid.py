@@ -78,7 +78,7 @@ class GridHeatOperator:
         self.nloc = nloc
 
         bq = 5 * fs.degree
-        bg = build_boundary_geometry(mesh, fs, bq)
+        bg = build_boundary_geometry(mesh, fs, bq, with_grad=False)
         if len(bg.cell) != len(mesh.boundary_cell):
             raise ValueError("flux restricted to a facet subset — grid path "
                              "requires whole-boundary flux or a whole-face "

@@ -28,11 +28,14 @@ that padding the two compute the same cycle, so the port takes
 `GeometricMG` (solver/multigrid.py) on the flattened coarse residual until
 Slice 7 brings the padding.
 
+For the Krylov loop a materialised (5^d, *L) value table is also
+available (`matvec_form="table"` / `make_matvec(..., form="table")`), baked
+from 1D band outer products and the linearised face-flux blocks, and
+applied as 5^d shifted slices.
+
 Everything here is plain PyTorch, as it is plain XLA in the JAX package,
-in the JAX version's order of operations. Waiting for Slice 4b of the port
-(ROADMAP.md): the materialised 5^d-offset table form (`matvec_form` /
-`form="table"`). Waiting for Slice 7: a ghost-padded coarse chain
-(`coarse_pad0`).
+in the JAX version's order of operations. Waiting for Slice 7 of the port
+(ROADMAP.md): a ghost-padded coarse chain (`coarse_pad0`).
 """
 
 from __future__ import annotations
@@ -45,12 +48,6 @@ from fem_glass_tempering_tpu_torch.fem.elements import lagrange_element
 from fem_glass_tempering_tpu_torch.fem.quadrature import gauss_legendre_01
 from fem_glass_tempering_tpu_torch.ops.assembly import build_boundary_geometry
 from fem_glass_tempering_tpu_torch.ops.heat import HeatOperator
-
-
-def _table_form_waits() -> NotImplementedError:
-    return NotImplementedError(
-        "the table form of GridHeatOperator2 waits for Slice 4b of the "
-        "PyTorch port (ROADMAP.md); use matvec_form='kron'")
 
 
 def _pad_axis(x: torch.Tensor, axis: int, lo: int, hi: int) -> torch.Tensor:
@@ -116,9 +113,7 @@ class GridHeatOperator2:
                              "with a CG-2 space")
         if op.source_q is not None:
             raise ValueError("GridHeatOperator2 does not support MMS sources")
-        if matvec_form == "table":
-            raise _table_form_waits()
-        if matvec_form != "kron":
+        if matvec_form not in ("kron", "table"):
             raise ValueError(matvec_form)
         self.op = op
         self.params = op.params
@@ -132,6 +127,8 @@ class GridHeatOperator2:
         assert int(np.prod(self.grid)) == self.n
         nloc = fs.element.nloc
         self.nloc = nloc
+        # the table form's offsets, each in {0..4}^d (coupling delta + 2)
+        self._offsets = list(np.ndindex(*([5] * d)))
 
         # local node l <-> lattice offset (in {0,1,2}^d): reference axis i
         # maps to grid axis i, the CG-1 vertex-bit convention
@@ -167,7 +164,7 @@ class GridHeatOperator2:
 
         # ---- boundary faces (radiation + convection flux) -------------
         bq = 5 * fs.degree
-        bg = build_boundary_geometry(mesh, fs, bq)
+        bg = build_boundary_geometry(mesh, fs, bq, with_grad=False)
         if len(bg.cell) != len(mesh.boundary_cell):
             raise ValueError("flux restricted to a facet subset — grid path "
                              "requires whole-boundary flux or a whole-face "
@@ -497,18 +494,130 @@ class GridHeatOperator2:
             return acc + cm * self._apply1d(self.bands_m[0], suffix[0], 0)
         return mv
 
+    # ---- the materialised table form --------------------------------
+    def stencil_values_g(self, Tg, dt):
+        """Materialised (5^d, *L) Jacobian value table at the frozen
+        linearisation Tg: per offset, c_mass * prod(M) + dt*c_diff * sum_a
+        (K at axis a, M elsewhere) as outer products of band rows, then the
+        linearised face-flux blocks baked plane-wise (face couplings have
+        face-axis delta 0), grouped by coupling delta, by pad + interleave
+        and one plane add each."""
+        d = self.d
+        cm = self.op.c_mass
+        ck = dt * self.op.c_diff
+        combos = [("m",) * d] + [tuple("k" if t == a else "m"
+                                       for t in range(d)) for a in range(d)]
+        coefs = [cm] + [ck] * d
+        vals = []
+        for off in self._offsets:
+            acc = None
+            for combo, coef in zip(combos, coefs):
+                prod = None
+                for t in range(d):
+                    b = self.bands_m[t] if combo[t] == "m" else self.bands_k[t]
+                    v = b[off[t]]
+                    prod = v if prod is None else prod[..., None] * v
+                prod = coef * prod
+                acc = prod if acc is None else acc + prod
+            vals.append(acc)
+        vals = torch.stack(vals, dim=0)                     # (5^d, *L)
+        p = self.params
+        for fc in self.faces:
+            az = fc.axis
+            plane_axes = [i for i in range(d) if i != az]
+            phi = fc.phi_c
+            Tb = self._face_Tb(Tg, fc)
+            w = (p.boundary_scale
+                 * (4.0 * p.sigma * p.epsilon * Tb**3 + p.htc)
+                 * (dt * fc.qw))                            # (..., q)
+            blocks = torch.einsum("...q,ql,qm->...lm", w, phi, phi)
+            blocks = blocks.squeeze(az)
+            base = 0 if fc.side == 0 else self.grid[az] - 1
+            npa = len(plane_axes)
+            if not plane_axes:                              # 1D end point
+                o = (5 ** d - 1) // 2
+                vals[o, base] += blocks.reshape(())
+                continue
+            lc = len(fc.cols)
+            flat = blocks.reshape(blocks.shape[:-2] + (lc * lc,))
+            for delta in np.ndindex(*([5] * npa)):
+                dvec = [int(v) - 2 for v in delta]
+                # blk_{l, l+delta} gathered into the l-local (3,)^npa box
+                sel = np.full((3,) * npa, -1, dtype=np.int64)
+                for jl, l in enumerate(fc.cols):
+                    lo = tuple(self.loffs[l][i] for i in plane_axes)
+                    mo = tuple(lo[i] + dvec[i] for i in range(npa))
+                    if any(v < 0 or v > 2 for v in mo):
+                        continue
+                    for jm, m in enumerate(fc.cols):
+                        if tuple(self.loffs[m][i] for i in plane_axes) == mo:
+                            sel[lo] = jl * lc + jm
+                            break
+                if not (sel >= 0).any():
+                    continue
+                safe = torch.as_tensor(np.where(sel < 0, 0, sel).reshape(-1),
+                                       device=self.device)
+                c3 = flat[..., safe].reshape(flat.shape[:-1] + (3,) * npa)
+                c3 = c3 * torch.as_tensor((sel >= 0).astype(np.float64),
+                                          dtype=flat.dtype, device=self.device)
+                plane = self._assemble_cells_to_lattice(c3, npa)
+                o, k = 0, 0
+                for i in range(d):
+                    if i == az:
+                        o = o * 5 + 2
+                    else:
+                        o = o * 5 + (dvec[k] + 2)
+                        k += 1
+                vals[o].narrow(az, base, 1).add_(plane.unsqueeze(az))
+        return vals
+
+    def matvec_vals(self, vals, xg):
+        """(5^d, *L) table matvec: static pad-2 + slice shifts."""
+        xp = F.pad(xg, [2, 2] * self.d)
+        acc = torch.zeros(self.grid, dtype=xg.dtype, device=xg.device)
+        for o, off in enumerate(self._offsets):
+            acc = acc + vals[o] * xp[tuple(slice(s, s + g) for s, g in
+                                          zip(off, self.grid))]
+        return acc
+
+    def _flat_shifts(self):
+        """(row shift, flattened trailing-axes shift) of each offset."""
+        out = []
+        for off in self._offsets:
+            sft = 0
+            for a in range(1, self.d):
+                sft = sft * self.grid[a] + (int(off[a]) - 2)
+            out.append((int(off[0]), sft))
+        return out
+
+    def matvec_flat(self, vals2, x):
+        """2D-flattened table matvec: vals2 (5^d, gx, M), x flat; wrapped
+        edge reads meet assembled zeros."""
+        gx = self.grid[0]
+        M = vals2.shape[-1]
+        shifts = self._flat_shifts()
+        P = max(abs(s) for _, s in shifts) if self.d > 1 else 1
+        xp = F.pad(x.reshape(gx, M), [P, P, 2, 2])
+        acc = torch.zeros((gx, M), dtype=x.dtype, device=x.device)
+        for o, (dx, sft) in enumerate(shifts):
+            acc = acc + vals2[o] * xp[dx:dx + gx, P + sft:P + sft + M]
+        return acc.reshape(-1)
+
+    # ------------------------------------------------------------------
     def make_matvec_g(self, Tg, dt, form: str | None = None):
         """Grid-shaped Jacobian action at the frozen linearization Tg."""
-        if (form or self.matvec_form) != "kron":
-            raise _table_form_waits()
-        lin = self._kron_jac_g(dt)
-        WW = self._flux_lin_tables(Tg, dt)
+        if (form or self.matvec_form) == "table":
+            vals = self.stencil_values_g(Tg, dt)
+            mv0 = lambda v: self.matvec_vals(vals, v)
+        else:
+            lin = self._kron_jac_g(dt)
+            WW = self._flux_lin_tables(Tg, dt)
 
-        def mv0(v):
-            y = lin(v)
-            if WW:
-                y = self._apply_flux_lin(WW, v, y)
-            return y
+            def mv0(v):
+                y = lin(v)
+                if WW:
+                    y = self._apply_flux_lin(WW, v, y)
+                return y
         if self.has_bc:
             mask = self.bc_mask_g
             return lambda v: torch.where(
@@ -517,8 +626,21 @@ class GridHeatOperator2:
 
     def make_matvec(self, T: torch.Tensor, dt, form: str | None = None):
         """Flat-vector Jacobian action (the Krylov-loop operator)."""
-        g_mv = self.make_matvec_g(T.reshape(self.grid), dt, form=form)
-        return lambda v: g_mv(v.reshape(self.grid)).reshape(-1)
+        if (form or self.matvec_form) != "table":
+            g_mv = self.make_matvec_g(T.reshape(self.grid), dt, form="kron")
+            return lambda v: g_mv(v.reshape(self.grid)).reshape(-1)
+        vals = self.stencil_values_g(T.reshape(self.grid), dt)
+        if self.d > 1:
+            vals2 = vals.reshape(vals.shape[0], self.grid[0], -1)
+            mv0 = lambda v: self.matvec_flat(vals2, v)
+        else:
+            mv0 = lambda v: self.matvec_vals(
+                vals, v.reshape(self.grid)).reshape(-1)
+        if self.has_bc:
+            mask = self.bc_mask
+            return lambda v: torch.where(
+                mask, v, mv0(torch.where(mask, torch.zeros_like(v), v)))
+        return mv0
 
 
 class Q2MG:

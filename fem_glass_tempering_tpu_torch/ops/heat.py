@@ -69,14 +69,14 @@ class HeatOperator:
         cg = build_cell_geometry(mesh, fs, quad_degree)
         # boundary default degree 5p: the T^4 radiation integrand
         bq = quad_degree if quad_degree is not None else 5 * fs.degree
-        bg = build_boundary_geometry(mesh, fs, bq)
+        bg = build_boundary_geometry(mesh, fs, bq, with_grad=False)
         # optional selective flux boundary: marker(midpoints) -> bool mask
         if flux_marker is not None and len(bg.cell):
             mids = bg.qpoints_phys.mean(axis=1)
             keep = np.asarray(flux_marker(mids), dtype=bool)
             bg = type(bg)(
                 cell=bg.cell[keep], qweights=bg.qweights[keep],
-                phi=bg.phi[keep], grad_phys=bg.grad_phys[keep],
+                phi=bg.phi[keep], grad_phys=None,
                 normal=bg.normal[keep], qpoints_phys=bg.qpoints_phys[keep])
         f = lambda a: torch.as_tensor(np.array(a), dtype=dtype,
                                       device=self.device)

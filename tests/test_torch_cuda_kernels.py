@@ -11,7 +11,8 @@ to rtol 1e-12 (f64) / 1e-5 (f32) of the sum of
 the absolute values of its terms. K3 runs through both of its kernels:
 the direct call (tables in device memory, the split kernel) and the
 prepared call (uniform tables that fit travel by value, the row kernel),
-which must agree bit for bit. The grouped scatter-adds of the gather path
+which must agree bit for bit, and at every degree-2 cell shape on the
+heat operator's own tables. The grouped scatter-adds of the gather path
 (ops/scatter.py) must repeat their bits on the card, and equal the CPU's.
 """
 
@@ -152,6 +153,63 @@ def test_dg_cell_residual_kernel(cuda, shape, q, g, uniform, dtype, rtol,
     assert ((y - want).abs() <= rtol * mag).all()
     assert ((dy - dwant).abs() <= rtol * dmag).all()
     assert ((fn(Tc) - want).abs() <= rtol * mag).all()   # outside jvp too
+
+
+# every degree-2 cell shape on the tables of the port's HeatOperator:
+# nloc 3 (the DG-2 slab, per cell), 6 (triangles, per cell, q 16), 9
+# (quads, uniform), 10 (tetrahedra, per cell, q 64: 62 KB of shared memory
+# a block in f64) and 27 (hexes, uniform, q 27)
+DEGREE2 = {
+    "interval": (lambda m: m.reference_glass_mesh_1d(), "DG"),
+    "triangle": (lambda m: m.box_mesh_2d(9, 7, cell_type="triangle"), "CG"),
+    "quadrilateral": (lambda m: m.box_mesh_2d(40, 33, 2.0, 1.0), "CG"),
+    "tetrahedron": (lambda m: m.box_mesh_3d(4, 4, 3, cell_type="tet"), "CG"),
+    "hexahedron": (lambda m: m.box_mesh_3d(16, 16, 4, 1.0, 1.0, 0.01), "CG"),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(DEGREE2))
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
+                                        (torch.float32, 1e-5)])
+def test_dg_cell_residual_kernel_at_degree_two(cuda, cell, dtype, rtol):
+    from fem_glass_tempering_tpu_torch.config import ModelParams
+    from fem_glass_tempering_tpu_torch.fem import mesh as tmesh
+    from fem_glass_tempering_tpu_torch.fem.functionspace import FunctionSpace
+    from fem_glass_tempering_tpu_torch.ops.cuda_dg_cell import (
+        dg_cell_residual,
+        dg_cell_residual_reference,
+    )
+    from fem_glass_tempering_tpu_torch.ops.heat import HeatOperator
+
+    mk, fam = DEGREE2[cell]
+    heat = HeatOperator(FunctionSpace(mk(tmesh), fam, 2), ModelParams(), 0.1,
+                        dtype=dtype, device=cuda)
+    qw, gphi, phi = heat.qw, heat.gphi, heat.phi
+    shape = tuple(heat.dofmap.shape)
+    rng = np.random.default_rng(4)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=cuda)  # noqa: E731
+    Tc = t(700 + 100 * rng.random(shape))
+    Tpc = t(700 + 100 * rng.random(shape))
+    dTc = t(rng.standard_normal(shape))
+    kw = dict(dt=0.1, c_diff=heat.c_diff, f_src=0.3, c_mass=heat.c_mass)
+    call = heat._cell_term
+    fn = lambda u: call(u, Tpc, **kw)  # noqa: E731
+    direct = dg_cell_residual(Tc, Tpc, qw, gphi, phi, **kw)
+    assert torch.equal(fn(Tc), direct)          # either kernel, same bits
+    before = dg_cell_residual.launches
+    y, dy = torch.func.jvp(fn, (Tc,), (dTc,))
+    assert dg_cell_residual.launches == before + 2
+    ref = dg_cell_residual_reference
+    want = ref(Tc, Tpc, qw, gphi, phi, **kw)
+    mag = ref(Tc.abs(), -Tpc.abs(), qw, gphi.abs(), phi.abs(),
+              **dict(kw, f_src=-0.3))
+    zero = torch.zeros_like(Tc)
+    dwant = ref(dTc, zero, qw, gphi, phi, **dict(kw, f_src=0.0))
+    dmag = ref(dTc.abs(), zero, qw, gphi.abs(), phi.abs(),
+               **dict(kw, f_src=0.0))
+    torch.cuda.synchronize()
+    assert ((y - want).abs() <= rtol * mag).all()
+    assert ((dy - dwant).abs() <= rtol * dmag).all()
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -16,7 +16,12 @@ Held:
 - the Q2MG-preconditioned Newton on the 6x6x3 plate (line smoother): equal
   Newton and CG counts to JAX's; with the corrected alpha the same
   solution in fewer CG iterations (measured, not adopted);
-- the configurations of degree 2 that wait for Slice 4b raise.
+- the table form (the materialised 5^d-offset value table) against the
+  kron form and against JAX's table form at 1e-12, with and without
+  Dirichlet rows (tests/test_grid2.py:62,82);
+- the degree-2 configurations off the lattice stencil path set up with the
+  operators JAX's dispatch picks and take a converged step; a ghost-padded
+  coarse chain (coarse_pad0) waits for Slice 7.
 """
 
 import dataclasses
@@ -115,16 +120,40 @@ def test_stiffness_annihilates_constants_exactly():
     assert float(tg._stiff3(c).abs().max()) == 0.0
 
 
-def test_table_form_and_padded_chain_wait():
+@pytest.mark.parametrize("bc", [False, True], ids=["free", "dirichlet"])
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_table_form_matches_kron_and_jax(name, bc):
+    """The materialised table, its flat and grid-shaped Jacobian actions
+    (tests/test_grid2.py:62,82), and a GridHeatOperator2 built with
+    matvec_form="table", against the kron form and JAX's table form."""
+    th, jh = _ops(MESHES[name], bc)
+    tg, jg = GridHeatOperator2(th), JG2(jh)
+    tt = GridHeatOperator2(th, matvec_form="table")
+    rng = np.random.default_rng(5)
+    Tn = 800.0 + 10 * rng.standard_normal(tg.n)
+    v = rng.standard_normal(tg.n)
+    vals = tg.stencil_values_g(T(Tn).reshape(tg.grid), DT)
+    jvals = jg.stencil_values_g(jnp.asarray(Tn).reshape(jg.grid), DT)
+    assert vals.shape == (5 ** tg.d,) + tg.grid
+    assert _rel(vals, jvals) <= 1e-12
+    kron = tg.make_matvec(T(Tn), DT, form="kron")(T(v))
+    jtable = jg.make_matvec(jnp.asarray(Tn), DT, form="table")(
+        jnp.asarray(v))
+    for got in (tg.make_matvec(T(Tn), DT, form="table")(T(v)),
+                tt.make_matvec(T(Tn), DT)(T(v)),
+                tt.make_matvec_g(T(Tn).reshape(tg.grid), DT)(
+                    T(v).reshape(tg.grid)).reshape(-1)):
+        assert _rel(got, kron) <= 1e-12
+        assert _rel(got, jtable) <= 1e-12
+
+
+def test_padded_coarse_chain_waits_for_slice7():
     th, _ = _ops(MESHES["3d"])
-    with pytest.raises(NotImplementedError, match="Slice 4b"):
-        GridHeatOperator2(th, matvec_form="table")
     tg = GridHeatOperator2(th)
-    with pytest.raises(NotImplementedError, match="Slice 4b"):
-        tg.make_matvec(torch.full((tg.n,), 800.0, dtype=F64), DT,
-                       form="table")
     with pytest.raises(NotImplementedError, match="Slice 7"):
         Q2MG(tg, _level_op, coarse_pad0=1)
+    with pytest.raises(ValueError):
+        GridHeatOperator2(th, matvec_form="dense")
 
 
 @pytest.fixture(scope="module")
@@ -318,13 +347,32 @@ def _cg2_cfg(**solver):
     dict(mesh="unstructured"),
 ])
 def test_degree_two_off_the_lattice_path_waits(change):
+    """The configurations that waited for Slice 4b now take the path JAX's
+    dispatch picks: on the box the lattice operator carries the residual
+    and Q2MG (or its f32 twin) serves "auto", and one step converges; on
+    an unstructured mesh "stencil" has no operator, and setup raises
+    JAX's ValueError (the gather HeatOperator with SA-AMG runs there with
+    the other Krylov operators: tests/test_torch_degree2_gather.py)."""
     solver = change.pop("solver", {})
     mesh = tmesh.box_mesh_3d(2, 2, 1, 1.0, 1.0, 0.01)
-    if change.pop("mesh", None):
+    unstructured = bool(change.pop("mesh", None))
+    if unstructured:
         mesh = dataclasses.replace(mesh, structured=None)
     cfg = dataclasses.replace(_cg2_cfg(**solver), **change)
-    with pytest.raises(NotImplementedError, match="Slice 4b"):
-        ThermoViscoProblem(mesh=mesh, config=cfg, device="cpu")
+    pt = ThermoViscoProblem(mesh=mesh, config=cfg, device="cpu")
+    if unstructured:
+        with pytest.raises(ValueError, match="structured box mesh"):
+            pt.setup()
+        assert pt._grid2 is None and pt._amg is not None
+        return
+    pt.setup()
+    pc = pt.config.solver.preconditioner
+    assert isinstance(pt._grid2, GridHeatOperator2)
+    assert pc == solver.get("preconditioner", "mg")
+    assert isinstance(pt._mg if pt._mg32 is None else pt._mg32,
+                      Q2MG) == (pc == "mg")
+    st, ok, ni, _ = pt.step(pt.state)
+    assert ok and ni > 0 and bool(torch.isfinite(st.T).all())
 
 
 @pytest.mark.parametrize("preconditioner", ["jacobi", "none", "mg"])

@@ -147,19 +147,24 @@ def test_failed_chunk_is_retried_then_raises():
         pt.solve()
 
 
-@pytest.mark.parametrize("change,match", [
-    # a CG-2 space runs on the lattice path (ops/grid2.py); off it, it
-    # waits for Slice 4b
+@pytest.mark.parametrize("change,refusal", [
+    # Q2MG needs the lattice operator, which grid_native="off" turns off
     (dict(fe=tc.FEConfig(T_family="CG", T_degree=2),
           solver=tc.SolverConfig(linear_operator="stencil",
                                  preconditioner="mg", grid_native="off")),
-     "Slice 4b"),
-    (dict(fe=tc.FEConfig(T_family="DG", T_degree=2)), "Slice 4b"),
-])
-def test_later_slices_raise(change, match):
+     "lattice-native operator"),
+    # no multigrid for DG-2 ("auto" takes SA-AMG there)
+    (dict(fe=tc.FEConfig(T_family="DG", T_degree=2)), "or DG-1 temperature"),
+], ids=["change0-Slice 4b", "change1-Slice 4b"])
+def test_later_slices_raise(change, refusal):
+    """The two configurations that waited for Slice 4b: the port now
+    constructs both and, like JAX, refuses their "mg" at setup with JAX's
+    ValueError (the degree-2 paths that run:
+    tests/test_torch_degree2_gather.py, tests/test_torch_degree2_twins.py)."""
     cfg = dataclasses.replace(_cfg(tc), **change)
-    with pytest.raises(NotImplementedError, match=match):
-        TP(mesh=tbox(2, 2, 1, 1.0, 1.0, 0.01), config=cfg, device="cpu")
+    pt = TP(mesh=tbox(2, 2, 1, 1.0, 1.0, 0.01), config=cfg, device="cpu")
+    with pytest.raises(ValueError, match=refusal):
+        pt.setup()
 
 
 @pytest.mark.parametrize("change,match", [
