@@ -27,6 +27,8 @@ and the SA-AMG levels' and transfers' ELL products) on CPU copies;
 Jacobian action, its jvp) and the diagonal on a CPU twin of the card's
 heat operator.
 `phase9` runs chip_smoke's phase 9 (the CG-2 lattice path) alone;
+`phase11` runs chip_smoke's phase 4 (the full-size plate, whose warm-up
+chunk phase 11 is held to) and phase 11 (the command-line entry point);
 `phase10` runs phase 2's degree-2 K3 checks and phase 10 (the degree-2
 parity cases, the CG-2 gather plate, the mixed CG-2 plate) alone.
 `kernels` times K1 (material_tspace, n = 1,062,761, f32 and f64) and K3
@@ -45,6 +47,7 @@ import argparse
 import json
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -206,7 +209,7 @@ def main() -> int:
     ap.add_argument("tree", help="root of the checkout to measure")
     ap.add_argument("what", choices=("kernels", "phase5", "phase6",
                                      "phase8b", "phase9", "phase10",
-                                     "dgparity"))
+                                     "phase11", "dgparity"))
     ap.add_argument("--source-flags", default="", metavar="SRC:FLAG[,FLAG]",
                     help="replace one source's nvcc flags (empty FLAG: none)")
     ap.add_argument("--plain-cell-term", action="store_true",
@@ -268,6 +271,17 @@ def main() -> int:
         cs.drop_garbage("phase 10c")
         mixed = cs.mixed_plate_phase(dev, port)
         res = dict(k3_degree2=k3, parity=parity, gather=gather, mixed=mixed)
+    elif args.what == "phase11":
+        full = cs.full_size_phase(dev, port, None)
+        warmup = full.pop("warmup")
+        per_apply = full["stencil_launches_per_apply"]
+        del full
+        cs.drop_garbage("phase 11")
+        scratch = os.path.join(root, "build", "chip_smoke")
+        os.makedirs(scratch, exist_ok=True)
+        t0 = time.perf_counter()
+        res = cs.cli_phase(dev, port, warmup, per_apply, scratch)
+        res["phase11_s"] = time.perf_counter() - t0
     elif args.what == "phase8b":
         full = cs.mechanics_plate_phase(dev, port)
         res = {k: full[k] for k in (

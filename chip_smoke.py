@@ -27,9 +27,9 @@ Phases (each raises on failure; the exit code is then nonzero):
   4. the full-size run: the 3D CG-1 float-glass plate 160x160x40 cells
      (1,062,761 T dofs) in f32 at Newton/CG rtol 1e-5, stencil operator,
      Chebyshev-smoothed geometric MG, jac_every auto (= 5): one 5-step
-     warm-up chunk, then 20 timed steps from a fresh initial state, with
-     every kernel launch counter set to 0 just before the timed window
-     and read just after;
+     warm-up chunk (its T and counts kept for phase 11), then 20 timed
+     steps from a fresh initial state, with every kernel launch counter
+     set to 0 just before the timed window and read just after;
   5. the default workload: ThermoViscoProblem() with no argument but the
      device (DG-1 / SIPG heat on the graded 1D slab, 96 T dofs, f64,
      Newton and CG rtol 1e-12, matrix-free CG, SA-AMG), 500 steps, held
@@ -89,14 +89,29 @@ Phases (each raises on failure; the exit code is then nonzero):
      operator's tables against its bound; (c) the 64x64x16 CG-2 plate of
      phase 9b in f64 with the f32 twins of the lattice operator and of
      Q2MG (cg_dtype="float32", rtol 1e-12, "auto"), 1 + 3 steps, K1/K2
-     launches exact, T after one step within 5e-3 K of an f64 run's.
+     launches exact, T after one step within 5e-3 K of an f64 run's;
+ 11. the command-line entry point (`fem_glass_tempering_tpu_torch.main`,
+     called in this process, its output in a directory deleted after):
+     (a) the full-size plate of phase 4 from a JSON config file, 5 steps,
+     one npz + VTU snapshot: the printed counts equal to phase 4's warm-up
+     chunk, the VTU's Temperature and the npz's T equal to its T bit for
+     bit, K1 5 and K2 31 per CG or Newton iteration, file sizes, io
+     seconds, the temper metrics of the written sigma; (b) the
+     reference's default run, 20 steps, on the card with --profile-dir
+     and on the CPU: equal counts, T and Tf within max-rel 1e-9, sigma
+     1e-6 of max, temper profiles 1e-9, and the trace's K1 and K3 kernel
+     events equal to their launch counts; (c) that run from a gmsh file
+     (create_mesh, --mesh) with (b)'s counts, and the 64x64x16 plate
+     through --write-mesh read back equal to the built mesh, with the
+     write and read seconds. XDMF is not run (the card's machine has no
+     h5py).
 Phase 2 also holds K3 at every degree-2 cell shape (nloc 3, 6, 9, 10, 27)
 on the port's HeatOperator tables, f64 and f32, and times nloc 27 (uniform
 f32, 65,536 cells) and nloc 10 (per-cell f64, 67,584 tetrahedra).
-Every main path (4, 5, 6, 7b f64, 7b mixed, 8b, 9b, 10b, 10c) runs with
-the launch counters set to 0 just before it and read just after. A line
-"phase N ends at S s" follows each phase (seconds since the kernel build
-began). Then one
+Every main path (4, 5, 6, 7b f64, 7b mixed, 8b, 9b, 10b, 10c, 11a, 11b)
+runs with the launch counters set to 0 just before it and read just
+after. A line "phase N ends at S s" follows each phase, 11 included
+(seconds since the kernel build began). Then one
 JSON line per kernel, one {"kernels": [...]} line, the card's name and power limit,
 and last {"ok": true, "device": {...}}.
 
@@ -115,12 +130,20 @@ with contraction, ops/kernel_lib.py SOURCE_FLAGS, so `bound_ms` is its).
 from __future__ import annotations
 
 import argparse
+import base64
+import contextlib
 import dataclasses
 import gc
+import importlib.util
+import io
 import json
 import os
+import re
+import shutil
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -892,11 +915,13 @@ def full_size_phase(dev, port, profile_dir) -> dict:
     x_fine = torch.tensor(rng.standard_normal(n), dtype=prob.dtype,
                           device=dev)
 
-    # warm-up chunk on the real initial transient, then the timed window
-    st, ok, _, _ = prob.multi_step(prob.state, WARMUP_STEPS)
+    # warm-up chunk on the real initial transient, then the timed window;
+    # phase 11 holds the command line's run to the warm-up chunk
+    st, ok, ni, ki = prob.multi_step(prob.state, WARMUP_STEPS)
     torch.cuda.synchronize()
     if not ok:
         fail("warm-up chunk did not converge")
+    warmup = dict(T=st.T.cpu().numpy(), newton=int(ni), cg=int(ki))
     state0 = prob.engine.init_state()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -941,6 +966,7 @@ def full_size_phase(dev, port, profile_dir) -> dict:
         lambda: prob.engine.material_step(st, T_new, prob.dt), reps=10)
     out["vals_fine"], out["x_fine"], out["state"] = vals_fine, x_fine, st
     out["grid"] = fine.grid
+    out["warmup"] = warmup
     if profile_dir:
         profile(prob, dev, profile_dir)
     return out
@@ -2482,6 +2508,272 @@ def mixed_plate_phase(dev, port) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# Phase 11: the command-line entry point
+# ----------------------------------------------------------------------
+CLI_DEFAULT_ARGV = ["--t-end", "2.0", "--write-every", "10",
+                    "--formats", "npz,vtu"]     # 20 steps, 2 snapshots
+N_MSH = (64, 64, 16)             # 65,536 hex cells through --write-mesh
+
+
+def run_cli(argv) -> str:
+    """`python -m fem_glass_tempering_tpu_torch.main ARGV` in this process
+    -> what it printed."""
+    from fem_glass_tempering_tpu_torch.main import main as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(argv)
+    if rc != 0:
+        fail(f"the command line {argv} exited {rc}")
+    return buf.getvalue()
+
+
+def cli_stats(argv) -> tuple[dict, float]:
+    """The command line's last line (its JSON stats) and its wall time."""
+    t0 = time.perf_counter()
+    text = run_cli(argv)
+    return json.loads(text.strip().splitlines()[-1]), time.perf_counter() - t0
+
+
+def vtu_field(path: str, name: str) -> np.ndarray:
+    """Decode one point-data array of a binary .vtu file (f64, flat),
+    found by its name: a full XML parse of the 281 MB plate file costs
+    seconds."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    at = data.find(f'Name="{name}"'.encode())
+    if at < 0:
+        fail(f"{path} has no field {name}")
+    start = data.index(b">", at) + 1
+    raw = base64.b64decode(data[start:data.index(b"</DataArray>", start)])
+    n = struct.unpack("<I", raw[:4])[0]
+    return np.frombuffer(raw[4:4 + n], dtype=np.float64)
+
+
+# a device kernel in torch.profiler's Chrome trace (written by Kineto,
+# "cat" before "name"); a regular expression over the bytes, where
+# json.load of the 459 MB trace of 11b takes seconds
+_KERNEL_EVENT = re.compile(rb'"cat":\s*"kernel",\s*"name":\s*"([^"]*)"')
+
+
+def trace_kernel_events(path: str) -> dict:
+    """Device kernel events of a torch.profiler Chrome trace, by the
+    port's kernel they belong to."""
+    with open(path, "rb") as fh:
+        names = _KERNEL_EVENT.findall(fh.read())
+    pick = dict(material_tspace=(b"material_tspace_kernel",),
+                stencil_matvec=(b"stencil_matvec_kernel",),
+                dg_cell_residual=(b"dg_cell_row_kernel",
+                                  b"dg_cell_split_kernel"))
+    out = {k: sum(any(p in n for p in pats) for n in names)
+           for k, pats in pick.items()}
+    out["all_kernels"] = len(names)
+    return out
+
+
+def temper(fs_sigma, sigma, axis, fs_T=None, T=None) -> tuple:
+    from fem_glass_tempering_tpu_torch.models.analysis import (
+        temper_metrics,
+        through_thickness_profile,
+    )
+
+    prof = through_thickness_profile(fs_sigma, sigma, axis=axis, T_fs=fs_T,
+                                     T=T)
+    return prof, temper_metrics(prof)
+
+
+def cli_plate_run(dev, port, work, warmup, k2_per_apply) -> dict:
+    """11a: the full-size CG-1 plate through the command line, 5 steps and
+    one npz + VTU snapshot, held to phase 4's warm-up chunk."""
+    from fem_glass_tempering_tpu_torch import config as tc
+    from fem_glass_tempering_tpu_torch.fem.functionspace import FunctionSpace
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+
+    tag = "CLI plate"
+    cfg_path = os.path.join(work, "plate.json")
+    with open(cfg_path, "w") as fh:
+        fh.write(plate_config(tc, WARMUP_STEPS, True).to_json())
+    out_dir = os.path.join(work, "plate")
+    reset_counts(port)
+    stats, wall = cli_stats([
+        "--device", str(dev), "--problem-dim", "3",
+        "--nx", str(N_FULL[0]), "--ny", str(N_FULL[1]), "--nz", str(N_FULL[2]),
+        "--config", cfg_path, "--write-every", str(WARMUP_STEPS),
+        "--formats", "npz,vtu", "--output-dir", out_dir])
+    launches = read_counts(port)
+    t0 = time.perf_counter()
+    ni, ki = stats["newton_iters"], stats["krylov_iters"]
+    if (stats["n_steps"], ni, ki) != (WARMUP_STEPS, warmup["newton"],
+                                      warmup["cg"]):
+        fail(f"{tag}: {stats} against phase 4's warm-up chunk "
+             f"{warmup['newton']} Newton / {warmup['cg']} CG")
+    if (launches["material_tspace"] != WARMUP_STEPS
+            or launches["stencil_matvec"] != k2_per_apply * (ni + ki)
+            or launches["dg_cell_residual"] != 0):
+        fail(f"{tag}: launches {launches} for {ni} Newton + {ki} CG "
+             f"iterations ({k2_per_apply} K2 per apply)")
+    files = {f: os.path.getsize(os.path.join(out_dir, f))
+             for f in sorted(os.listdir(out_dir))}
+    T_warm = warmup["T"]
+    T_vtu = vtu_field(os.path.join(out_dir, "visco_00000.vtu"), "Temperature")
+    with np.load(os.path.join(out_dir, "series.npz")) as z:
+        T_npz, sigma = z["T"][-1], z["sigma"][-1]
+    if not np.array_equal(T_vtu, T_warm.astype(np.float64)):
+        fail(f"{tag}: the VTU's Temperature differs from the warm-up T by "
+             f"{np.abs(T_vtu - T_warm).max():.3e}")
+    if T_npz.dtype != T_warm.dtype or not np.array_equal(T_npz, T_warm):
+        fail(f"{tag}: the npz's T differs from the warm-up T")
+    if not np.isfinite(sigma).all():
+        fail(f"{tag}: non-finite sigma in the npz")
+    mesh = box_mesh_3d(*N_FULL, 1.0, 1.0, 0.01)
+    fs_sigma = FunctionSpace(mesh, "CG", 1, value_shape=(3, 3))
+    _, metrics = temper(fs_sigma, sigma, 2)
+    out = dict(dofs=int(T_warm.size), steps=stats["n_steps"], newton=ni,
+               cg=ki, elapsed_seconds=stats["elapsed_seconds"],
+               io_seconds=stats["io_seconds"], wall_s=wall,
+               launches=launches, file_bytes=files,
+               T_bits_equal_phase4=True, temper_metrics=metrics,
+               check_s=time.perf_counter() - t0)
+    log(f"{tag} " + json.dumps(out))
+    return out
+
+
+def cli_default_runs(dev, port, work) -> dict:
+    """11b: the reference's default run, 20 steps, through the command
+    line on the card (traced with --profile-dir) and on the CPU."""
+    from fem_glass_tempering_tpu_torch.config import RunConfig
+    from fem_glass_tempering_tpu_torch.fem.functionspace import FunctionSpace
+    from fem_glass_tempering_tpu_torch.fem.mesh import reference_glass_mesh_1d
+    from fem_glass_tempering_tpu_torch.utils.profiling import TRACE_FILE
+
+    tag = "CLI default run"
+    trace_dir = os.path.join(work, "trace")
+    runs = {}
+    for where, device in (("gpu", str(dev)), ("cpu", "cpu")):
+        extra = ["--profile-dir", trace_dir] if where == "gpu" else []
+        reset_counts(port)
+        stats, wall = cli_stats(CLI_DEFAULT_ARGV + [
+            "--device", device, "--output-dir", os.path.join(work, where)]
+            + extra)
+        runs[where] = dict(stats=stats, wall_s=wall,
+                           launches=read_counts(port))
+    g, c = runs["gpu"]["stats"], runs["cpu"]["stats"]
+    ni, ki = g["newton_iters"], g["krylov_iters"]
+    if (g["n_steps"], ni, ki) != (c["n_steps"], c["newton_iters"],
+                                  c["krylov_iters"]) or g["n_steps"] != 20:
+        fail(f"{tag}: the card's counts {g} against the CPU's {c}")
+    launches = runs["gpu"]["launches"]
+    if (launches["material_tspace"] != 20
+            or launches["dg_cell_residual"] != ni + 2 * (ni + ki)):
+        fail(f"{tag}: launches {launches} for 20 steps, {ni} Newton and "
+             f"{ki} CG")
+    if any(runs["cpu"]["launches"].values()):
+        fail(f"{tag}: the CPU run launched {runs['cpu']['launches']}")
+    fields = {}
+    for where in runs:
+        with np.load(os.path.join(work, where, "series.npz")) as z:
+            fields[where] = {f: z[f][-1] for f in ("T", "Tf", "sigma")}
+    out = dict(steps=20, newton=ni, cg=ki,
+               wall_s={w: r["wall_s"] for w, r in runs.items()},
+               elapsed_seconds={w: r["stats"]["elapsed_seconds"]
+                                for w, r in runs.items()},
+               io_seconds={w: r["stats"]["io_seconds"]
+                           for w, r in runs.items()},
+               launches=launches)
+    for f in ("T", "Tf", "sigma"):
+        a, b = fields["cpu"][f], fields["gpu"][f]
+        out[f"{f}_max_rel"] = float(np.abs(a - b).max() / np.abs(a).max())
+        if not out[f"{f}_max_rel"] <= (1e-6 if f == "sigma" else 1e-9):
+            fail(f"{tag}: {f} GPU against CPU {out[f'{f}_max_rel']:.3e}")
+    fe = RunConfig().fe
+    mesh = reference_glass_mesh_1d()
+    fs_T = FunctionSpace(mesh, fe.T_family, fe.T_degree)
+    fs_sigma = FunctionSpace(mesh, fe.sigma_family, fe.sigma_degree,
+                             value_shape=(1, 1))
+    prof = {w: temper(fs_sigma, fields[w]["sigma"], 0, fs_T, fields[w]["T"])
+            for w in runs}
+    (pc, mc), (pg, mg) = prof["cpu"], prof["gpu"]
+    scale = np.abs(pc.stress).max()
+    out["profile_max_rel"] = max(
+        float(np.abs(pc.stress - pg.stress).max() / scale),
+        float(np.abs(pc.temperature - pg.temperature).max()
+              / np.abs(pc.temperature).max()),
+        max(abs(mc[k] - mg[k]) / (mc["thickness"] if k == "thickness"
+                                  else scale) for k in mc))
+    if not out["profile_max_rel"] <= 1e-9:
+        fail(f"{tag}: temper profiles GPU against CPU "
+             f"{out['profile_max_rel']:.3e}")
+    out["temper_metrics"] = mg
+    t0 = time.perf_counter()
+    events = trace_kernel_events(os.path.join(trace_dir, TRACE_FILE))
+    out["trace_scan_s"] = time.perf_counter() - t0
+    out["trace_kernel_events"] = events
+    out["trace_bytes"] = os.path.getsize(os.path.join(trace_dir, TRACE_FILE))
+    for name in ("material_tspace", "dg_cell_residual"):
+        if events[name] != launches[name]:
+            fail(f"{tag}: the trace holds {events[name]} {name} kernel "
+                 f"events, the launch counter {launches[name]}")
+    log(f"{tag} " + json.dumps(out))
+    return out
+
+
+def cli_gmsh_runs(dev, work, default) -> dict:
+    """11c: the default run from a gmsh file through --mesh, and the
+    N_MSH plate written by --write-mesh (its seconds include building the
+    mesh, ~0.1 s of them) and read back."""
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d, read_msh
+    from fem_glass_tempering_tpu_torch.fem.mshio import create_mesh
+
+    tag = "CLI gmsh"
+    path = os.path.join(work, "mesh1d.msh")
+    create_mesh(path)
+    stats, wall = cli_stats(CLI_DEFAULT_ARGV + [
+        "--device", str(dev), "--mesh", path,
+        "--output-dir", os.path.join(work, "gmsh")])
+    if (stats["n_steps"], stats["newton_iters"], stats["krylov_iters"]) != (
+            20, default["newton"], default["cg"]):
+        fail(f"{tag}: --mesh run {stats} against the default run's "
+             f"{default['newton']} / {default['cg']}")
+    with np.load(os.path.join(work, "gmsh", "series.npz")) as z, \
+            np.load(os.path.join(work, "gpu", "series.npz")) as zd:
+        T_diff = float(np.abs(z["T"][-1] - zd["T"][-1]).max())
+    plate = os.path.join(work, "plate.msh")
+    t0 = time.perf_counter()
+    run_cli(["--device", str(dev), "--problem-dim", "3",
+             "--nx", str(N_MSH[0]), "--ny", str(N_MSH[1]),
+             "--nz", str(N_MSH[2]), "--write-mesh", plate])
+    cli_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m = read_msh(plate)
+    read_s = time.perf_counter() - t0
+    ref = box_mesh_3d(*N_MSH, 1.0, 1.0, 0.01)
+    if not (np.array_equal(m.nodes, ref.nodes)
+            and np.array_equal(m.cells, ref.cells)):
+        fail(f"{tag}: the {N_MSH} plate read back differs from the built one")
+    out = dict(mesh_run=stats, mesh_run_wall_s=wall,
+               T_max_abs_diff_to_default_run=T_diff, plate_cells=m.n_cells,
+               msh_bytes=os.path.getsize(plate), cli_write_mesh_s=cli_write_s,
+               read_msh_s=read_s)
+    log(f"{tag} " + json.dumps(out))
+    return out
+
+
+def cli_phase(dev, port, warmup, k2_per_apply, scratch_dir) -> dict:
+    """Phase 11: the command-line entry point, every call in this process
+    with its output captured, into a directory deleted afterwards."""
+    work = tempfile.mkdtemp(prefix="cli_", dir=scratch_dir)
+    try:
+        plate = cli_plate_run(dev, port, work, warmup, k2_per_apply)
+        default = cli_default_runs(dev, port, work)
+        gmsh = cli_gmsh_runs(dev, work, default)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("CLI: XDMF output is not run on the card (it needs h5py; h5py "
+        f"importable here: {importlib.util.find_spec('h5py') is not None})")
+    return dict(plate=plate, default=default, gmsh=gmsh)
+
+
 def profile(prob, dev, out_dir) -> None:
     """torch.profiler over 5 full-size steps: kernel time by name and the
     device's busy share of the window."""
@@ -2618,6 +2910,7 @@ def main() -> int:
     full = full_size_phase(dev, port, args.profile)
     vals2, x, grid = full.pop("vals_fine"), full.pop("x_fine"), full.pop("grid")
     full.pop("state")
+    warmup = full.pop("warmup")
     k2_err = check_stencil(vals2, x, grid, 1e-5, port)
     n = x.numel()
     b, by = bound_ms(29 * n * 4, K2_OPS_PER_POINT * n, torch.float32)
@@ -2682,6 +2975,12 @@ def main() -> int:
     mixed = mixed_plate_phase(dev, port)
     phase_end("10c")
 
+    # ---- phase 11: the command-line entry point ----
+    drop_garbage("phase 11")
+    cli = cli_phase(dev, port, warmup, full["stencil_launches_per_apply"],
+                    scratch_dir)
+    phase_end("11")
+
     k1_32 = k1["float32"]
     sigma_ms = full["material_step_ms"] - k1_32["ms"]
     log(f"material step {full['material_step_ms']:.4f} ms, of which K1 "
@@ -2702,7 +3001,10 @@ def main() -> int:
                  "material_tspace"],
              launches_cg2_plate=cg2["launches"]["material_tspace"],
              launches_cg2_gather_plate=gather["launches"]["material_tspace"],
-             launches_cg2_mixed_plate=mixed["launches"]["material_tspace"]),
+             launches_cg2_mixed_plate=mixed["launches"]["material_tspace"],
+             launches_cli_plate=cli["plate"]["launches"]["material_tspace"],
+             launches_cli_default_run=cli["default"]["launches"][
+                 "material_tspace"]),
         dict(name="stencil_matvec", route="cuda",
              source="fem_glass_tempering_tpu_torch/csrc/stencil_matvec.cu",
              replaces="fem_glass_tempering_tpu/ops/pallas_stencil.py:54",
@@ -2718,6 +3020,7 @@ def main() -> int:
              launches_cg2_plate=cg2["launches"]["stencil_matvec"],
              launches_cg2_gather_plate=gather["launches"]["stencil_matvec"],
              launches_cg2_mixed_plate=mixed["launches"]["stencil_matvec"],
+             launches_cli_plate=cli["plate"]["launches"]["stencil_matvec"],
              cg2_coarse_levels=cg2["k2_levels"]),
         # timed at the DG plate's shape (65,536 hex cells, uniform tables,
         # f64) in the heat operator's prepared call; no single PyTorch call
@@ -2753,6 +3056,8 @@ def main() -> int:
              launches_per_step_cg2_gather_plate=gather[
                  "k3_launches_per_step"],
              launches_cg2_mixed_plate=mixed["launches"]["dg_cell_residual"],
+             launches_cli_default_run=cli["default"]["launches"][
+                 "dg_cell_residual"],
              launches_degree2_parity={
                  label: case["k3_launches_gpu"]
                  for label, case in d2_parity.items()},
@@ -2777,6 +3082,7 @@ def main() -> int:
     log("summary degree-2 parity " + json.dumps(d2_parity))
     log("summary CG-2 gather plate " + json.dumps(gather))
     log("summary CG-2 mixed plate " + json.dumps(mixed))
+    log("summary command line " + json.dumps(cli))
     log("summary phase end times, s " + json.dumps(ends))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -13,8 +13,10 @@ path:
   - solver/   Newton, preconditioned CG, geometric multigrid (heat and
               the vector elasticity V-cycle), SA-AMG
   - models/   thermal + viscoelastic physics, equilibrium mechanics, the
-              problem driver
-  - io/       npz time series
+              problem driver, the temper analysis
+  - io/       npz, VTU and XDMF time series, checkpoints
+  - utils/    logging helpers, phase timers, the torch.profiler trace
+  - main.py   the command line (python -m fem_glass_tempering_tpu_torch.main)
 
 Entry points run on the GPU (`device="cuda"`, the default) and raise when
 no GPU is visible, unless the caller asks for `device="cpu"`, where every

@@ -10,8 +10,8 @@ Builders:
   - interval_mesh / graded_interval_mesh / reference_glass_mesh_1d: the
     reference's 1D graded glass slab (reference geometry.py:7-14).
   - box_mesh_2d / box_mesh_3d: structured quad/triangle and hex/tet plates.
-
-The gmsh reader waits for a later slice of the port.
+  - read_msh: the gmsh 4.1 ASCII reader (pure Python), with the physical
+    groups as cell and facet tags.
 """
 
 from __future__ import annotations
@@ -24,6 +24,22 @@ from fem_glass_tempering_tpu_torch.fem.reference_elements import (
     ReferenceCell,
     get_cell,
 )
+
+_GMSH_CELLS = {
+    1: ("interval", 2),
+    2: ("triangle", 3),
+    3: ("quad", 4),
+    4: ("tet", 4),
+    5: ("hex", 8),
+}
+# gmsh vertex order -> our tensor-product order
+_GMSH_PERM = {
+    "interval": [0, 1],
+    "triangle": [0, 1, 2],
+    "quad": [0, 1, 3, 2],
+    "tet": [0, 1, 2, 3],
+    "hex": [0, 1, 3, 2, 4, 5, 7, 6],
+}
 
 
 @dataclass
@@ -42,9 +58,12 @@ class Mesh:
     # geometric-multigrid coarsening. {'dims': (...), 'lengths': (...),
     # 'origin': (...)} or None for unstructured meshes.
     structured: dict = field(default=None, compare=False)
-    # gmsh physical groups: per-boundary-facet tags aligned with the facet
-    # enumeration above, and group name -> (dim, tag)
+    # gmsh physical groups: per-cell physical tag (-1 = untagged),
+    # per-boundary / interior-facet tags aligned with the facet enumeration
+    # above, and group name -> (dim, tag) as declared in $PhysicalNames
+    cell_tags: np.ndarray = field(default=None, compare=False)
     boundary_facet_tags: np.ndarray = field(default=None, compare=False)
+    interior_facet_tags: np.ndarray = field(default=None, compare=False)
     physical_names: dict = field(default=None, compare=False)
 
     def __post_init__(self):
@@ -88,16 +107,60 @@ class Mesh:
         """(n_cells, n_vertices, gdim)"""
         return self.nodes[self.cells]
 
-    def boundary_facets_with_tag(self, tag) -> np.ndarray:
-        """Bool mask (n_boundary_facets,) of the boundary facets in the
-        physical group `tag` (int or group name)."""
-        if self.boundary_facet_tags is None:
-            raise ValueError("mesh carries no facet tags")
+    def _resolve_tag(self, tag) -> int:
+        """Accept an int physical tag or a $PhysicalNames group name."""
         if isinstance(tag, str):
             if not self.physical_names or tag not in self.physical_names:
                 raise KeyError(f"no physical group named {tag!r}")
-            tag = self.physical_names[tag][1]
-        return self.boundary_facet_tags == int(tag)
+            return int(self.physical_names[tag][1])
+        return int(tag)
+
+    def cells_with_tag(self, tag) -> np.ndarray:
+        """Bool mask (n_cells,) of the cells in the physical group `tag`
+        (int or group name)."""
+        if self.cell_tags is None:
+            raise ValueError("mesh carries no cell tags")
+        return self.cell_tags == self._resolve_tag(tag)
+
+    def boundary_facets_with_tag(self, tag) -> np.ndarray:
+        """Bool mask (n_boundary_facets,) of the boundary facets in the
+        physical group `tag` (int or group name): a flux / BC selector."""
+        if self.boundary_facet_tags is None:
+            raise ValueError("mesh carries no facet tags")
+        return self.boundary_facet_tags == self._resolve_tag(tag)
+
+    def _facet_keys(self, cell, local_facet) -> np.ndarray:
+        """(n, n_facet_vertices) sorted vertex lists of the given facets."""
+        rc = self.ref_cell
+        fv = np.asarray([rc.facets[lf] for lf in range(rc.n_facets)])
+        return np.sort(self.cells[cell[:, None], fv[local_facet]], axis=1)
+
+    def attach_facet_tags(self, facet_verts, facet_tags: np.ndarray) -> None:
+        """Map raw tagged facet elements (vertex lists in mesh-local node
+        indices) onto the boundary / interior facet enumerations; a facet
+        listed twice keeps its last tag, one that is no facet of the mesh
+        is dropped."""
+        nb = self.n_boundary_facets
+        keys = np.concatenate([
+            self._facet_keys(self.boundary_cell, self.boundary_local_facet),
+            self._facet_keys(self.interior_cell_p,
+                             self.interior_local_facet_p)])
+        tags = np.asarray(facet_tags)
+        tagged = np.sort(np.asarray(facet_verts, dtype=keys.dtype).reshape(
+            len(tags), keys.shape[1]), axis=1)
+        # one id per distinct vertex list: the mesh's facets first, so a
+        # tagged list's id below len(keys) names the facet it lies on
+        _, first, inv = np.unique(np.concatenate([keys, tagged]), axis=0,
+                                  return_index=True, return_inverse=True)
+        where = first[inv.reshape(-1)[len(keys):]]
+        # the last listing of a facet wins: keep each id's last occurrence
+        _, last_rev = np.unique(where[::-1], return_index=True)
+        keep = len(where) - 1 - last_rev
+        keep = keep[where[keep] < len(keys)]
+        all_tags = np.full(len(keys), -1, dtype=np.int32)
+        all_tags[where[keep]] = tags[keep]
+        self.boundary_facet_tags = all_tags[:nb]
+        self.interior_facet_tags = all_tags[nb:]
 
     # ------------------------------------------------------------------
     def _build_facets(self) -> None:
@@ -270,3 +333,162 @@ def box_mesh_3d(nx: int, ny: int, nz: int, lx: float = 1.0, ly: float = 1.0,
         tets = np.stack(tets, axis=1).reshape(-1, 4)
         return Mesh("tet", nodes, tets)
     raise ValueError(cell_type)
+
+
+# ======================================================================
+# gmsh 4.1 ASCII reader
+# ======================================================================
+
+# gmsh element type -> (topological dim, n vertices); 15 = point
+_ETYPE_DIM_NV = {15: (0, 1), 1: (1, 2), 2: (2, 3), 3: (2, 4), 4: (3, 4),
+                 5: (3, 8)}
+
+
+def read_msh(path: str, gdim: int | None = None) -> Mesh:
+    """gmsh 4.1 ASCII `.msh` reader: nodes + highest-dimension cells +
+    physical groups (cell / facet tags + $PhysicalNames).
+
+    dolfinx's `gmshio.read_from_msh` returns `(mesh, cell_tags,
+    facet_tags)` (reference ThermoViscoProblem.py:27-28); here the tags
+    live on the Mesh (`cell_tags`, `boundary_facet_tags`,
+    `interior_facet_tags`, `physical_names`). `gdim` keeps that many
+    coordinates (default: the cells' topological dimension).
+    """
+    names = _read_physical_names(path)
+    with open(path) as f:
+        lines = f.read().splitlines()
+    i = 0
+
+    def section(name):
+        nonlocal i
+        while i < len(lines) and lines[i].strip() != f"${name}":
+            i += 1
+        if i == len(lines):
+            raise ValueError(f"section {name} not found in {path}")
+        i += 1
+
+    def optional_section(name):
+        nonlocal i
+        i = 0
+        while i < len(lines) and lines[i].strip() != f"${name}":
+            i += 1
+        if i == len(lines):
+            return False
+        i += 1
+        return True
+
+    section("MeshFormat")
+    version = lines[i].split()[0]
+    if not version.startswith("4"):
+        raise ValueError(f"only msh 4.x supported, got {version}")
+
+    # entity (dim, tag) -> physical tag (first listed), from $Entities
+    ent_phys: dict[tuple, int] = {}
+    if optional_section("Entities"):
+        counts = [int(v) for v in lines[i].split()]
+        i += 1
+        for dim, n_ent in enumerate(counts):
+            for _ in range(n_ent):
+                parts = lines[i].split()
+                i += 1
+                etag = int(parts[0])
+                # points: tag x y z nPhys phys...; higher dims: tag + 6
+                # bbox floats + nPhys phys... (+ bounding entities)
+                off = 4 if dim == 0 else 7
+                n_phys = int(parts[off])
+                if n_phys > 0:
+                    ent_phys[(dim, etag)] = int(parts[off + 1])
+
+    i = 0
+    section("Nodes")
+    header = lines[i].split()
+    num_blocks, num_nodes = int(header[0]), int(header[1])
+    i += 1
+    tags, coords = [], []
+    for _ in range(num_blocks):
+        _, _, _, n_in_block = (int(v) for v in lines[i].split())
+        i += 1
+        block_tags = [int(lines[i + k]) for k in range(n_in_block)]
+        i += n_in_block
+        for k in range(n_in_block):
+            coords.append([float(v) for v in lines[i + k].split()[:3]])
+        i += n_in_block
+        tags.extend(block_tags)
+    tag_to_idx = {t: k for k, t in enumerate(tags)}
+    coords = np.asarray(coords)
+
+    i = 0
+    section("Elements")
+    header = lines[i].split()
+    num_blocks = int(header[0])
+    i += 1
+    cells_by_type: dict[str, list] = {}
+    tags_by_type: dict[str, list] = {}
+    elems_by_dim: dict[int, list] = {}   # dim -> [(verts, phys_tag)]
+    for _ in range(num_blocks):
+        edim, etag, etype, n_in_block = (int(v) for v in lines[i].split())
+        i += 1
+        phys = ent_phys.get((edim, etag), -1)
+        if etype in _GMSH_CELLS:
+            name, nv = _GMSH_CELLS[etype]
+            perm = _GMSH_PERM[name]
+            for k in range(n_in_block):
+                parts = [int(v) for v in lines[i + k].split()]
+                verts = [tag_to_idx[t] for t in parts[1 : 1 + nv]]
+                cells_by_type.setdefault(name, []).append(
+                    [verts[p] for p in perm])
+                tags_by_type.setdefault(name, []).append(phys)
+                elems_by_dim.setdefault(edim, []).append((verts, phys))
+        elif etype in _ETYPE_DIM_NV:
+            _, nv = _ETYPE_DIM_NV[etype]
+            for k in range(n_in_block):
+                parts = [int(v) for v in lines[i + k].split()]
+                verts = [tag_to_idx[t] for t in parts[1 : 1 + nv]]
+                elems_by_dim.setdefault(edim, []).append((verts, phys))
+        i += n_in_block
+
+    if not cells_by_type:
+        raise ValueError(f"no supported cells in {path}")
+    # keep the highest-dimensional cell type present
+    order = ["hex", "tet", "quad", "triangle", "interval"]
+    name = next(n for n in order if n in cells_by_type)
+    cells = np.asarray(cells_by_type[name], dtype=np.int32)
+    tdim = get_cell(name).tdim
+    g = gdim if gdim is not None else tdim
+    m = Mesh(name, coords[:, :g], cells)
+    ct = np.asarray(tags_by_type[name], dtype=np.int32)
+    if (ct >= 0).any():
+        m.cell_tags = ct
+    facet_elems = elems_by_dim.get(tdim - 1, [])
+    tagged = [(v, t) for v, t in facet_elems if t >= 0]
+    if tagged:
+        m.attach_facet_tags([v for v, _ in tagged],
+                            np.asarray([t for _, t in tagged],
+                                       dtype=np.int32))
+    m.physical_names = names
+    return m
+
+
+def _read_physical_names(path: str) -> dict:
+    """Parse $PhysicalNames -> {name: (dim, tag)}."""
+    names: dict[str, tuple] = {}
+    with open(path) as f:
+        in_sec = False
+        first = True
+        for line in f:
+            s = line.strip()
+            if s == "$PhysicalNames":
+                in_sec = True
+                first = True
+                continue
+            if s == "$EndPhysicalNames":
+                break
+            if in_sec:
+                if first:
+                    first = False
+                    continue
+                parts = s.split(maxsplit=2)
+                if len(parts) == 3:
+                    names[parts[2].strip('"')] = (int(parts[0]),
+                                                  int(parts[1]))
+    return names

@@ -19,7 +19,8 @@ Q2MG for CG-2 boxes), SA-AMG or no preconditioner; mixed precision
 (cg_dtype='float32' under f64: an f32 inner CG with f32 twins of the
 operator and the preconditioner); equilibrium mechanics
 (mechanics='equilibrium': an elasticity solve inside every material step,
-models/mechanics.py); checkpoints. On a structured box a CG-2 space takes
+models/mechanics.py); checkpoints; gmsh input (mesh_path=) and the npz,
+VTU and XDMF writers. On a structured box a CG-2 space takes
 the lattice path unless grid_native='off': the sum-factorised operator
 ops/grid2.py GridHeatOperator2 carries the residual and the diagonal, and
 with linear_operator='stencil' the Jacobian action, and Q2MG (its coarse
@@ -46,7 +47,11 @@ from fem_glass_tempering_tpu_torch.config import (
 )
 from fem_glass_tempering_tpu_torch.device import resolve_device, resolve_dtype
 from fem_glass_tempering_tpu_torch.fem.functionspace import FunctionSpace
-from fem_glass_tempering_tpu_torch.fem.mesh import Mesh, reference_glass_mesh_1d
+from fem_glass_tempering_tpu_torch.fem.mesh import (
+    Mesh,
+    read_msh,
+    reference_glass_mesh_1d,
+)
 from fem_glass_tempering_tpu_torch.models.viscoelastic import (
     ViscoelasticEngine,
     ViscoState,
@@ -132,8 +137,7 @@ class ThermoViscoProblem:
         if mesh is not None:
             self.mesh = mesh
         elif mesh_path is not None:
-            raise _waits("reading gmsh files (read_msh)",
-                         "the Slice 1 deferrals")
+            self.mesh = read_msh(mesh_path)
         else:
             self.mesh = reference_glass_mesh_1d()
         self.dim = self.mesh.tdim
@@ -414,18 +418,42 @@ class ThermoViscoProblem:
 
     def _setup_writers(self) -> None:
         """Instantiate the configured output writers (the reference writes
-        T, phi, Tf, xi and sigma, ThermoViscoProblem.py:246-276)."""
+        T, phi, Tf, xi and sigma, ThermoViscoProblem.py:246-276). Every
+        writer copies the fields it writes to the host itself."""
         self._writers = []
         oc = self.config.output
         if oc.write_every <= 0 or not oc.formats:
             return
-        unsupported = [f for f in oc.formats if f != "npz"]
-        if unsupported:
-            raise _waits(f"output formats {unsupported}", "Slice 6")
-        from fem_glass_tempering_tpu_torch.io.series import NPZSeriesWriter
-        self._writers.append(
-            NPZSeriesWriter(f"{oc.output_dir}/series.npz",
-                            fields=oc.npz_fields))
+        out = oc.output_dir
+        if "npz" in oc.formats:
+            from fem_glass_tempering_tpu_torch.io.series import NPZSeriesWriter
+            self._writers.append(
+                NPZSeriesWriter(f"{out}/series.npz", fields=oc.npz_fields))
+        if "vtu" in oc.formats:
+            from fem_glass_tempering_tpu_torch.io.vtu import VTUSeriesWriter
+            w = VTUSeriesWriter(out, "visco", self.mesh)
+            w.write = self._wrap_vtu(w)  # type: ignore[method-assign]
+            self._writers.append(w)
+        if "xdmf" in oc.formats:
+            from fem_glass_tempering_tpu_torch.io.xdmf import XDMFWriter
+            w = XDMFWriter(f"{out}/sigma.xdmf", self.mesh)
+            orig = w.write_function
+            w.write = lambda t, state: orig(  # type: ignore[attr-defined]
+                "Stress_tensor", self.fs_sigma, state.sigma, t)
+            self._writers.append(w)
+
+    def _wrap_vtu(self, w):
+        orig_write = type(w).write
+
+        def write(t, state):
+            orig_write(w, t, {
+                "Temperature": (self.fs_T, state.T),
+                "Fictive_Temperature": (self.fs_T, state.Tf),
+                "Shift_function": (self.fs_T, state.phi),
+                "Shifted_time": (self.fs_T, state.xi),
+                "Stress_tensor": (self.fs_sigma, state.sigma),
+            })
+        return write
 
     # ------------------------------------------------------------------
     def save_checkpoint(self, path: str) -> None:

@@ -28,7 +28,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fem_glass_tempering_tpu_torch.ops.assembly import build_boundary_geometry
 from fem_glass_tempering_tpu_torch.ops.heat import HeatOperator
 from fem_glass_tempering_tpu_torch.ops.stencil import StencilMatrix
 
@@ -77,8 +76,7 @@ class GridHeatOperator:
         nloc = fs.element.nloc
         self.nloc = nloc
 
-        bq = 5 * fs.degree
-        bg = build_boundary_geometry(mesh, fs, bq, with_grad=False)
+        bg = op.take_boundary_geometry(5 * fs.degree)
         if len(bg.cell) != len(mesh.boundary_cell):
             raise ValueError("flux restricted to a facet subset — grid path "
                              "requires whole-boundary flux or a whole-face "

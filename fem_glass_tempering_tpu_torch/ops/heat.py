@@ -70,6 +70,7 @@ class HeatOperator:
         # boundary default degree 5p: the T^4 radiation integrand
         bq = quad_degree if quad_degree is not None else 5 * fs.degree
         bg = build_boundary_geometry(mesh, fs, bq, with_grad=False)
+        self._boundary = (bq, bg)
         # optional selective flux boundary: marker(midpoints) -> bool mask
         if flux_marker is not None and len(bg.cell):
             mids = bg.qpoints_phys.mean(axis=1)
@@ -158,6 +159,18 @@ class HeatOperator:
         self._const_diag = self._build_constant_diag()
 
     # ------------------------------------------------------------------
+    def take_boundary_geometry(self, quad_degree: int):
+        """The whole boundary's facet tables at `quad_degree`, without the
+        basis gradients. The ones this operator was built from are handed
+        over once (GridHeatOperator reads them at setup: building them again
+        took a third of the CG-1 plate's setup) and then released; any
+        other call builds them anew."""
+        held, self._boundary = self._boundary, None
+        if held is not None and held[0] == quad_degree:
+            return held[1]
+        return build_boundary_geometry(self.fs.mesh, self.fs, quad_degree,
+                                       with_grad=False)
+
     def ensure_interior_tables(self) -> None:
         """Copy the interior-facet tables to the device from the retained
         numpy sources (idempotent; a no-op for a CG space)."""

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no file of the port package, and neither
-chip_smoke.py nor chip_ab.py, imports JAX or the JAX package; and its entry
+chip_smoke.py nor chip_ab.py, imports JAX or the JAX package or loads the
+JAX package's native library (csrc/libfgtruntime.so); and its entry
 points never quietly run on the CPU when the GPU they default to is
 missing."""
 
@@ -21,7 +22,9 @@ def _port_files():
     assert len(files) > 20 and all(f.exists() for f in files)
     names = {str(f.relative_to(PORT)) for f in files[:-len(scripts)]}
     assert {"ops/cuda_dg_cell.py", "ops/spmv.py", "solver/amg.py",
-            "io/checkpoint.py"} <= names
+            "io/checkpoint.py", "main.py", "io/vtu.py", "io/xdmf.py",
+            "fem/mshio.py", "models/analysis.py", "utils/logging.py",
+            "utils/profiling.py"} <= names
     return files
 
 
@@ -46,6 +49,12 @@ def test_no_jax_import(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_native_library(path):
+    assert "libfgtruntime" not in path.read_text(), path.name
 
 
 def test_kernel_library_lists_every_cuda_source():

@@ -170,11 +170,21 @@ def test_later_slices_raise(change, refusal):
 @pytest.mark.parametrize("change,match", [
     (dict(solver=tc.SolverConfig(mg_table_dtype="bfloat16",
                                  preconditioner="mg")), "Slice 1 deferrals"),
-    (dict(output=tc.OutputConfig(formats=("vtu",))), "Slice 6"),
-])
-def test_later_slices_raise_at_setup(change, match):
+    (dict(output=tc.OutputConfig(formats=("vtu",))), None),
+], ids=["change0-Slice 1 deferrals", "change1-Slice 6"])
+def test_later_slices_raise_at_setup(change, match, tmp_path):
+    """bf16 table streaming still waits; the VTU output, which waited for
+    Slice 6, now sets up its writer (its files:
+    tests/test_torch_output.py)."""
+    from fem_glass_tempering_tpu_torch.io.vtu import VTUSeriesWriter
     cfg = dataclasses.replace(_cfg(tc), **change)
+    cfg = dataclasses.replace(cfg, output=dataclasses.replace(
+        cfg.output, output_dir=str(tmp_path)))
     pt = TP(mesh=tbox(2, 2, 1, 1.0, 1.0, 0.01), config=cfg, device="cpu")
+    if match is None:
+        pt.setup()
+        assert [type(w) for w in pt._writers] == [VTUSeriesWriter]
+        return
     with pytest.raises(NotImplementedError, match=match):
         pt.setup()
 
