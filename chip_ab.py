@@ -31,6 +31,10 @@ heat operator.
 chunk phase 11 is held to) and phase 11 (the command-line entry point);
 `phase10` runs phase 2's degree-2 K3 checks and phase 10 (the degree-2
 parity cases, the CG-2 gather plate, the mixed CG-2 plate) alone.
+`phase12` runs phase 12 alone (12a the 1M-dof mixed plate with bf16
+V-cycle tables and its "same" arm, with K2's bf16-table instantiation
+checked and timed; 12b-12e: bf16 parity, the custom-PDE API,
+solve_scan, the native runtime), with each part's seconds.
 `kernels` times K1 (material_tspace, n = 1,062,761, f32 and f64) and K3
 (dg_cell_residual, 65,536 hex cells, f64, uniform and per-cell tables; the
 direct call, and the prepared call where the tree has one) as chip_smoke's
@@ -209,7 +213,7 @@ def main() -> int:
     ap.add_argument("tree", help="root of the checkout to measure")
     ap.add_argument("what", choices=("kernels", "phase5", "phase6",
                                      "phase8b", "phase9", "phase10",
-                                     "phase11", "dgparity"))
+                                     "phase11", "phase12", "dgparity"))
     ap.add_argument("--source-flags", default="", metavar="SRC:FLAG[,FLAG]",
                     help="replace one source's nvcc flags (empty FLAG: none)")
     ap.add_argument("--plain-cell-term", action="store_true",
@@ -282,6 +286,21 @@ def main() -> int:
         t0 = time.perf_counter()
         res = cs.cli_phase(dev, port, warmup, per_apply, scratch)
         res["phase11_s"] = time.perf_counter() - t0
+    elif args.what == "phase12":
+        scratch = os.path.join(root, "build", "chip_smoke")
+        os.makedirs(scratch, exist_ok=True)
+        res, seconds = {}, {}
+        for part, run in (
+                ("bf16_plate", lambda: cs.bf16_plate_phase(dev, port)),
+                ("bf16_parity", lambda: cs.bf16_parity_phase(dev, port)),
+                ("forms", lambda: cs.forms_phase(dev, port)),
+                ("solve_scan", lambda: cs.solve_scan_phase(dev, port)),
+                ("native", lambda: cs.native_phase(dev, scratch))):
+            cs.drop_garbage(part)
+            t0 = time.perf_counter()
+            res[part] = run()
+            seconds[part] = time.perf_counter() - t0
+        res["seconds"] = seconds
     elif args.what == "phase8b":
         full = cs.mechanics_plate_phase(dev, port)
         res = {k: full[k] for k in (

@@ -104,13 +104,36 @@ Phases (each raises on failure; the exit code is then nonzero):
      (create_mesh, --mesh) with (b)'s counts, and the 64x64x16 plate
      through --write-mesh read back equal to the built mesh, with the
      write and read seconds. XDMF is not run (the card's machine has no
-     h5py).
+     h5py);
+ 12. bf16 V-cycle tables, the custom-PDE API, solve_scan and the native
+     runtime: (a) the 1,062,761-dof CG-1 plate in mixed precision (f64
+     Newton at rtol 1e-12 over the f32 CG and the f32 GeometricMG twin,
+     Chebyshev) with mg_table_dtype="bfloat16", 1 warm-up step and 3
+     timed steps, then the same problem with the hierarchy's table dtype
+     set to None ("same": f32 tables), 1 + 3 steps, then same and bf16
+     once more (ms per step compared in turns): ms per step, counts,
+     setup, peak memory, K2 launches per table dtype exact, T of the two
+     arms within max-rel 1e-10, CG at most 2x; before that K2's bf16-table
+     instantiation (f32 and f64 vector) bit-equal to its plain twin on
+     every smoothed level's real tables and timed on the fine level's
+     against its byte bound; (b) the 8x8x4 plate with those settings and
+     a two-level V-cycle, 2 steps, GPU against CPU (Newton equal, CG
+     within 1%, T 1e-9); (c) the tempering heat step as a
+     ScalarResidualForm on a 256x256 CG-1 square, the reaction-diffusion
+     MMS through the form layer, newton_direct on the validation slab,
+     each GPU against CPU; (d) solve_scan on the default slab, 20 steps
+     in chunks of 5, equal bit for bit to solve()'s snapshots, counts and
+     K1 / K3 launches equal; (e) the 1,024,000-hex plate: native facets
+     equal to the numpy builder's, and its --write-mesh file read back
+     through the native parser equal to the built mesh, with the seconds.
 Phase 2 also holds K3 at every degree-2 cell shape (nloc 3, 6, 9, 10, 27)
 on the port's HeatOperator tables, f64 and f32, and times nloc 27 (uniform
 f32, 65,536 cells) and nloc 10 (per-cell f64, 67,584 tetrahedra).
-Every main path (4, 5, 6, 7b f64, 7b mixed, 8b, 9b, 10b, 10c, 11a, 11b)
-runs with the launch counters set to 0 just before it and read just
-after. A line "phase N ends at S s" follows each phase, 11 included
+Every main path (4, 5, 6, 7b f64, 7b mixed, 8b, 9b, 10b, 10c, 11a, 11b,
+12a's two arms, 12b, 12d's two runs) runs with the launch counters set to
+0 just before it and read just after; K2 also counts its launches per
+table dtype (an instantiation each). A line "phase N ends at S s" follows
+each phase, 12 included
 (seconds since the kernel build began). Then one
 JSON line per kernel, one {"kernels": [...]} line, the card's name and power limit,
 and last {"ok": true, "device": {...}}.
@@ -208,10 +231,18 @@ def k3_values_per_cell(nloc: int, q: int, g: int, uniform: bool,
 def reset_counts(port) -> None:
     for name in KERNELS:
         port[name].launches = 0
+    by_table = port["stencil_matvec"].launches_by_table
+    for k in by_table:
+        by_table[k] = 0
 
 
 def read_counts(port) -> dict:
     return {name: port[name].launches for name in KERNELS}
+
+
+def read_k2_by_table(port) -> dict:
+    """K2's launches per instantiation (its table dtype)."""
+    return dict(port["stencil_matvec"].launches_by_table)
 
 
 def log(msg: str) -> None:
@@ -2774,6 +2805,468 @@ def cli_phase(dev, port, warmup, k2_per_apply, scratch_dir) -> dict:
     return dict(plate=plate, default=default, gmsh=gmsh)
 
 
+# ----------------------------------------------------------------------
+# Phase 12: bf16 V-cycle tables, the custom-PDE API, solve_scan and the
+# native runtime
+# ----------------------------------------------------------------------
+BF16_TIMED_STEPS = 3
+BF16_PARITY_STEPS = 2
+SCAN_STEPS, SCAN_EVERY = 20, 5
+# 65,536 quads, 66,049 CG-1 dofs on a square as wide as the reference
+# slab is thick (50 length units)
+FORMS_SQUARE, FORMS_SIDE = 256, 50.0
+# 12e's mesh; if phase 12 runs over its budget, the 64x64x16 round trip
+N_NATIVE = N_FULL                # 1,024,000 hex cells
+
+
+def bf16_plate_config(tc, steps, table_dtype, **solver):
+    """examples/profile_mixed_ablate.py:62-71 of the JAX package, its
+    `bf16tbl` variant: f64 Newton at rtol 1e-12 over an f32 CG and the
+    f32 GeometricMG twin (Chebyshev), the stencil operator, bf16 V-cycle
+    tables; the material chain runs (the example stubs it)."""
+    kw = dict(newton_rtol=1e-12, newton_atol=1e-10, cg_rtol=1e-12,
+              cg_max_it=2000, linear_operator="stencil", preconditioner="mg",
+              mg_smoother="chebyshev", cg_dtype="float32",
+              mg_table_dtype=table_dtype)
+    kw.update(solver)
+    return tc.RunConfig(
+        fe=tc.FEConfig(T_family="CG", T_degree=1),
+        time=tc.TimeConfig(0.0, steps * 0.1, 0.1),
+        solver=tc.SolverConfig(**kw),
+        output=tc.OutputConfig(write_every=0, formats=()), dtype="float64")
+
+
+def k2_bf16_check(port, vals2, grid, dev) -> dict:
+    """K2's bf16-table instantiation on real f32 value tables `vals2`
+    (cast to bf16), under an f32 and an f64 vector: equal to its plain
+    twin bit for bit, timed against its byte bound and against the CSR
+    yardstick on the same (bf16-rounded) values in the vector's dtype."""
+    k, ref = port["stencil_matvec"], port["stencil_matvec_reference"]
+    vb = vals2.to(torch.bfloat16).contiguous()
+    n = vals2.shape[1] * vals2.shape[2]
+    rng = np.random.default_rng(12)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        x = torch.tensor(rng.standard_normal(n), dtype=dtype, device=dev)
+        y, y_ref = k(vb, x, grid), ref(vb, x, grid)
+        torch.cuda.synchronize()
+        if y.dtype != dtype or not torch.equal(y, y_ref):
+            fail(f"stencil_matvec bf16 tables, {dtype} vector: max |diff| "
+                 f"{float((y - y_ref).abs().max()):.3e}")
+        size = torch.finfo(dtype).bits // 8
+        b, by = bound_ms(27 * 2 * n + 2 * size * n, K2_OPS_PER_POINT * n,
+                         dtype)
+        e = dict(vector=str(dtype).split(".")[-1], n=n, max_abs_err=0.0,
+                 ms=time_ms(lambda: k(vb, x, grid)),
+                 device_ms=device_ms(lambda: k(vb, x, grid)),
+                 device_cold_ms=device_cold_ms(lambda: k(vb, x, grid)),
+                 plain_ms=time_ms(lambda: ref(vb, x, grid), reps=10),
+                 bound_ms=b, bound_by=by, library_ms=None)
+        # the CSR yardstick holds the same bf16-exact values in the
+        # vector's dtype; it sums in another order
+        e["library_ms"], y_lib = csr_library_ms(vb.to(dtype), x, grid)
+        mag = ref(vb.abs(), x.abs(), grid)
+        rtol = 1e-5 if dtype == torch.float32 else 1e-12
+        if bool(((y - y_lib).abs() > rtol * mag).any()):
+            fail(f"the CSR yardstick disagrees with K2 on bf16 tables, "
+                 f"{dtype} vector")
+        del y_lib, mag
+        out[e["vector"]] = e
+        log("K2 bf16 tables " + json.dumps(e))
+    return out
+
+
+def bf16_plate_run(prob, port, dev, steps) -> tuple[dict, object]:
+    """1 warm-up step, then `steps` timed steps from a fresh state with
+    the launch counters set to 0 just before them and read just after."""
+    st, ok, ni0, ki0 = prob.multi_step(prob.state, 1)
+    torch.cuda.synchronize()
+    if not ok:
+        fail("bf16 plate: warm-up step did not converge")
+    del st
+    state0 = prob.engine.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(port)
+    t0 = time.perf_counter()
+    st, ok, ni, ki = prob.multi_step(state0, steps)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches, by_table = read_counts(port), read_k2_by_table(port)
+    if not ok or not bool(torch.isfinite(st.T).all()):
+        fail("bf16 plate: timed window did not converge")
+    return dict(ms_per_step=elapsed / steps * 1e3, newton=ni, cg=ki,
+                newton_per_step=ni / steps, cg_per_step=ki / steps,
+                warmup_newton=ni0, warmup_cg=ki0, launches=launches,
+                k2_by_table=by_table,
+                max_memory_allocated_bytes=torch.cuda.max_memory_allocated(
+                    dev)), st
+
+
+def bf16_plate_phase(dev, port) -> dict:
+    """12a: the 1,062,761-dof CG-1 plate in mixed precision with bf16
+    V-cycle tables, then on the same problem with the hierarchy's table
+    dtype set to None (the "same" arm, f32 tables); K2 bf16 on every
+    smoothed level's real tables, and timed on the fine level's."""
+    from fem_glass_tempering_tpu_torch import config as tc
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+    from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
+    from fem_glass_tempering_tpu_torch.solver.multigrid import GeometricMG
+
+    tag = "bf16 plate"
+    steps = BF16_TIMED_STEPS
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    mesh = box_mesh_3d(*N_FULL, 1.0, 1.0, 0.01)
+    prob = ThermoViscoProblem(mesh=mesh, config=bf16_plate_config(
+        tc, steps, "bfloat16"), device=dev)
+    prob.setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    mg = prob._mg32
+    if (not isinstance(mg, GeometricMG) or prob._mg is not None
+            or mg.table_dtype != torch.bfloat16 or mesh.facet_builder
+            != "native"):
+        fail(f"{tag}: not the f32 GeometricMG twin with bf16 tables on a "
+             f"mesh whose facets the native runtime built "
+             f"({mesh.facet_builder})")
+    # K2 bf16 on every smoothed level's real tables; timed on the fine one
+    levels = []
+    T_levels = mg.linearization_states(prob.state.T.to(torch.float32))
+    for i, (lvl, T) in enumerate(zip(mg.levels, T_levels)):
+        if lvl.coarse_dims is None:
+            continue
+        g = mg._grid_for(lvl)
+        vals2 = g.stencil_values(T, prob.dt).reshape(27, g.grid[0], -1)
+        if i == 0:
+            timed = k2_bf16_check(port, vals2, g.grid, dev)
+        else:
+            x = torch.tensor(np.random.default_rng(i).standard_normal(g.n),
+                             dtype=torch.float32, device=dev)
+            vb = vals2.to(torch.bfloat16)
+            if not torch.equal(port["stencil_matvec"](vb, x, g.grid),
+                               port["stencil_matvec_reference"](vb, x,
+                                                                g.grid)):
+                fail(f"{tag}: K2 bf16 differs from its twin on level {i}")
+        levels.append(g.grid)
+        del vals2
+    log(f"{tag}: K2 bf16 bit-equal on the smoothed levels {levels}")
+    per_vcycle = k2_launches_per_vcycle(mg)
+    # the two arms in turns, bf16 / same / same / bf16: ms per step is
+    # compared within the pairs; T and the counts from the first pair
+    windows = []
+    for arm, tdt in (("bfloat16", torch.bfloat16), ("same", None),
+                     ("same", None), ("bfloat16", torch.bfloat16)):
+        mg.table_dtype = tdt        # read by the next operator build
+        res, st = bf16_plate_run(prob, port, dev, steps)
+        applies = res["newton"] + res["cg"]
+        bt = res["k2_by_table"]
+        # the V-cycle's grid levels stream the arm's tables; the system
+        # matvec (f32 tables) runs once per apply, plus the f32 CG's
+        # true-residual replacements (one every 50 iterations)
+        vcycle = per_vcycle * applies
+        if tdt is not None:
+            streamed, system = bt["bfloat16"], bt["float32"]
+        else:
+            streamed, system = vcycle, bt["float32"] - vcycle
+        if (res["launches"]["material_tspace"] != steps
+                or res["launches"]["dg_cell_residual"] != 0
+                or bt["float64"] != 0
+                or (tdt is None and bt["bfloat16"] != 0)
+                or streamed != vcycle
+                or not applies <= system <= applies + res["cg"] // 50
+                or res["launches"]["stencil_matvec"] != sum(bt.values())):
+            fail(f"{tag} {arm}: launches {res['launches']} by table {bt} "
+                 f"for {res['newton']} Newton + {res['cg']} CG "
+                 f"({per_vcycle} per V-cycle)")
+        res["k2_system_matvec_launches"] = system
+        res["k2_vcycle_launches"] = streamed
+        windows.append((arm, res, st.T.cpu()))
+        del st
+        log(f"{tag} {arm} " + json.dumps(res))
+    (_, rb, Tb), (_, rs, Ts) = windows[0], windows[1]
+    out = dict(dofs=prob.fs_T.n_scalar_dofs, setup_s=setup_s,
+               setup_parts_s=prob.setup_seconds, mg_levels=[
+                   lv.fine_dims for lv in mg.levels],
+               k2_launches_per_vcycle=per_vcycle, bf16=rb, same=rs,
+               ms_per_step_in_turns=[(a, r["ms_per_step"])
+                                     for a, r, _ in windows],
+               T_max_rel_bf16_vs_same=float((Tb - Ts).abs().max()
+                                            / Ts.abs().max()),
+               repeat_T_equal=bool(torch.equal(Tb, windows[3][2])
+                                   and torch.equal(Ts, windows[2][2])),
+               k2_bf16_timed=timed)
+    if not out["T_max_rel_bf16_vs_same"] <= 1e-10:
+        fail(f"{tag}: T of the bf16 arm differs from the same arm's by "
+             f"max-rel {out['T_max_rel_bf16_vs_same']:.3e}")
+    if not rb["cg"] <= 2 * rs["cg"]:
+        fail(f"{tag}: CG {rb['cg']} with bf16 tables against {rs['cg']}")
+    log(tag + " " + json.dumps({k: v for k, v in out.items()
+                                if k not in ("bf16", "same")}))
+    return out
+
+
+def bf16_parity_phase(dev, port) -> dict:
+    """12b: the 8x8x4 plate with 12a's settings and a two-level V-cycle
+    (the 8x8x4 level smoothed with its bf16 tables, the dense solve
+    below; "auto" would make the single level the dense solve, which
+    streams no table), 2 steps, the GPU against the CPU: Newton equal,
+    CG within 1%, T max-rel 1e-9."""
+    from fem_glass_tempering_tpu_torch import config as tc
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+    from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
+
+    tag = "bf16 parity"
+    steps = BF16_PARITY_STEPS
+    res = {}
+    for where in ("cpu", dev):
+        p = ThermoViscoProblem(
+            mesh=box_mesh_3d(8, 8, 4, 1.0, 1.0, 0.01),
+            config=bf16_plate_config(tc, steps, "bfloat16",
+                                     mg_coarse="dense", mg_max_levels=2),
+            device=where)
+        p.setup()
+        if where == dev:
+            torch.cuda.synchronize()
+            reset_counts(port)
+        st, ok, ni, ki = p.multi_step(p.state, steps)
+        if not ok:
+            fail(f"{tag}: did not converge on {where}")
+        res[str(where)] = (st.T.cpu().numpy(), ni, ki)
+        if where == dev:
+            torch.cuda.synchronize()
+            by_table = read_k2_by_table(port)
+    (Tc, nc, kc), (Tg, ng, kg) = res["cpu"], res[str(dev)]
+    out = dict(newton_cpu=nc, newton_gpu=ng, cg_cpu=kc, cg_gpu=kg,
+               T_max_rel=float(np.abs(Tg - Tc).max() / np.abs(Tc).max()),
+               k2_by_table_gpu=by_table)
+    if (nc != ng or abs(kc - kg) > 0.01 * kc or not out["T_max_rel"] <= 1e-9
+            or by_table["bfloat16"] == 0):
+        fail(f"{tag}: {json.dumps(out)}")
+    log(tag + " " + json.dumps(out))
+    return out
+
+
+def forms_phase(dev, port) -> dict:
+    """12c: the custom-PDE API on the card against the CPU: the tempering
+    heat step as a ScalarResidualForm on the FORMS_SQUARE CG-1 square of
+    side FORMS_SIDE through newton_solve (unpreconditioned CG); the nonlinear reaction-diffusion MMS
+    -u'' + u^3 = f; newton_direct on the 1D validation slab (DG-1)."""
+    from fem_glass_tempering_tpu_torch.config import ModelParams
+    from fem_glass_tempering_tpu_torch.fem.functionspace import FunctionSpace
+    from fem_glass_tempering_tpu_torch.fem.mesh import (
+        box_mesh_2d,
+        interval_mesh,
+        reference_glass_mesh_1d,
+    )
+    from fem_glass_tempering_tpu_torch.ops.forms import ScalarResidualForm
+    from fem_glass_tempering_tpu_torch.ops.heat import HeatOperator
+    from fem_glass_tempering_tpu_torch.solver.direct import newton_direct
+    from fem_glass_tempering_tpu_torch.solver.newton import newton_solve
+
+    p, dt = ModelParams(), 0.1
+    out = {}
+    # (1) the tempering heat residual as a form, one implicit step
+    fs = FunctionSpace(box_mesh_2d(FORMS_SQUARE, FORMS_SQUARE, FORMS_SIDE,
+                                   FORMS_SIDE), "CG", 1)
+    x = fs.dof_coords / FORMS_SIDE
+    T_prev_np = p.T_0 - 50.0 * np.sin(np.pi * x[:, 0]) * np.sin(
+        np.pi * x[:, 1])
+    heat = {}
+    for where in ("cpu", dev):
+        form = ScalarResidualForm(
+            fs, cell_source=lambda u, gu, xq, Tp=None: u - Tp - dt * p.f,
+            cell_flux=lambda u, gu, xq, Tp=None: dt * p.alpha * gu,
+            boundary_flux=lambda u, xq, n, Tp=None: dt * p.boundary_scale * (
+                p.sigma * p.epsilon * (u**4 - p.T_ambient**4)
+                + p.htc * (u - p.T_ambient)),
+            quad_degree=5, device=where)
+        T_prev = torch.tensor(T_prev_np, device=form.device)
+        Tp_q = T_prev[form.dofmap] @ form.phi.T
+        t0 = time.perf_counter()
+        res = newton_solve(lambda T: form.residual(T, Tp=Tp_q), T_prev,
+                           rtol=1e-10, atol=1e-9, cg_rtol=1e-10,
+                           cg_max_it=4000)
+        if where == dev:
+            torch.cuda.synchronize()
+        if not res.converged:
+            fail(f"forms heat step did not converge on {where}")
+        heat[str(where)] = (res.x.cpu().numpy(), res.iters, res.krylov_iters,
+                            time.perf_counter() - t0)
+    (xc, nc, kc, tc_), (xg, ng, kg, tg) = heat["cpu"], heat[str(dev)]
+    out["heat_step"] = dict(dofs=fs.n_scalar_dofs, newton_cpu=nc,
+                            newton_gpu=ng, cg_cpu=kc, cg_gpu=kg,
+                            seconds_cpu=tc_, seconds_gpu=tg,
+                            T_max_rel=float(np.abs(xg - xc).max()
+                                            / np.abs(xc).max()),
+                            T_drop_max=float((T_prev_np - xc).max()))
+    if nc != ng or not out["heat_step"]["T_max_rel"] <= 1e-9:
+        fail(f"forms heat step: {json.dumps(out['heat_step'])}")
+    # (2) -u'' + u^3 = f, u = sin(pi x), CG-2 on 64 cells, Dirichlet
+    fs = FunctionSpace(interval_mesh(64), "CG", 2)
+    xx = fs.dof_coords[:, 0]
+    mms = {}
+    for where in ("cpu", dev):
+        form = ScalarResidualForm(
+            fs, cell_source=lambda u, gu, xq: u**3 - (
+                np.pi**2 * torch.sin(np.pi * xq[..., 0])
+                + torch.sin(np.pi * xq[..., 0])**3),
+            cell_flux=lambda u, gu, xq: gu,
+            bc_dofs=fs.boundary_scalar_dofs(), bc_values=0.0,
+            quad_degree=8, device=where)
+        res = newton_solve(form.residual, torch.zeros(
+            fs.n_scalar_dofs, dtype=torch.float64, device=form.device),
+            rtol=1e-12, cg_rtol=1e-13, cg_max_it=2000)
+        if not res.converged:
+            fail(f"forms MMS did not converge on {where}")
+        mms[str(where)] = (float(np.abs(res.x.cpu().numpy()
+                                        - np.sin(np.pi * xx)).max()),
+                           res.iters)
+    out["mms"] = dict(err_cpu=mms["cpu"][0], err_gpu=mms[str(dev)][0],
+                      newton_cpu=mms["cpu"][1], newton_gpu=mms[str(dev)][1])
+    if (mms["cpu"][1] != mms[str(dev)][1] or not mms[str(dev)][0] < 2e-5
+            or abs(mms["cpu"][0] - mms[str(dev)][0])
+            > 1e-6 * mms["cpu"][0]):
+        fail(f"forms MMS: {json.dumps(out['mms'])}")
+    # (3) dense Newton on the validation slab
+    fs = FunctionSpace(reference_glass_mesh_1d(), "DG", 1)
+    direct = {}
+    for where in ("cpu", dev):
+        op = HeatOperator(fs, p, dt=dt, device=where)
+        T_prev = torch.full((fs.n_scalar_dofs,), p.T_0, dtype=torch.float64,
+                            device=op.device)
+        if where == dev:
+            torch.cuda.synchronize()
+            reset_counts(port)
+        xd, it, conv = newton_direct(lambda T: op.residual(T, T_prev),
+                                     T_prev)
+        if not conv:
+            fail(f"newton_direct did not converge on {where}")
+        direct[str(where)] = (xd.cpu().numpy(), it)
+        if where == dev:
+            torch.cuda.synchronize()
+            k3 = read_counts(port)["dg_cell_residual"]
+    (xc, ic), (xg, ig) = direct["cpu"], direct[str(dev)]
+    out["direct"] = dict(dofs=fs.n_scalar_dofs, iters_cpu=ic, iters_gpu=ig,
+                         T_max_rel=float(np.abs(xg - xc).max()
+                                         / np.abs(xc).max()),
+                         k3_launches_gpu=k3)
+    if ic != ig or not out["direct"]["T_max_rel"] <= 1e-9 or k3 == 0:
+        fail(f"newton_direct: {json.dumps(out['direct'])}")
+    log("forms " + json.dumps(out))
+    return out
+
+
+def solve_scan_phase(dev, port) -> dict:
+    """12d: solve_scan on the default slab, SCAN_STEPS steps in chunks of
+    SCAN_EVERY, against solve() with an on_snapshot hook on the card: the
+    stacks equal the snapshots bit for bit, the counts and the K1 / K3
+    launches equal."""
+    from fem_glass_tempering_tpu_torch import config as tc
+    from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
+
+    cfg = tc.RunConfig(time=tc.TimeConfig(0.0, SCAN_STEPS * 0.1, 0.1),
+                       output=tc.OutputConfig(write_every=SCAN_EVERY,
+                                              formats=()))
+    runs = {}
+    for how in ("solve", "solve_scan"):
+        prob = ThermoViscoProblem(config=cfg, device=dev)
+        prob.setup()
+        torch.cuda.synchronize()
+        reset_counts(port)
+        t0 = time.perf_counter()
+        if how == "solve":
+            snaps = []
+            prob.solve(on_snapshot=lambda t, s: snaps.append(s))
+            res = {"times": torch.stack([s.t for s in snaps])}
+            for f in ("T", "Tf", "sigma"):
+                res[f] = torch.stack([getattr(s, f) for s in snaps])
+        else:
+            _, res = prob.solve_scan()
+        torch.cuda.synchronize()
+        runs[how] = (res, prob.diagnostics.newton_iters,
+                     prob.diagnostics.krylov_iters, read_counts(port),
+                     time.perf_counter() - t0)
+    (ra, na, ka, la, ta), (rb, nb, kb, lb, tb) = (runs["solve"],
+                                                  runs["solve_scan"])
+    out = dict(steps=SCAN_STEPS, write_every=SCAN_EVERY,
+               snapshots=int(rb["times"].shape[0]), newton=nb, cg=kb,
+               launches_solve=la, launches_solve_scan=lb, seconds_solve=ta,
+               seconds_solve_scan=tb,
+               stacks_equal={f: bool(torch.equal(ra[f], rb[f]))
+                             for f in ("times", "T", "Tf", "sigma")})
+    if (not all(out["stacks_equal"].values()) or (na, ka) != (nb, kb)
+            or out["snapshots"] != SCAN_STEPS // SCAN_EVERY
+            or la["material_tspace"] != lb["material_tspace"]
+            or la["dg_cell_residual"] != lb["dg_cell_residual"]
+            or lb["material_tspace"] != SCAN_STEPS
+            or lb["dg_cell_residual"] == 0):
+        fail(f"solve_scan: {json.dumps(out)}")
+    log("solve_scan " + json.dumps(out))
+    return out
+
+
+def native_phase(dev, scratch_dir) -> dict:
+    """12e: the native runtime on the N_NATIVE plate: its facets equal the
+    numpy builder's bit for bit; the plate written by --write-mesh and
+    read back by read_msh through the native parser equals the built
+    mesh."""
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d, read_msh
+    from fem_glass_tempering_tpu_torch.utils import native
+
+    tag = "native runtime"
+    if not native.native_available():
+        fail(f"{tag}: the library is unavailable: {native.native_error()}")
+    t0 = time.perf_counter()
+    m = box_mesh_3d(*N_NATIVE, 1.0, 1.0, 0.01)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nat = native.native_build_facets(m.cells, m.ref_cell)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = m._build_facets_numpy()
+    numpy_s = time.perf_counter() - t0
+    fields = ("boundary_cell", "boundary_local_facet", "interior_cell_p",
+              "interior_local_facet_p", "interior_cell_m",
+              "interior_local_facet_m")
+    if m.facet_builder != "native" or not all(
+            a.dtype == b.dtype and np.array_equal(a, b)
+            for a, b in zip(nat, ref)):
+        fail(f"{tag}: native facets differ from the numpy builder's "
+             f"({m.facet_builder})")
+    work = tempfile.mkdtemp(prefix="native_", dir=scratch_dir)
+    try:
+        path = os.path.join(work, "plate.msh")
+        t0 = time.perf_counter()
+        run_cli(["--device", str(dev), "--problem-dim", "3",
+                 "--nx", str(N_NATIVE[0]), "--ny", str(N_NATIVE[1]),
+                 "--nz", str(N_NATIVE[2]), "--write-mesh", path])
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        r = read_msh(path)
+        read_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    same = (r.msh_reader == "native" and r.facet_builder == "native"
+            and r.cell_type == m.cell_type
+            and np.array_equal(r.nodes, m.nodes)
+            and np.array_equal(r.cells, m.cells)
+            and all(np.array_equal(getattr(r, f), getattr(m, f))
+                    for f in fields))
+    out = dict(cells=m.n_cells, nodes=m.n_nodes,
+               boundary_facets=m.n_boundary_facets,
+               interior_facets=m.n_interior_facets, mesh_build_s=build_s,
+               native_facets_s=native_s, numpy_facets_s=numpy_s,
+               cli_write_mesh_s=write_s, msh_bytes=size,
+               native_read_msh_s=read_s, read_equals_built=same)
+    if not same:
+        fail(f"{tag}: the plate read back differs: {json.dumps(out)}")
+    log(tag + " " + json.dumps(out))
+    return out
+
+
+
 def profile(prob, dev, out_dir) -> None:
     """torch.profiler over 5 full-size steps: kernel time by name and the
     device's busy share of the window."""
@@ -2981,6 +3474,18 @@ def main() -> int:
                     scratch_dir)
     phase_end("11")
 
+    # ---- phase 12: bf16 tables, forms, solve_scan, the native runtime ----
+    drop_garbage("phase 12a")
+    bf16 = bf16_plate_phase(dev, port)
+    phase_end("12a")
+    drop_garbage("phase 12b")
+    bf16_parity = bf16_parity_phase(dev, port)
+    forms = forms_phase(dev, port)
+    scan = solve_scan_phase(dev, port)
+    phase_end("12d")
+    native_rt = native_phase(dev, scratch_dir)
+    phase_end("12")
+
     k1_32 = k1["float32"]
     sigma_ms = full["material_step_ms"] - k1_32["ms"]
     log(f"material step {full['material_step_ms']:.4f} ms, of which K1 "
@@ -3004,6 +3509,9 @@ def main() -> int:
              launches_cg2_mixed_plate=mixed["launches"]["material_tspace"],
              launches_cli_plate=cli["plate"]["launches"]["material_tspace"],
              launches_cli_default_run=cli["default"]["launches"][
+                 "material_tspace"],
+             launches_bf16_plate=bf16["bf16"]["launches"]["material_tspace"],
+             launches_solve_scan=scan["launches_solve_scan"][
                  "material_tspace"]),
         dict(name="stencil_matvec", route="cuda",
              source="fem_glass_tempering_tpu_torch/csrc/stencil_matvec.cu",
@@ -3021,7 +3529,28 @@ def main() -> int:
              launches_cg2_gather_plate=gather["launches"]["stencil_matvec"],
              launches_cg2_mixed_plate=mixed["launches"]["stencil_matvec"],
              launches_cli_plate=cli["plate"]["launches"]["stencil_matvec"],
+             launches_bf16_plate_same_arm=bf16["same"]["launches"][
+                 "stencil_matvec"],
              cg2_coarse_levels=cg2["k2_levels"]),
+        # the bf16-table instantiation of K2 (f32 vector: the mixed
+        # V-cycle's), timed on the fine level's tables of the 1M-dof plate
+        dict(name="stencil_matvec_bf16_tables", route="cuda",
+             source="fem_glass_tempering_tpu_torch/csrc/stencil_matvec.cu",
+             replaces="fem_glass_tempering_tpu/ops/pallas_stencil.py:54",
+             launches=bf16["bf16"]["k2_by_table"]["bfloat16"],
+             max_abs_err=bf16["k2_bf16_timed"]["float32"]["max_abs_err"],
+             ms=bf16["k2_bf16_timed"]["float32"]["ms"],
+             plain_ms=bf16["k2_bf16_timed"]["float32"]["plain_ms"],
+             bound_ms=bf16["k2_bf16_timed"]["float32"]["bound_ms"],
+             bound_by=bf16["k2_bf16_timed"]["float32"]["bound_by"],
+             library_ms=bf16["k2_bf16_timed"]["float32"]["library_ms"],
+             device_ms=bf16["k2_bf16_timed"]["float32"]["device_ms"],
+             device_cold_ms=bf16["k2_bf16_timed"]["float32"][
+                 "device_cold_ms"],
+             f64_vector=bf16["k2_bf16_timed"]["float64"],
+             launches_bf16_parity_plate=bf16_parity["k2_by_table_gpu"][
+                 "bfloat16"],
+             vcycle_launches_per_apply=bf16["k2_launches_per_vcycle"]),
         # timed at the DG plate's shape (65,536 hex cells, uniform tables,
         # f64) in the heat operator's prepared call; no single PyTorch call
         # computes this function
@@ -3058,6 +3587,9 @@ def main() -> int:
              launches_cg2_mixed_plate=mixed["launches"]["dg_cell_residual"],
              launches_cli_default_run=cli["default"]["launches"][
                  "dg_cell_residual"],
+             launches_solve_scan=scan["launches_solve_scan"][
+                 "dg_cell_residual"],
+             launches_newton_direct=forms["direct"]["k3_launches_gpu"],
              launches_degree2_parity={
                  label: case["k3_launches_gpu"]
                  for label, case in d2_parity.items()},
@@ -3083,6 +3615,11 @@ def main() -> int:
     log("summary CG-2 gather plate " + json.dumps(gather))
     log("summary CG-2 mixed plate " + json.dumps(mixed))
     log("summary command line " + json.dumps(cli))
+    log("summary bf16 plate " + json.dumps(bf16))
+    log("summary bf16 parity " + json.dumps(bf16_parity))
+    log("summary forms " + json.dumps(forms))
+    log("summary solve_scan " + json.dumps(scan))
+    log("summary native runtime " + json.dumps(native_rt))
     log("summary phase end times, s " + json.dumps(ends))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

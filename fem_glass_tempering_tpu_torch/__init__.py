@@ -7,15 +7,18 @@ against. Layout mirrors it, so each module's counterpart sits at the same
 path:
   - fem/      mesh, element tabulation, function spaces (numpy)
   - ops/      heat operator, stencil and grid operators, elasticity
-              operators, interpolation, grouped scatter-adds, and the
-              hand-written CUDA kernels (cuda_kernels.py, cuda_stencil.py,
-              cuda_dg_cell.py; sources under csrc/)
-  - solver/   Newton, preconditioned CG, geometric multigrid (heat and
-              the vector elasticity V-cycle), SA-AMG
+              operators, generic weak forms (forms.py), interpolation,
+              grouped scatter-adds, and the hand-written CUDA kernels
+              (cuda_kernels.py, cuda_stencil.py, cuda_dg_cell.py; sources
+              under csrc/, beside the native host runtime runtime.cpp)
+  - solver/   Newton, preconditioned CG, dense-LU Newton (direct.py),
+              geometric multigrid (heat and the vector elasticity
+              V-cycle), SA-AMG
   - models/   thermal + viscoelastic physics, equilibrium mechanics, the
               problem driver, the temper analysis
   - io/       npz, VTU and XDMF time series, checkpoints
-  - utils/    logging helpers, phase timers, the torch.profiler trace
+  - utils/    logging helpers, phase timers, the torch.profiler trace,
+              the native runtime's bindings (native.py)
   - main.py   the command line (python -m fem_glass_tempering_tpu_torch.main)
 
 Entry points run on the GPU (`device="cuda"`, the default) and raise when

@@ -22,14 +22,32 @@
 // The 27 products are summed in the plain version's order and, with the
 // library built with -fmad=false, with its roundings, so the two agree
 // bit for bit.
+//
+// Table type. The value tables may stream in bfloat16 under an f32 or f64
+// vector (the multigrid V-cycle's `table_dtype`, JAX
+// ops/grid.py GridHeatOperator._mv_flat with stream_dtype): each value is
+// widened to the vector's type with __bfloat162float, which is exact, and
+// multiplied and summed in that type, as PyTorch's promotion of
+// bf16 * f32 (or f64) does in the plain version, so the two still agree
+// bit for bit. The tables are then 2 of the 4 (f32 vector) or 8 (f64)
+// bytes per value: 27 x 2 + 2 x 4 = 62 bytes per point with an f32
+// vector, against 116 with f32 tables.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-template <typename T, int D>
-__global__ void stencil_matvec_kernel(const T* __restrict__ vals,
+// A table value in the arithmetic's type: exact for every pair taken.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T, typename V, int D>
+__global__ void stencil_matvec_kernel(const V* __restrict__ vals,
                                       const T* __restrict__ x,
                                       T* __restrict__ y, int64_t gx,
                                       int64_t m_cols, int64_t gz) {
@@ -53,7 +71,7 @@ __global__ void stencil_matvec_kernel(const T* __restrict__ vals,
           const int64_t c = m + s;
           const T xv = (row_ok && c >= 0 && c < m_cols) ? x[r * m_cols + c]
                                                         : T(0);
-          acc = acc + vals[(int64_t)o * n + idx] * xv;
+          acc = acc + static_cast<T>(widen(vals[(int64_t)o * n + idx])) * xv;
           ++o;
         }
       }
@@ -62,7 +80,7 @@ __global__ void stencil_matvec_kernel(const T* __restrict__ vals,
   }
 }
 
-template <typename T>
+template <typename T, typename V>
 int launch(int d, const void* vals, const void* x, void* y, int64_t gx,
            int64_t m_cols, int64_t gz, void* stream) {
   const int64_t n = gx * m_cols;
@@ -72,11 +90,11 @@ int launch(int d, const void* vals, const void* x, void* y, int64_t gx,
   if (blocks < 1) blocks = 1;
   cudaStream_t s = (cudaStream_t)stream;
   if (d == 3)
-    stencil_matvec_kernel<T, 3><<<(unsigned)blocks, threads, 0, s>>>(
-        (const T*)vals, (const T*)x, (T*)y, gx, m_cols, gz);
+    stencil_matvec_kernel<T, V, 3><<<(unsigned)blocks, threads, 0, s>>>(
+        (const V*)vals, (const T*)x, (T*)y, gx, m_cols, gz);
   else if (d == 2)
-    stencil_matvec_kernel<T, 2><<<(unsigned)blocks, threads, 0, s>>>(
-        (const T*)vals, (const T*)x, (T*)y, gx, m_cols, gz);
+    stencil_matvec_kernel<T, V, 2><<<(unsigned)blocks, threads, 0, s>>>(
+        (const V*)vals, (const T*)x, (T*)y, gx, m_cols, gz);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -84,15 +102,23 @@ int launch(int d, const void* vals, const void* x, void* y, int64_t gx,
 
 }  // namespace
 
-// dtype_code: 0 = float32, 1 = float64; d = 2 or 3; gz = grid[d-1].
+// dtype_code (x, y and the sums): 0 = float32, 1 = float64; table_code
+// (vals): the same code, or 2 = bfloat16; d = 2 or 3; gz = grid[d-1].
 // Returns cudaGetLastError().
-extern "C" int fgt_stencil_matvec(int dtype_code, int d, const void* vals,
-                                  const void* x, void* y, int64_t gx,
-                                  int64_t m_cols, int64_t gz, void* stream) {
+extern "C" int fgt_stencil_matvec(int dtype_code, int table_code, int d,
+                                  const void* vals, const void* x, void* y,
+                                  int64_t gx, int64_t m_cols, int64_t gz,
+                                  void* stream) {
   if (gx * m_cols <= 0) return 0;
-  if (dtype_code == 0)
-    return launch<float>(d, vals, x, y, gx, m_cols, gz, stream);
-  if (dtype_code == 1)
-    return launch<double>(d, vals, x, y, gx, m_cols, gz, stream);
+  if (dtype_code == 0 && table_code == 0)
+    return launch<float, float>(d, vals, x, y, gx, m_cols, gz, stream);
+  if (dtype_code == 1 && table_code == 1)
+    return launch<double, double>(d, vals, x, y, gx, m_cols, gz, stream);
+  if (dtype_code == 0 && table_code == 2)
+    return launch<float, __nv_bfloat16>(d, vals, x, y, gx, m_cols, gz,
+                                        stream);
+  if (dtype_code == 1 && table_code == 2)
+    return launch<double, __nv_bfloat16>(d, vals, x, y, gx, m_cols, gz,
+                                         stream);
   return (int)cudaErrorInvalidValue;
 }

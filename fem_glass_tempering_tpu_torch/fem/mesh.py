@@ -2,7 +2,8 @@
 
 Meshes are plain numpy arrays at setup time; the operators copy what they
 need onto the device as torch tensors. Connectivity (boundary / interior
-facets) is derived once, fully vectorised: the facet enumeration of a
+facets) is derived once, by the native runtime (utils/native.py) where its
+library builds, else fully vectorised in numpy: the facet enumeration of a
 1M-cell plate is 6M (cell, local facet) pairs, which a per-pair Python
 loop takes minutes over.
 
@@ -10,8 +11,8 @@ Builders:
   - interval_mesh / graded_interval_mesh / reference_glass_mesh_1d: the
     reference's 1D graded glass slab (reference geometry.py:7-14).
   - box_mesh_2d / box_mesh_3d: structured quad/triangle and hex/tet plates.
-  - read_msh: the gmsh 4.1 ASCII reader (pure Python), with the physical
-    groups as cell and facet tags.
+  - read_msh: the gmsh 4.1 ASCII reader (native, with a pure-Python
+    twin), with the physical groups as cell and facet tags.
 """
 
 from __future__ import annotations
@@ -65,6 +66,10 @@ class Mesh:
     boundary_facet_tags: np.ndarray = field(default=None, compare=False)
     interior_facet_tags: np.ndarray = field(default=None, compare=False)
     physical_names: dict = field(default=None, compare=False)
+    # which facet builder ran: "native" (utils/native.py) or "numpy"; and
+    # for a mesh read from gmsh, which parser: "native" or "python"
+    facet_builder: str = field(default=None, compare=False)
+    msh_reader: str = field(default=None, compare=False)
 
     def __post_init__(self):
         self.nodes = np.asarray(self.nodes, dtype=np.float64)
@@ -162,12 +167,34 @@ class Mesh:
         self.boundary_facet_tags = all_tags[:nb]
         self.interior_facet_tags = all_tags[nb:]
 
+    def cell_diameters(self) -> np.ndarray:
+        """Max vertex-to-vertex distance per cell (dolfinx CellDiameter)."""
+        xc = self.cell_vertex_coords()
+        d = np.linalg.norm(xc[:, :, None, :] - xc[:, None, :, :], axis=-1)
+        return d.max(axis=(1, 2))
+
     # ------------------------------------------------------------------
     def _build_facets(self) -> None:
         """Enumerate facets; classify boundary (1 incident cell) vs interior
         (2 incident cells). '+' restriction = lower cell index. Output is
         normalised: boundary sorted by (cell, local_facet), interior by
-        (cell_p, local_facet_p).
+        (cell_p, local_facet_p). The native runtime (utils/native.py)
+        builds them where its library is available, else the numpy twin
+        `_build_facets_numpy`, with equal arrays; `facet_builder` says
+        which ran."""
+        from fem_glass_tempering_tpu_torch.utils.native import (
+            native_build_facets,
+        )
+        res = native_build_facets(self.cells, self.ref_cell)
+        self.facet_builder = "native" if res is not None else "numpy"
+        if res is None:
+            res = self._build_facets_numpy()
+        (self.boundary_cell, self.boundary_local_facet,
+         self.interior_cell_p, self.interior_local_facet_p,
+         self.interior_cell_m, self.interior_local_facet_m) = res
+
+    def _build_facets_numpy(self):
+        """The six facet arrays of `_build_facets`, in numpy.
 
         Every (cell, local facet) pair gets the sorted vertex list of its
         facet as a key; one stable lexicographic sort brings equal keys
@@ -197,12 +224,8 @@ class Mesh:
         srt = np.argsort(first, kind="stable")
         first, second = first[srt], second[srt]
         i32 = lambda a: a.astype(np.int32)
-        self.boundary_cell = i32(b_pair // nlf)
-        self.boundary_local_facet = i32(b_pair % nlf)
-        self.interior_cell_p = i32(first // nlf)
-        self.interior_local_facet_p = i32(first % nlf)
-        self.interior_cell_m = i32(second // nlf)
-        self.interior_local_facet_m = i32(second % nlf)
+        return (i32(b_pair // nlf), i32(b_pair % nlf), i32(first // nlf),
+                i32(first % nlf), i32(second // nlf), i32(second % nlf))
 
 
 # ======================================================================
@@ -339,6 +362,7 @@ def box_mesh_3d(nx: int, ny: int, nz: int, lx: float = 1.0, ly: float = 1.0,
 # gmsh 4.1 ASCII reader
 # ======================================================================
 
+_ETYPE_NAME = {1: "interval", 2: "triangle", 3: "quad", 4: "tet", 5: "hex"}
 # gmsh element type -> (topological dim, n vertices); 15 = point
 _ETYPE_DIM_NV = {15: (0, 1), 1: (1, 2), 2: (2, 3), 3: (2, 4), 4: (3, 4),
                  5: (3, 8)}
@@ -353,8 +377,29 @@ def read_msh(path: str, gdim: int | None = None) -> Mesh:
     live on the Mesh (`cell_tags`, `boundary_facet_tags`,
     `interior_facet_tags`, `physical_names`). `gdim` keeps that many
     coordinates (default: the cells' topological dimension).
+
+    The native parser (utils/native.py `native_parse_msh2`) reads the file
+    where its library is available; this Python reader is its twin, with
+    equal arrays. `msh_reader` on the mesh says which ran.
     """
+    from fem_glass_tempering_tpu_torch.utils.native import native_parse_msh2
+
     names = _read_physical_names(path)
+    nat = native_parse_msh2(path)
+    if nat is not None:
+        coords, raw_cells, etype, cell_tags, f_verts, f_tags = nat
+        name = _ETYPE_NAME[etype]
+        cells = np.ascontiguousarray(raw_cells[:, _GMSH_PERM[name]],
+                                     dtype=np.int32)
+        g = gdim if gdim is not None else get_cell(name).tdim
+        m = Mesh(name, coords[:, :g], cells)
+        if cell_tags is not None and (cell_tags >= 0).any():
+            m.cell_tags = cell_tags
+        if f_verts is not None and len(f_verts):
+            m.attach_facet_tags(list(f_verts), f_tags)
+        m.physical_names = names
+        m.msh_reader = "native"
+        return m
     with open(path) as f:
         lines = f.read().splitlines()
     i = 0
@@ -466,6 +511,7 @@ def read_msh(path: str, gdim: int | None = None) -> Mesh:
                             np.asarray([t for _, t in tagged],
                                        dtype=np.int32))
     m.physical_names = names
+    m.msh_reader = "python"
     return m
 
 

@@ -88,11 +88,6 @@ def _model_params_from_dict(d: dict) -> ModelParams:
     return ModelParams(**{k: v for k, v in d.items() if k in known})
 
 
-def _waits(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} waits for {where} of the PyTorch "
-                               f"port (ROADMAP.md)")
-
-
 class ThermoViscoProblem:
     def __init__(self, mesh: Mesh | None = None, *,
                  mesh_path: str | None = None,
@@ -301,9 +296,6 @@ class ThermoViscoProblem:
                 raise ValueError(
                     "CG-2 'mg' needs the lattice-native operator "
                     "(grid_native must not be 'off')")
-            if sc.mg_table_dtype != "same":
-                raise _waits("mg_table_dtype='bfloat16'",
-                             "the Slice 1 deferrals")
             t_mg = _time.perf_counter()
             if self._mixed:
                 self._mg32, self._dg_mg32 = self._build_multigrid(
@@ -401,9 +393,13 @@ class ThermoViscoProblem:
                       mg_kwargs={"smoother": sc.mg_smoother})
             mg.freeze_rhos(self.dt)
             return mg, None
+        # the V-cycle's table stream dtype (SolverConfig.mg_table_dtype):
+        # the CG-1 grid levels, also under the DG p-multigrid
+        table_dtype = (torch.bfloat16 if sc.mg_table_dtype == "bfloat16"
+                       else None)
         mg_kwargs = dict(smoother=sc.mg_smoother, nu_pre=sc.mg_nu_pre,
                          nu_post=sc.mg_nu_post, max_levels=sc.mg_max_levels,
-                         coarse=sc.mg_coarse)
+                         coarse=sc.mg_coarse, table_dtype=table_dtype)
         if self.fs_T.family == "DG":
             dg_mg = DGMultigrid(heat, make_operator, dtype=heat.dtype,
                                 smoother=sc.dg_smoother, mg_kwargs=mg_kwargs)
@@ -747,6 +743,55 @@ class ThermoViscoProblem:
         if progress:
             print(f"Solve finished in {self.elapsed_seconds} seconds.")
         return self.state
+
+    def solve_scan(self, fields: tuple = ("T", "Tf", "sigma")):
+        """The whole time loop with stacked field snapshots: `multi_step`
+        chunks of `write_every` steps (the whole run when 0), a snapshot
+        of `fields` after each, then the remainder steps unsnapshotted.
+        The snapshots stay on the device until the end; beyond the
+        Newton loop's own convergence reads nothing comes to the host per
+        chunk. No writers, checkpoints or retries (use `solve` for those).
+
+        Returns (final_state, {"times": (n_chunks,), field: (n_chunks,
+        *shape)}), the stacks on the state's device; raises RuntimeError
+        if a step did not converge."""
+        if self.state is None:
+            raise RuntimeError("call setup() first")
+        t_start = _time.time()
+        we = self.config.output.write_every
+        chunk = we if we and we > 0 else self.n_steps
+        n_chunks = self.n_steps // chunk
+        rem = self.n_steps - n_chunks * chunk
+        st, ok, ni, ki, mi = self.state, True, 0, 0, 0
+        times, snaps = [], {f: [] for f in fields}
+        for n in [chunk] * n_chunks + ([rem] if rem else []):
+            st, ok_c, ni_c, ki_c = self.multi_step(st, n)
+            ok, ni, ki = ok and ok_c, ni + ni_c, ki + ki_c
+            mi += sum(self.last_mech_iters)
+            if len(times) < n_chunks:
+                times.append(st.t)
+                for f in fields:
+                    snaps[f].append(getattr(st, f))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if not ok:
+            raise RuntimeError("Newton failed to converge during solve_scan")
+        self.state = st
+        self.t = self.time[0] + self.n_steps * self.dt
+        self.diagnostics.newton_iters += int(ni)
+        self.diagnostics.krylov_iters += int(ki)
+        self.diagnostics.mech_krylov_iters += mi
+        self.elapsed_seconds = _time.time() - t_start
+
+        def stack(xs, like):
+            if xs:
+                return torch.stack(xs)
+            return like.new_empty((0,) + tuple(like.shape))
+
+        result = {"times": stack(times, st.t)}
+        for f in fields:
+            result[f] = stack(snaps[f], getattr(st, f))
+        return st, result
 
     def _retry_chunk(self, snapshot: ViscoState, n: int):
         """Rerun a failed n-step chunk at successively halved dt (2^level

@@ -10,7 +10,11 @@ the Jacobian action of every CG iteration and of every smoother and
 residual apply of the multigrid V-cycle. Bound by device-memory bytes:
 the 27 value tables plus x and y, ~123 MB per fine-level apply in f32 at
 1,062,761 dofs; one thread per output, loads coalesced along the flat
-axis, x read through L1/L2.
+axis, x read through L1/L2. The value tables may stream in bfloat16 under
+an f32 or f64 vector (the V-cycle's `table_dtype`): the kernel widens each
+value exactly and sums in the vector's type, 62 bytes per point with an
+f32 vector; each table type is its own instantiation of the kernel, and
+`stencil_matvec.launches_by_table` counts the launches of each.
 
 The wrapper takes the plain version for tensors on the CPU and launches
 the kernel for CUDA tensors; anything the kernel does not take raises.
@@ -42,7 +46,10 @@ def stencil_matvec_reference(vals2: torch.Tensor, x: torch.Tensor,
                              grid_shape) -> torch.Tensor:
     """Plain PyTorch version: pad by one row and by the widest flat shift,
     then 3^d shifted slices summed in offset order (the form of
-    StencilMatrix.matvec_flat). vals2 (3^d, gx, M), x (gx*M,) -> (gx*M,)."""
+    StencilMatrix.matvec_flat). vals2 (3^d, gx, M), x (gx*M,) -> (gx*M,).
+    bfloat16 tables under an f32 or f64 x take PyTorch's promotion: each
+    product widens the table value to x's dtype (exactly) and rounds in
+    that dtype, as the JAX version's `vals2_bf16 * x` does."""
     gx = grid_shape[0]
     M = vals2.shape[-1]
     shifts = flat_shifts(grid_shape)
@@ -57,7 +64,8 @@ def stencil_matvec_reference(vals2: torch.Tensor, x: torch.Tensor,
 def stencil_matvec(vals2: torch.Tensor, x: torch.Tensor,
                    grid_shape) -> torch.Tensor:
     """y = A x for stencil values vals2 (3^d, gx, M) and flat x (gx*M,).
-    Kernel on CUDA tensors (d = 2 or 3), plain version on CPU tensors."""
+    Kernel on CUDA tensors (d = 2 or 3), plain version on CPU tensors.
+    vals2 has x's dtype, or is bfloat16 under an f32 or f64 x."""
     grid_shape = tuple(int(g) for g in grid_shape)
     d = len(grid_shape)
     gx = grid_shape[0]
@@ -75,21 +83,26 @@ def stencil_matvec(vals2: torch.Tensor, x: torch.Tensor,
     if d not in (2, 3):
         raise ValueError(f"stencil_matvec: the kernel takes d = 2 or 3, "
                          f"got {d}")
-    code = kernel_lib.dtype_code(vals2.dtype)
-    if x.dtype != vals2.dtype:
+    code = kernel_lib.dtype_code(x.dtype)
+    if vals2.dtype != x.dtype and vals2.dtype != torch.bfloat16:
         raise TypeError(f"stencil_matvec: vals {vals2.dtype} vs x {x.dtype}")
+    table_code = 2 if vals2.dtype == torch.bfloat16 else code
     if not (vals2.is_contiguous() and x.is_contiguous()):
         raise ValueError("stencil_matvec: inputs must be contiguous")
     y = torch.empty_like(x)
     lib = kernel_lib.library().cdll
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.fgt_stencil_matvec(code, d, vals2.data_ptr(), x.data_ptr(),
-                                    y.data_ptr(), gx, M, grid_shape[-1],
-                                    stream)
+        rc = lib.fgt_stencil_matvec(code, table_code, d, vals2.data_ptr(),
+                                    x.data_ptr(), y.data_ptr(), gx, M,
+                                    grid_shape[-1], stream)
     kernel_lib.check(rc, "stencil_matvec")
     stencil_matvec.launches += 1
+    stencil_matvec.launches_by_table[str(vals2.dtype)[6:]] += 1
     return y
 
 
+# all launches, and the launches of each table type's instantiation
 stencil_matvec.launches = 0
+stencil_matvec.launches_by_table = {"float32": 0, "float64": 0,
+                                    "bfloat16": 0}

@@ -15,11 +15,19 @@ the (nx+1, ny+1, nz+1) node grid:
 
 The Jacobian action (`make_matvec`) bakes the boundary linearization into
 the 27 value tables once per frozen operator and applies them with the
-hand-written CUDA stencil kernel (ops/cuda_stencil.py) on the GPU.
+hand-written CUDA stencil kernel (ops/cuda_stencil.py) on the GPU; with
+`stream_dtype=torch.bfloat16` the tables stream in bf16 under the
+operator's vector dtype (the V-cycle's `table_dtype`).
 
-Waiting for later work (ROADMAP.md, Slice 1 deferrals): the constant-row
-form (`allow_const=True`), the bf16 table stream (`stream_dtype`) and
-padded grids (`pad_axis0`).
+The constant-row form (`allow_const=True`): on a uniform box the value
+tables are translation-invariant along grid axis 0 away from its two
+boundary planes, so the residual, the diagonal and the Jacobian action
+run from one (n_off, M) row plus the two boundary planes' rows, and the
+boundary-flux linearisation rides per apply as face-local blocks. It is
+plain PyTorch, taken only without a `stream_dtype`. The solver builds
+the table form (the default), whose Jacobian action is K2.
+
+Waiting for Slice 7 (ROADMAP.md): padded grids (`pad_axis0`).
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fem_glass_tempering_tpu_torch.ops.cuda_stencil import flat_shifts
 from fem_glass_tempering_tpu_torch.ops.heat import HeatOperator
 from fem_glass_tempering_tpu_torch.ops.stencil import StencilMatrix
 
@@ -52,11 +61,9 @@ class GridHeatOperator:
                  allow_const: bool = False):
         """`flux_marker(midpoints) -> bool mask` restricts the radiation +
         convection flux to whole box faces; a marker that cuts through a
-        face is rejected (use HeatOperator's gather assembly instead)."""
-        if allow_const:
-            raise NotImplementedError(
-                "the constant-row form waits (ROADMAP.md, Slice 1 "
-                "deferrals); construct with allow_const=False")
+        face is rejected (use HeatOperator's gather assembly instead).
+        `allow_const` takes the constant-row form where the tables allow
+        it (`const_ok`)."""
         fs = op.fs
         mesh = fs.mesh
         if mesh.structured is None or fs.family != "CG" or fs.degree != 1:
@@ -166,6 +173,38 @@ class GridHeatOperator:
         self.bc_values_g = op.bc_values.reshape(self.grid)
         self.has_bc = op.has_bc
 
+        # the constant-row decomposition: the interior planes' rows are
+        # one (n_off, M) row; the two axis-0 boundary planes keep their
+        # full rows, so every term multiplies the same value / neighbour
+        # pair in the same offset order as the table form (equal bits)
+        self.const_ok = False
+        self.crow_mass = self.crow_stiff = None
+        self.crow_dmass = self.crow_dstiff = None
+        if allow_const and self.d >= 2 and self.grid[0] >= 4:
+            gx = self.grid[0]
+            M = self.n // gx
+            vm2 = self.st.np_mass.reshape(self.st.n_off, gx, M)
+            vs2 = self.st.np_stiff.reshape(self.st.n_off, gx, M)
+            ok = True
+            for v2 in (vm2, vs2):
+                ref = v2[:, 1:2, :]
+                dev = float(np.abs(v2[:, 1:gx - 1, :] - ref).max())
+                if dev > 1e-12 * max(float(np.abs(ref).max()), 1e-300):
+                    ok = False
+                    break
+            if ok:
+                self.crow_mass = f(vm2[:, 1, :])
+                self.crow_stiff = f(vs2[:, 1, :])
+                self.crow_dmass = f(np.stack([vm2[:, 0], vm2[:, -1]], axis=1))
+                self.crow_dstiff = f(np.stack([vs2[:, 0], vs2[:, -1]],
+                                              axis=1))
+                self.const_ok = True
+        # per-face (q, lc, lc) basis products of the linearised flux blocks
+        self._face_phiphi = [
+            f(np.einsum("ql,qm->qlm", fc.np_phi[:, cols],
+                        fc.np_phi[:, cols]))
+            for fc, cols in zip(self.faces, self._face_cols)]
+
         self.st.ensure_tables()
         self.vals_mass = self.st.st_mass
         self.vals_stiff = self.st.st_stiff
@@ -195,6 +234,66 @@ class GridHeatOperator:
                 continue
             acc = acc + vals[o] * (self._shifted(xp, off) - xg)
         return acc
+
+    # ---- constant-row apply -------------------------------------------
+    def _crow_conv(self, rowvals, brow, xg, diff: bool = False):
+        """Grid-shaped stencil apply from the constant-row decomposition:
+        one flat (gx, M) pass with the (n_off, M) interior row, then the
+        two axis-0 boundary rows recomputed with their full rows
+        (n_off, 2, M) and written over the first pass's, so the result
+        equals matvec_vals / matvec_diff bit for bit. `diff=True` is the
+        difference form of matvec_diff (the center offset skipped)."""
+        gx = self.grid[0]
+        M = rowvals.shape[-1]
+        shifts = flat_shifts(self.grid)
+        P = max(abs(s) for _, s in shifts)
+        center = (self.st.n_off - 1) // 2
+        x2 = xg.reshape(gx, M)
+        xp = F.pad(x2, (P, P, 1, 1))
+        acc = torch.zeros((gx, M), dtype=x2.dtype, device=x2.device)
+        for o, (dx, sft) in enumerate(shifts):
+            if diff and o == center:
+                continue
+            win = xp[dx:dx + gx, P + sft:P + sft + M]
+            acc = acc + rowvals[o][None, :] * (win - x2 if diff else win)
+        rows = []
+        for r_i, row in ((0, 0), (1, gx - 1)):
+            w = torch.zeros((1, M), dtype=x2.dtype, device=x2.device)
+            xr = x2[row:row + 1]
+            for o, (dx, sft) in enumerate(shifts):
+                if diff and o == center:
+                    continue
+                win = xp[row + dx:row + dx + 1, P + sft:P + sft + M]
+                w = w + brow[o, r_i][None, :] * (win - xr if diff else win)
+            rows.append(w)
+        acc = torch.cat([rows[0], acc[1:gx - 1], rows[1]], dim=0)
+        return acc.reshape(self.grid)
+
+    def _flux_lin_tables(self, Tg, dt):
+        """Per-face (..., lc, lc) linearised-flux blocks at the frozen T:
+        W[..., l, m] = sum_q w_q phi_ql phi_qm, w = dflux/dT dt qw, the
+        face-local form of the boundary blocks stencil_values_g adds into
+        the tables."""
+        p = self.params
+        out = []
+        for fc, cols, phiphi in zip(self.faces, self._face_cols,
+                                    self._face_phiphi):
+            phi = fc.phi[:, cols]
+            corners = self._face_corners(Tg, fc, cols)
+            Tb = torch.einsum("...l,ql->...q", corners, phi)
+            w = (p.boundary_scale
+                 * (4.0 * p.sigma * p.epsilon * Tb**3 + p.htc)
+                 * (dt * fc.qw))                           # (..., q)
+            out.append((w[..., :, None, None] * phiphi).sum(-3))
+        return out
+
+    def _apply_flux_lin(self, WW, xg, yg):
+        for fc, cols, W in zip(self.faces, self._face_cols, WW):
+            xc = self._face_corners(xg, fc, cols)          # (..., m)
+            contrib = (W * xc[..., None, :]).sum(-1)       # (..., l)
+            for j, l in enumerate(cols):
+                yg[self._corner_slices(fc, l)] += contrib[..., j]
+        return yg
 
     # ------------------------------------------------------------------
     def _corner_slices(self, face: _Face, l: int):
@@ -234,9 +333,15 @@ class GridHeatOperator:
         # M (T - Tp) + dt (alpha K) T - dt f M 1: the mass acts on the
         # small per-step difference and the stiffness in difference form,
         # so constants are annihilated exactly (no ~800 K cancellation)
-        rg = (self.matvec_vals(self.vals_mass, Tg - Tpg)
-              + dt * self.matvec_diff(self.vals_stiff, Tg)
-              - dt * p.f * self.M1g)
+        if self.const_ok:
+            rg = (self._crow_conv(self.crow_mass, self.crow_dmass, Tg - Tpg)
+                  + dt * self._crow_conv(self.crow_stiff, self.crow_dstiff,
+                                         Tg, diff=True)
+                  - dt * p.f * self.M1g)
+        else:
+            rg = (self.matvec_vals(self.vals_mass, Tg - Tpg)
+                  + dt * self.matvec_diff(self.vals_stiff, Tg)
+                  - dt * p.f * self.M1g)
         for fc, cols in zip(self.faces, self._face_cols):
             phi = fc.phi[:, cols]                          # (q, lc)
             corners = self._face_corners(Tg, fc, cols)     # (..., lc)
@@ -257,7 +362,14 @@ class GridHeatOperator:
         p = self.params
         dt = self.op.dt if dt is None else dt
         center = (3 ** self.d - 1) // 2
-        d = self.vals_mass[center] + dt * self.vals_stiff[center]
+        if self.const_ok:
+            gx = self.grid[0]
+            row = self.crow_mass[center] + dt * self.crow_stiff[center]
+            br = self.crow_dmass[center] + dt * self.crow_dstiff[center]
+            d = torch.cat([br[0:1], row[None, :].expand(gx - 2, -1),
+                           br[1:2]], dim=0).reshape(self.grid)
+        else:
+            d = self.vals_mass[center] + dt * self.vals_stiff[center]
         for fc, cols in zip(self.faces, self._face_cols):
             phi = fc.phi[:, cols]
             corners = self._face_corners(Tg, fc, cols)
@@ -299,19 +411,35 @@ class GridHeatOperator:
 
     def _mv_flat(self, vals, stream_dtype=None):
         """Flat-vector matvec from materialised values: the CUDA stencil
-        kernel on the GPU (f32 and f64), its plain twin on the CPU."""
-        if stream_dtype is not None:
-            raise NotImplementedError(
-                "bf16 table streaming waits (ROADMAP.md, Slice 1 deferrals)")
+        kernel on the GPU, its plain twin on the CPU. `stream_dtype`
+        (torch.bfloat16) casts the value tables alone, once here; the
+        vector and the sums keep the operator's dtype."""
         if self.d > 1:
             vals2 = vals.reshape(vals.shape[0], self.grid[0], -1)
+            if stream_dtype is not None:
+                vals2 = vals2.to(stream_dtype)
             return lambda v: self.st.matvec_flat(vals2, v)
+        if stream_dtype is not None:
+            vals = vals.to(stream_dtype)
         return lambda v: self.matvec_vals(
             vals, v.reshape(self.grid)).reshape(-1)
 
     def make_matvec(self, T: torch.Tensor, dt, stream_dtype=None):
-        vals = self.stencil_values(T, dt)
-        mv = self._mv_flat(vals, stream_dtype=stream_dtype)
+        if self.const_ok and stream_dtype is None:
+            # constant-row form: no value table; the flux linearisation
+            # at the frozen T rides as face-local blocks
+            rowvals = self.crow_mass + dt * self.crow_stiff
+            drow = self.crow_dmass + dt * self.crow_dstiff
+            WW = self._flux_lin_tables(T.reshape(self.grid), dt)
+
+            def mv(v):
+                yg = self._crow_conv(rowvals, drow, v)
+                if WW:
+                    yg = self._apply_flux_lin(WW, v.reshape(self.grid), yg)
+                return yg.reshape(-1)
+        else:
+            vals = self.stencil_values(T, dt)
+            mv = self._mv_flat(vals, stream_dtype=stream_dtype)
         if self.has_bc:
             mask = self.bc_mask
             return lambda v: torch.where(

@@ -1,11 +1,19 @@
-"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+"""Build and load the hand-written CUDA kernels (csrc/*.cu) and the host
+runtime (csrc/runtime.cpp).
 
-The sources compile with `nvcc` for Hopper (`sm_90a`) into one shared
+The CUDA sources compile with `nvcc` for Hopper (`sm_90a`) into one shared
 library with a plain C interface, `libfgt_torch_kernels.so`, loaded with
 ctypes. The build happens on first use, never at import, into
 `build/torch_kernels/` at the root of the checkout: one `nvcc -c` per
 source, all started together, then one link. A stamp holding the hash of
 the sources and flags lets a later process reuse the library.
+
+The host runtime (facet enumeration, the gmsh parser, BFS partitioning;
+utils/native.py binds it) compiles with the host C++ compiler into
+`build/torch_native/libfgt_torch_runtime.so`, on first use, with the same
+stamp. Each build writes into a private temporary directory and moves the
+finished library into place, so processes that build at once never load
+a half-written file.
 """
 
 from __future__ import annotations
@@ -46,8 +54,8 @@ _SIGNATURES = {
     "fgt_material_tspace": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _I64,
                             _D, _D, _D, _D, ctypes.POINTER(_D),
                             ctypes.POINTER(_D), _P],
-    "fgt_stencil_matvec": [ctypes.c_int, ctypes.c_int, _P, _P, _P, _I64,
-                           _I64, _I64, _P],
+    "fgt_stencil_matvec": [ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+                           _P, _P, _I64, _I64, _I64, _P],
     "fgt_dg_cell_residual": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _I64,
                              ctypes.c_int, ctypes.c_int, ctypes.c_int,
                              ctypes.c_int, _D, _D, _D, _D, _P],
@@ -58,15 +66,23 @@ _SIGNATURES = {
 }
 
 
-class KernelLibrary:
-    """The loaded library, with what its build printed and took."""
+HOST_SOURCES = ("runtime.cpp",)
+HOST_BUILD_DIR = _PKG.parent / "build" / "torch_native"
+HOST_LIB_NAME = "libfgt_torch_runtime.so"
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
-    def __init__(self, path: Path, build_log: str, build_seconds: float):
+
+class KernelLibrary:
+    """The loaded library, with what its build printed and took; the
+    functions of `signatures` return int and take those ctypes."""
+
+    def __init__(self, path: Path, build_log: str, build_seconds: float,
+                 signatures: dict | None = None):
         self.path = path
         self.build_log = build_log
         self.build_seconds = build_seconds
         self.cdll = ctypes.CDLL(str(path))
-        for name, argtypes in _SIGNATURES.items():
+        for name, argtypes in (signatures or {}).items():
             fn = getattr(self.cdll, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -74,6 +90,7 @@ class KernelLibrary:
 
 _lock = threading.Lock()
 _loaded: KernelLibrary | None = None
+_host_loaded: KernelLibrary | None = None
 
 
 def _nvcc() -> str:
@@ -93,6 +110,20 @@ def _digest() -> str:
         h.update(" ".join((src, *SOURCE_FLAGS[src])).encode())
         h.update((CSRC / src).read_bytes())
     return h.hexdigest()[:16]
+
+
+def _cached(build_dir: Path, lib_name: str, digest: str, build,
+            signatures=None) -> KernelLibrary:
+    """The library of `digest` from `build_dir`, built by `build(digest)`
+    unless the stamp there says the library on disk is that build."""
+    stamp = build_dir / "stamp"
+    lib = build_dir / lib_name
+    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+        log_path = build_dir / "build.log"
+        log = log_path.read_text() if log_path.exists() else ""
+        return KernelLibrary(lib, log, 0.0, signatures)
+    log, seconds = build(digest)
+    return KernelLibrary(lib, log, seconds, signatures)
 
 
 def _build(digest: str) -> tuple[str, float]:
@@ -137,18 +168,56 @@ def library() -> KernelLibrary:
     global _loaded
     with _lock:
         if _loaded is None:
-            digest = _digest()
-            stamp = BUILD_DIR / "stamp"
-            lib = BUILD_DIR / LIB_NAME
-            if (lib.exists() and stamp.exists()
-                    and stamp.read_text() == digest):
-                log = (BUILD_DIR / "build.log").read_text() if (
-                    BUILD_DIR / "build.log").exists() else ""
-                _loaded = KernelLibrary(lib, log, 0.0)
-            else:
-                log, seconds = _build(digest)
-                _loaded = KernelLibrary(lib, log, seconds)
+            _loaded = _cached(BUILD_DIR, LIB_NAME, _digest(), _build,
+                              _SIGNATURES)
         return _loaded
+
+
+def _cxx() -> str:
+    for name in (os.environ.get("CXX"), "g++", "c++"):
+        found = name and shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler found: the native runtime "
+                       "cannot be built (set CXX or put g++ on PATH)")
+
+
+def _host_digest() -> str:
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    for src in HOST_SOURCES:
+        h.update(src.encode())
+        h.update((CSRC / src).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build_host(digest: str) -> tuple[str, float]:
+    cmd0 = [_cxx(), *HOST_FLAGS]
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=HOST_BUILD_DIR) as tmp:
+        tmp_lib = Path(tmp) / HOST_LIB_NAME
+        cmd = [*cmd0, "-o", str(tmp_lib),
+               *(str(CSRC / s) for s in HOST_SOURCES)]
+        p = subprocess.run(cmd, stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True, timeout=300)
+        log = f"$ {' '.join(cmd)}\n{p.stdout}"
+        if p.returncode != 0:
+            raise RuntimeError("the native runtime's build failed\n" + log)
+        os.replace(tmp_lib, HOST_BUILD_DIR / HOST_LIB_NAME)
+    (HOST_BUILD_DIR / "stamp").write_text(digest)
+    (HOST_BUILD_DIR / "build.log").write_text(log)
+    return log, time.perf_counter() - t0
+
+
+def host_library() -> KernelLibrary:
+    """The host runtime library, built from its source on first use; the
+    caller binds its functions (utils/native.py)."""
+    global _host_loaded
+    with _lock:
+        if _host_loaded is None:
+            _host_loaded = _cached(HOST_BUILD_DIR, HOST_LIB_NAME,
+                                   _host_digest(), _build_host)
+        return _host_loaded
 
 
 def current_stream(index: int) -> int:

@@ -410,13 +410,23 @@ class GridElastMG:
                 return smooth(i, None, b, self.coarse_iters)
             return (self.coarse_inv @ b.reshape(-1)).reshape(b.shape)
 
-        def cycle(i, b):
-            if self.axes[i] is None:
-                return coarse_solve(i, b)
-            x = smooth(i, None, b, self.nu_pre)
-            r = b - matvecs[i](x)
-            xc = cycle(i + 1, self._restrict(i, r))
-            x = x + self._prolong(i, xc)
-            return smooth(i, x, b, self.nu_post)
+        def cycle(b):
+            # a loop down the levels and back up: a recursive closure would
+            # hold itself, so each build's level tables would wait for the
+            # cyclic collector
+            bs, xs = [], []
+            i = 0
+            while self.axes[i] is not None:
+                x = smooth(i, None, b, self.nu_pre)
+                r = b - matvecs[i](x)
+                bs.append(b)
+                xs.append(x)
+                b = self._restrict(i, r)
+                i += 1
+            xc = coarse_solve(i, b)
+            for i in reversed(range(len(xs))):
+                x = xs[i] + self._prolong(i, xc)
+                xc = smooth(i, x, bs[i], self.nu_post)
+            return xc
 
-        return lambda r: cycle(0, r)
+        return cycle

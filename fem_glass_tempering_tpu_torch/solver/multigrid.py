@@ -96,9 +96,6 @@ class GeometricMG:
             raise ValueError(smoother)
         if coarse not in ("auto", "smooth", "dense"):
             raise ValueError(coarse)
-        if table_dtype is not None:
-            raise NotImplementedError(
-                "bf16 table streaming waits (ROADMAP.md, Slice 1 deferrals)")
         self.nu_pre, self.nu_post = nu_pre, nu_post
         self.coarse_iters = coarse_iters
         self.smoother = smoother
@@ -210,7 +207,10 @@ class GeometricMG:
         for i, (lvl, T) in enumerate(zip(levels, T_levels)):
             g = self._grid_for(lvl)
             if g is not None:
-                f = g.make_matvec(T, dt)
+                # the grid levels stream their tables in `table_dtype`
+                # (None: the cycle's dtype); the stencil and jvp levels
+                # keep the cycle's dtype, as in the JAX version
+                f = g.make_matvec(T, dt, stream_dtype=self.table_dtype)
                 d = g.jacobian_diag(T, dt)
             else:
                 st = self._stencil_for(lvl)
@@ -267,21 +267,30 @@ class GeometricMG:
 
         smooth = smooth_jacobi if self.smoother == "jacobi" else smooth_cheb
 
-        def cycle(i, b):
-            if levels[i].coarse_dims is None:
-                if self.coarse_inv is not None:
-                    # frozen direct solve: one (n_c, n_c) product
-                    return (self.coarse_inv @ b.to(self.dtype)).to(b.dtype)
-                x = torch.zeros_like(b)
-                return smooth(i, x, b, self.coarse_iters)
-            x = smooth(i, torch.zeros_like(b), b, self.nu_pre)
-            r = b - matvecs[i](x)
-            rc = self._restrict(levels[i], r)
-            xc = cycle(i + 1, rc)
-            x = x + self._prolong(levels[i], xc)
-            return smooth(i, x, b, self.nu_post)
+        def cycle(b):
+            # a loop down the levels and back up: a recursive closure would
+            # hold itself, so each build's level tables would wait for the
+            # cyclic collector
+            bs, xs = [], []
+            i = 0
+            while levels[i].coarse_dims is not None:
+                x = smooth(i, torch.zeros_like(b), b, self.nu_pre)
+                r = b - matvecs[i](x)
+                bs.append(b)
+                xs.append(x)
+                b = self._restrict(levels[i], r)
+                i += 1
+            if self.coarse_inv is not None:
+                # frozen direct solve: one (n_c, n_c) product
+                xc = (self.coarse_inv @ b.to(self.dtype)).to(b.dtype)
+            else:
+                xc = smooth(i, torch.zeros_like(b), b, self.coarse_iters)
+            for i in reversed(range(len(xs))):
+                x = xs[i] + self._prolong(levels[i], xc)
+                xc = smooth(i, x, bs[i], self.nu_post)
+            return xc
 
-        return lambda r: cycle(0, r)
+        return cycle
 
     def _grid_for(self, lvl: MGLevel):
         """Cached per-level GridHeatOperator (None if the level does not

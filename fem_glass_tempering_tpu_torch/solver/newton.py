@@ -15,7 +15,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from fem_glass_tempering_tpu_torch.solver.krylov import pcg
+from fem_glass_tempering_tpu_torch.solver.krylov import _vdot, pcg
 
 
 class NewtonResult(NamedTuple):
@@ -62,7 +62,9 @@ def newton_solve(residual_fn: Callable, x0: torch.Tensor, *,
     the iterate is declared converged with dx = 0. The JAX version's
     docstring gives the reasoning and measurements for each option."""
     if dot is None:
-        dot = torch.dot
+        # the dot product of the flattened tensors (jnp.vdot's semantics),
+        # so a vector-valued residual (ops/forms.py) needs no reshape
+        dot = _vdot
     if cg_replace_every is None:
         cg_replace_every = 50 if cg_cast is not None else 0
     if cg_accept_rtol is None:

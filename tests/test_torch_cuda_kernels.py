@@ -89,6 +89,40 @@ def test_stencil_matvec_kernel(cuda, grid, dtype):
     assert torch.equal(y, y_ref)
 
 
+@pytest.mark.parametrize("grid", [(9, 7, 5), (10, 8), (41, 21, 6)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_stencil_matvec_kernel_bf16_tables(cuda, grid, dtype):
+    """K2's bf16-table instantiation under an f32 / f64 vector equals its
+    plain twin bit for bit (both widen the tables exactly and round in
+    the vector's dtype) and counts as a bf16 launch; other table / vector
+    pairs raise."""
+    from fem_glass_tempering_tpu_torch.ops.cuda_stencil import (
+        stencil_matvec,
+        stencil_matvec_reference,
+    )
+
+    rng = np.random.default_rng(4)
+    d = len(grid)
+    vals = torch.tensor(rng.standard_normal((3 ** d,) + grid),
+                        device=cuda).reshape(3 ** d, grid[0], -1).to(
+                            torch.bfloat16)
+    x = torch.tensor(rng.standard_normal(int(np.prod(grid))), dtype=dtype,
+                     device=cuda)
+    before = dict(stencil_matvec.launches_by_table)
+    y = stencil_matvec(vals, x, grid)
+    assert y.dtype == dtype
+    assert stencil_matvec.launches_by_table["bfloat16"] == (
+        before["bfloat16"] + 1)
+    y_ref = stencil_matvec_reference(vals, x, grid)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_ref)
+    other = torch.float32 if dtype == torch.float64 else torch.float64
+    with pytest.raises(TypeError):
+        stencil_matvec(vals.to(other), x, grid)
+    with pytest.raises(TypeError):
+        stencil_matvec(vals, x.to(torch.bfloat16), grid)
+
+
 @pytest.mark.parametrize("shape,q,g,uniform", [
     ((48, 2), 2, 1, False),        # the 1D reference slab
     ((1000, 8), 8, 3, False),      # hex DG-1, per-cell tables

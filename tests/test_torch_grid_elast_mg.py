@@ -16,6 +16,9 @@ it down to a smoothed 3x3x3 level). Held to JAX's:
   solution at 1e-9.
 """
 
+import gc
+import weakref
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -163,6 +166,26 @@ def test_vcycle_apply_matches_jax(pair):
         finally:
             tmg.use_tables = True
         _close(alt, got, "V-cycle apply, cell recompute", rtol=1e-11)
+
+
+def test_vcycle_apply_holds_no_reference_to_itself(pair):
+    """Dropping the V-cycle apply frees its level matvecs (and tables) at
+    once, with the cyclic collector off."""
+    _, (tmg, _) = pair
+    G, K = _moduli(tmg.ops[0], 4)
+    r = T(np.random.default_rng(5).standard_normal(tmg.ops[0].grid + (3,)))
+    gc.collect()
+    gc.disable()
+    try:
+        pc = tmg.preconditioner_g(T(G), T(K))
+        cells = dict(zip(pc.__code__.co_freevars,
+                         (c.cell_contents for c in pc.__closure__)))
+        mv = weakref.ref(cells["matvecs"][0])
+        assert bool(torch.isfinite(pc(r)).all())
+        del pc, cells
+        assert mv() is None
+    finally:
+        gc.enable()
 
 
 @pytest.mark.parametrize("name", ["plate", "cube"])

@@ -24,7 +24,8 @@ def _port_files():
     assert {"ops/cuda_dg_cell.py", "ops/spmv.py", "solver/amg.py",
             "io/checkpoint.py", "main.py", "io/vtu.py", "io/xdmf.py",
             "fem/mshio.py", "models/analysis.py", "utils/logging.py",
-            "utils/profiling.py"} <= names
+            "utils/profiling.py", "ops/forms.py", "solver/direct.py",
+            "utils/native.py"} <= names
     return files
 
 
@@ -78,6 +79,23 @@ def test_kernel_library_lists_every_cuda_source():
     for name in ("material_tspace.cu", "stencil_matvec.cu"):
         assert "-fmad=false" in kernel_lib.SOURCE_FLAGS[name]
     assert "-fmad=false" not in kernel_lib.NVCC_FLAGS
+
+
+def test_native_runtime_is_the_ports_own_build():
+    """The native runtime builds from the port's copy of its source into
+    build/torch_native/ of this checkout, never from or into the JAX
+    package's csrc/."""
+    from fem_glass_tempering_tpu_torch.ops import kernel_lib
+    from fem_glass_tempering_tpu_torch.utils import native
+
+    assert kernel_lib.CSRC == PORT / "csrc"
+    assert kernel_lib.HOST_SOURCES == ("runtime.cpp",)
+    assert (PORT / "csrc" / "runtime.cpp").exists()
+    assert kernel_lib.HOST_BUILD_DIR == ROOT / "build" / "torch_native"
+    assert native.native_available(), native.native_error()
+    path = kernel_lib.host_library().path
+    assert path.parent == ROOT / "build" / "torch_native"
+    assert (ROOT / "csrc") not in path.parents
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -169,24 +169,41 @@ def test_later_slices_raise(change, refusal):
 
 @pytest.mark.parametrize("change,match", [
     (dict(solver=tc.SolverConfig(mg_table_dtype="bfloat16",
-                                 preconditioner="mg")), "Slice 1 deferrals"),
+                                 preconditioner="mg", mg_coarse="dense",
+                                 mg_max_levels=2)), "Slice 1 deferrals"),
     (dict(output=tc.OutputConfig(formats=("vtu",))), None),
 ], ids=["change0-Slice 1 deferrals", "change1-Slice 6"])
 def test_later_slices_raise_at_setup(change, match, tmp_path):
-    """bf16 table streaming still waits; the VTU output, which waited for
-    Slice 6, now sets up its writer (its files:
-    tests/test_torch_output.py)."""
+    """The two configurations that once waited now set up: bf16 V-cycle
+    tables (the Slice 1 deferral; here the f64 cycle, whose fine level
+    streams bf16 tables under the f64 vector, the dense solve below it)
+    take one step equal to JAX's in counts and T, and the VTU output sets
+    up its writer (its files: tests/test_torch_output.py)."""
     from fem_glass_tempering_tpu_torch.io.vtu import VTUSeriesWriter
     cfg = dataclasses.replace(_cfg(tc), **change)
     cfg = dataclasses.replace(cfg, output=dataclasses.replace(
         cfg.output, output_dir=str(tmp_path)))
-    pt = TP(mesh=tbox(2, 2, 1, 1.0, 1.0, 0.01), config=cfg, device="cpu")
     if match is None:
+        pt = TP(mesh=tbox(2, 2, 1, 1.0, 1.0, 0.01), config=cfg, device="cpu")
         pt.setup()
         assert [type(w) for w in pt._writers] == [VTUSeriesWriter]
         return
-    with pytest.raises(NotImplementedError, match=match):
-        pt.setup()
+    jcfg = dataclasses.replace(_cfg(jc), solver=jc.SolverConfig(
+        **dataclasses.asdict(cfg.solver)), output=jc.OutputConfig(
+            write_every=0, formats=()))
+    cfg = dataclasses.replace(cfg, output=tc.OutputConfig(write_every=0,
+                                                          formats=()))
+    pj = JP(mesh=jbox(8, 8, 4, 1.0, 1.0, 0.01), config=jcfg)
+    pj.setup()
+    pt = TP(mesh=tbox(8, 8, 4, 1.0, 1.0, 0.01), config=cfg, device="cpu")
+    pt.setup()
+    assert pt._mg.table_dtype == torch.bfloat16
+    assert pt._mg.coarse_inv is not None and len(pt._mg.levels) == 2
+    sj, okj, nij, kij = pj._multi_step_jit(pj.state, 1)
+    st, okt, nit, kit = pt.multi_step(pt.state, 1)
+    assert bool(okj) and okt
+    assert nit == int(nij) and abs(kit - int(kij)) <= 2, (nit, kit, nij, kij)
+    _assert_states_agree(sj, st)
 
 
 @pytest.mark.parametrize("change,dg_smoother", [

@@ -134,14 +134,30 @@ def test_grid_operator_matches_jax(dims, dirichlet):
 
 
 def test_grid_operator_deferred_forms_raise():
-    tm = tbox(4, 3, 2, 1.0, 1.0, 0.01)
+    """The two forms that once raised now build and run as JAX's do: the
+    constant-row form (allow_const=True) and the bf16 table
+    stream of the table form, each against JAX at 1e-12 (the bf16 apply
+    bit for bit: both widen the bf16 tables exactly and round in f64);
+    a DG space still builds (ops/heat.py) but is no grid-native
+    operator."""
+    tm, jm = tbox(4, 3, 2, 1.0, 1.0, 0.01), jbox(4, 3, 2, 1.0, 1.0, 0.01)
     op = THeat(TFS(tm, "CG", 1), ModelParams(), 0.1, device="cpu")
-    with pytest.raises(NotImplementedError, match="constant-row"):
-        TGrid(op, allow_const=True)
-    g = TGrid(op)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        g.make_matvec(torch.full((g.n,), 800.0, dtype=torch.float64), 0.1,
-                      stream_dtype=torch.bfloat16)
+    jop = JHeat(JFS(jm, "CG", 1), JParams(), 0.1)
+    rng = np.random.default_rng(4)
+    T = 700 + 100 * rng.random(op.n_dofs)
+    v = rng.standard_normal(op.n_dofs)
+    tT, jT = torch.tensor(T), jnp.asarray(T)
+    g, jg = TGrid(op, allow_const=True), JGrid(jop, allow_const=True)
+    assert g.const_ok and jg.const_ok
+    _close(g.make_matvec(tT, 0.1)(torch.tensor(v)).numpy(),
+           jg.make_matvec(jT, 0.1)(jnp.asarray(v)), "constant-row matvec")
+    gt = TGrid(op, allow_const=False)
+    assert not gt.const_ok
+    y = gt.make_matvec(tT, 0.1, stream_dtype=torch.bfloat16)(
+        torch.tensor(v)).numpy()
+    y_j = np.asarray(jg.make_matvec(jT, 0.1, stream_dtype=jnp.bfloat16)(
+        jnp.asarray(v)))
+    np.testing.assert_array_equal(y, y_j)
     # a DG space builds (ops/heat.py), but is no grid-native operator
     with pytest.raises(ValueError, match="CG-1"):
         TGrid(THeat(TFS(tm, "DG", 1), ModelParams(), 0.1, device="cpu"))
