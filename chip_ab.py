@@ -35,11 +35,16 @@ parity cases, the CG-2 gather plate, the mixed CG-2 plate) alone.
 V-cycle tables and its "same" arm, with K2's bf16-table instantiation
 checked and timed; 12b-12e: bf16 parity, the custom-PDE API,
 solve_scan, the native runtime), with each part's seconds.
-`kernels` times K1 (material_tspace, n = 1,062,761, f32 and f64) and K3
+`kernels` times K1 (material_tspace, n = 1,062,761, f32 and f64), K3
 (dg_cell_residual, 65,536 hex cells, f64, uniform and per-cell tables; the
-direct call, and the prepared call where the tree has one) as chip_smoke's
-`device_ms` does: captured into a CUDA graph and replayed, the median of
-five such measurements. `phase5`, `phase6` and `phase8b` run that phase
+direct call, and the prepared call where the tree has one; and the
+degree-2 shapes of phase 2: nloc 27 uniform f32 at 65,536 and 27,648
+cells and f64, nloc 10 per-cell f64 at 67,584 tetrahedra, nloc 27
+per-cell f32 and f64 at 27,648 hexes) and K2
+(stencil_matvec on the 161x161x41 fine level: f32 and f64 tables, and
+bf16 tables under an f32 and an f64 vector, bit-equal to the plain twin)
+as chip_smoke's `device_ms` does: captured into a CUDA graph and
+replayed, the median of five such measurements. `phase5`, `phase6` and `phase8b` run that phase
 of the tree's chip_smoke alone. `--source-flags SRC:FLAG[,FLAG]` replaces the per-source
 nvcc flags of a tree that has them, to compare builds of one source.
 Prints one line `AB {...}` of JSON with the card's name and power limit.
@@ -104,6 +109,81 @@ def measure_kernels(cs, port, dev) -> dict:
         out[f"{key}_direct_call_ms"] = cs.time_ms(
             lambda: k3(Tc, Tpc, qw, gphi, phi, **kw))
         del qw, gphi
+    out.update(measure_k3_degree2(cs, dev, median_ms))
+    out.update(measure_k2(cs, dev, median_ms))
+    return out
+
+
+def measure_k3_degree2(cs, dev, median_ms) -> dict:
+    """K3 at the degree-2 shapes of phase 2, in the heat operator's
+    prepared call: nloc 27 with uniform tables (the 64x64x16 CG-2 plate's
+    65,536 hexes in f32 and f64, and phase 10b's 27,648 in f32), nloc 10
+    with per-cell f64 tables (67,584 tetrahedra) and nloc 27 with per-cell
+    f32 and f64 tables (phase 10b's 48x48x12 plate without its box
+    metadata, as a non-uniform hex mesh gives)."""
+    import torch
+
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+
+    out = {}
+    hexes = box_mesh_3d(4, 4, 1, 4 / cs.N_CG2[0], 4 / cs.N_CG2[1],
+                        0.01 / cs.N_CG2[2])
+    per_cell_hexes = box_mesh_3d(48, 48, 12, 1.0, 1.0, 0.01)
+    per_cell_hexes.structured = None
+    kw = dict(dt=0.1, c_mass=1.0, c_diff=0.83, f_src=0.0)
+    for key, mesh, dtype, cells in (
+            ("k3_nloc27_uniform_f32", hexes, torch.float32, 65536),
+            ("k3_nloc27_uniform_f32_10b", hexes, torch.float32, 27648),
+            ("k3_nloc27_uniform_f64", hexes, torch.float64, 65536),
+            ("k3_nloc10_per_cell_f64", box_mesh_3d(32, 32, 11,
+                                                   cell_type="tet"),
+             torch.float64, None),
+            ("k3_nloc27_per_cell_f32", per_cell_hexes, torch.float32, None),
+            ("k3_nloc27_per_cell_f64", per_cell_hexes, torch.float64, None)):
+        heat, shape = cs.heat_tables(mesh, "CG", dtype, dev)
+        shape = (cells or shape[0], shape[1])
+        rng = np.random.default_rng(12)
+        Tc = torch.tensor(700.0 + 100.0 * rng.random(shape), dtype=dtype,
+                          device=dev)
+        Tpc = Tc + 1.0
+        call = heat._cell_term
+        out[f"{key}_path"] = call.path
+        out[f"{key}_device_ms"] = median_ms(lambda: call(Tc, Tpc, **kw))
+        out[f"{key}_ms"] = cs.time_ms(lambda: call(Tc, Tpc, **kw))
+        del heat, call, Tc, Tpc
+    return out
+
+
+def measure_k2(cs, dev, median_ms) -> dict:
+    """K2 on random tables of the 161x161x41 fine level: f32 and f64
+    tables, and bf16 tables under an f32 and an f64 vector (in the layout
+    the tree's V-cycle gives them: pitched where the tree has
+    `pitched_tables`), bit-equal to the plain twin."""
+    import torch
+
+    from fem_glass_tempering_tpu_torch.ops import cuda_stencil
+
+    grid = tuple(d + 1 for d in cs.N_FULL)
+    n = int(np.prod(grid))
+    k = cuda_stencil.stencil_matvec
+    rng = np.random.default_rng(3)
+    vals = torch.tensor(rng.standard_normal((27, n)), dtype=torch.float32,
+                        device=dev).reshape(27, grid[0], -1)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        x = torch.tensor(rng.standard_normal(n), dtype=dtype, device=dev)
+        v = vals.to(dtype)
+        out[f"k2_{name}_tables_device_ms"] = median_ms(lambda: k(v, x, grid))
+        del v
+        pitched = getattr(cuda_stencil, "pitched_tables", None)
+        vb = pitched(vals) if pitched else vals.to(torch.bfloat16)
+        tag = f"k2_bf16_tables_{name}_vector"
+        out[f"{tag}_equal"] = bool(torch.equal(
+            k(vb, x, grid), cuda_stencil.stencil_matvec_reference(vb, x,
+                                                                  grid)))
+        out[f"{tag}_device_ms"] = median_ms(lambda: k(vb, x, grid))
+        del vb
     return out
 
 

@@ -120,15 +120,21 @@ Phases (each raises on failure; the exit code is then nonzero):
      a two-level V-cycle, 2 steps, GPU against CPU (Newton equal, CG
      within 1%, T 1e-9); (c) the tempering heat step as a
      ScalarResidualForm on a 256x256 CG-1 square, the reaction-diffusion
-     MMS through the form layer, newton_direct on the validation slab,
-     each GPU against CPU; (d) solve_scan on the default slab, 20 steps
+     MMS through the form layer, newton_direct on the validation slab
+     and on a uniform slab (K3's batching rule: one launch per Jacobian
+     column over per-cell tables, one for all columns over uniform
+     ones), each GPU against CPU; (d) solve_scan on the default slab, 20 steps
      in chunks of 5, equal bit for bit to solve()'s snapshots, counts and
      K1 / K3 launches equal; (e) the 1,024,000-hex plate: native facets
      equal to the numpy builder's, and its --write-mesh file read back
      through the native parser equal to the built mesh, with the seconds.
 Phase 2 also holds K3 at every degree-2 cell shape (nloc 3, 6, 9, 10, 27)
-on the port's HeatOperator tables, f64 and f32, and times nloc 27 (uniform
-f32, 65,536 cells) and nloc 10 (per-cell f64, 67,584 tetrahedra).
+on the port's HeatOperator tables, f64 and f32, all in the element form,
+and times nloc 27 (uniform f32 and f64, 65,536 cells) and nloc 10
+(per-cell f64, 67,584 tetrahedra) against both bounds (the least work
+given the prepared tables, and the quadrature form's) and against one
+PyTorch call on the baked matrices (torch.addmm / torch.baddbmm), with
+the bake's seconds and bytes.
 Every main path (4, 5, 6, 7b f64, 7b mixed, 8b, 9b, 10b, 10c, 11a, 11b,
 12a's two arms, 12b, 12d's two runs) runs with the launch counters set to
 0 just before it and read just after; K2 also counts its launches per
@@ -145,7 +151,9 @@ into a CUDA graph and replayed, which leaves the device time alone;
 `device_cold_ms` is one launch between event pairs after a write over a
 buffer larger than the L2, as the main path finds the kernel's inputs.
 `bound_ms` counts operations against the data sheet's rates, which assume
-fused multiply-adds; `bound_unfused_ms` counts them at half those rates,
+fused multiply-adds (K3's counts the least work of its function given
+its prepared tables, the element form's, whatever kernel runs;
+`bound_quadrature_form_ms` counts the quadrature form's); `bound_unfused_ms` counts them at half those rates,
 the floor of a source built with -fmad=false (K1 and K2 are; K3 is built
 with contraction, ops/kernel_lib.py SOURCE_FLAGS, so `bound_ms` is its).
 """
@@ -216,16 +224,86 @@ K2_OPS_PER_POINT = 54            # 27 multiplies + 27 adds
 
 
 def k3_ops_per_cell(nloc: int, q: int, g: int) -> int:
-    """Multiplies and adds of one cell of dg_cell_residual."""
+    """Multiplies and adds of one cell of dg_cell_residual in the
+    quadrature form (the TPU kernel's and the plain version's)."""
     return q * (4 * nloc + 4 * nloc * g + g + 5 + 2 * nloc) + 2 * nloc
 
 
 def k3_values_per_cell(nloc: int, q: int, g: int, uniform: bool,
                        with_src: bool) -> int:
-    """Values a cell moves: Tc, Tpc in, r out, and its tables (the
-    uniform tables and phi are O(1) for the whole call)."""
+    """Values a cell moves in the quadrature form: Tc, Tpc in, r out, and
+    its tables (the uniform tables and phi are O(1) for the whole call)."""
     n = 3 * nloc + (q if with_src else 0)
     return n if uniform else n + q + q * nloc * g
+
+
+def k3_element_ops_per_cell(nloc: int) -> int:
+    """Multiplies and adds of one cell in the element form: the products
+    M (Tc - Tpc) and K Tc, nloc^2 multiply-adds each (the least work of
+    the function given its prepared tables, whatever computes it)."""
+    return 4 * nloc * nloc
+
+
+def k3_element_values_per_cell(nloc: int, uniform: bool, with_f: bool,
+                               with_src: bool) -> int:
+    """Values a cell must move given its prepared tables: Tc, Tpc in, r
+    out; per-cell tables add the symmetric M and K (nloc (nloc + 1)
+    values together) and, with an f term, b; a source adds its element
+    vector (uniform matrices are O(1) for the whole call)."""
+    n = 3 * nloc + (nloc if with_src else 0)
+    if not uniform:
+        n += nloc * (nloc + 1) + (nloc if with_f else 0)
+    return n
+
+
+def k3_bounds(c: int, nloc: int, q: int, g: int, uniform: bool, dtype,
+              with_f: bool = False, with_src: bool = False) -> dict:
+    """K3's bound for `c` cells, restated as the least work of the
+    function given its prepared tables (the element form's bytes and
+    products), beside the bound that counts the quadrature form."""
+    size = torch.finfo(dtype).bits // 8
+    b, by = bound_ms(size * c * k3_element_values_per_cell(
+        nloc, uniform, with_f, with_src), c * k3_element_ops_per_cell(nloc),
+        dtype)
+    bq, byq = bound_ms(size * c * k3_values_per_cell(nloc, q, g, uniform,
+                                                     with_src),
+                       c * k3_ops_per_cell(nloc, q, g), dtype)
+    return dict(bound_ms=b, bound_by=by, bound_quadrature_form_ms=bq,
+                bound_quadrature_form_by=byq)
+
+
+def k3_yardstick(e, uniform, Tc, Tpc, kw) -> tuple[float, float,
+                                                   torch.Tensor]:
+    """One PyTorch call computing the cell term from the element form's
+    baked tables `e` (ops/cuda_dg_cell.py bake_element_tables, a prepared
+    call's or baked here for the yardstick alone): torch.addmm over a
+    pre-stacked (cells, 2 nloc) input [Tc - Tpc, Tc] for uniform tables,
+    torch.baddbmm over the per-cell matrices (unpacked from their
+    triangles) for per-cell ones; the f term rides as the bias -> (ms,
+    device ms, its r). A yardstick the port never calls."""
+    nloc = Tc.shape[1]
+    X = torch.cat([Tc - Tpc, Tc], dim=1)
+    dtc = kw["dt"] * kw["c_diff"]
+    c_mass = kw.get("c_mass", 1.0)
+    bias = -kw["dt"] * kw["f_src"] * e["b"]
+    if uniform:
+        W = torch.cat([c_mass * e["M"].T, dtc * e["K"].T]).contiguous()
+        fn = lambda: torch.addmm(bias, X, W)  # noqa: E731
+    else:
+        iu = torch.triu_indices(nloc, nloc, device=Tc.device)
+        full = []
+        for key, scale in (("M", c_mass), ("K", dtc)):
+            A = torch.zeros((Tc.shape[0], nloc, nloc), dtype=Tc.dtype,
+                            device=Tc.device)
+            A[:, iu[0], iu[1]] = scale * e[key].T
+            A[:, iu[1], iu[0]] = scale * e[key].T
+            full.append(A)
+        W = torch.cat(full, dim=1).contiguous()       # (cells, 2 nloc, nloc)
+        X = X[:, None, :].contiguous()
+        bias = bias.T[:, None, :].contiguous()
+        fn = lambda: torch.baddbmm(bias, X, W)  # noqa: E731
+    r = fn().reshape(Tc.shape)
+    return time_ms(fn), device_ms(fn), r
 
 
 def reset_counts(port) -> None:
@@ -585,14 +663,17 @@ def check_dg_cell_shapes(dev, port, dtype, rtol) -> dict:
         box_mesh_2d(9, 7, cell_type="triangle"), dtype, dev, False)
     run(f"triangles {shape} q={phi.shape[0]}", shape, qw, gphi, phi, True,
         "shared")
-    # no unrolled instantiation: nloc 10, q 11, g 3
-    for uniform in (True, False):
-        lead = () if uniform else (50,)
-        run(f"runtime shape (50, 10) q=11 "
-            f"{'uniform' if uniform else 'per-cell'}", (50, 10),
-            t(0.1 + rng.random(lead + (11,))),
-            t(rng.standard_normal(lead + (11, 10, 3))),
-            t(rng.random((11, 10))), True, "shared")
+    # no unrolled instantiation: nloc 12, q 11, g 3 (the runtime-shape
+    # split kernel); a degree-2 shape on random tables: nloc 10, q 11, g 3
+    # (the element form)
+    for nloc, path in ((12, "shared"), (10, "element")):
+        for uniform in (True, False):
+            lead = () if uniform else (50,)
+            run(f"{path} (50, {nloc}) q=11 "
+                f"{'uniform' if uniform else 'per-cell'}", (50, nloc),
+                t(0.1 + rng.random(lead + (11,))),
+                t(rng.standard_normal(lead + (11, nloc, 3))),
+                t(rng.random((11, nloc))), True, path)
     return errs
 
 
@@ -671,6 +752,9 @@ def check_dg_cell(dev, port) -> dict:
         reference_glass_mesh_1d,
     )
     from fem_glass_tempering_tpu_torch.ops import kernel_lib
+    from fem_glass_tempering_tpu_torch.ops.cuda_dg_cell import (
+        bake_element_tables,
+    )
     k, ref = port["dg_cell_residual"], port["dg_cell_residual_reference"]
     slab = reference_glass_mesh_1d()
     plate = box_mesh_3d(*N_DG, 1.0, 1.0, 0.01)
@@ -705,11 +789,11 @@ def check_dg_cell(dev, port) -> dict:
                 if not torch.equal(a, b_):
                     fail(f"K3 {label}: the prepared and the direct call "
                          f"differ by {float((a - b_).abs().max()):.3e}")
-                n_bytes = 8 * c * k3_values_per_cell(nloc, q, g, uniform,
-                                                     False)
-                n_ops = c * k3_ops_per_cell(nloc, q, g)
-                b, by = bound_ms(n_bytes, n_ops, dtype)
-                bu, byu = bound_ms(n_bytes, n_ops, dtype, fused=False)
+                bounds = k3_bounds(c, nloc, q, g, uniform, dtype)
+                bu, byu = bound_ms(
+                    8 * c * k3_element_values_per_cell(nloc, uniform, False,
+                                                       False),
+                    c * k3_element_ops_per_cell(nloc), dtype, fused=False)
                 key = "uniform" if uniform else "per_cell"
                 out[key] = dict(
                     cells=c, nloc=nloc, q=q, g=g, path=call.path,
@@ -727,10 +811,24 @@ def check_dg_cell(dev, port) -> dict:
                         lambda: ref(Tc, Tpc, qw, gphi, phi, **kw), reps=10),
                     plain_device_ms=device_ms(
                         lambda: ref(Tc, Tpc, qw, gphi, phi, **kw)),
-                    bound_ms=b, bound_by=by, bound_unfused_ms=bu,
-                    bound_unfused_by=byu,
+                    **bounds, bound_unfused_ms=bu, bound_unfused_by=byu,
                     contracted="-fmad=false" not in kernel_lib.SOURCE_FLAGS[
                         "dg_cell_residual.cu"])
+                # the library yardstick: the element form's tables, baked
+                # here for it alone (degree 1 keeps the quadrature
+                # kernels), under one addmm / baddbmm
+                lib_ms, lib_dev, r = k3_yardstick(
+                    bake_element_tables(qw, gphi, phi, None, dtype), uniform,
+                    Tc, Tpc, kw)
+                want = ref(Tc, Tpc, qw, gphi, phi, **kw)
+                mag = ref(Tc.abs(), -Tpc.abs(), qw, gphi.abs(), phi.abs(),
+                          **kw)
+                if bool(((r - want).abs() > rtol * mag).any()):
+                    fail(f"K3 {label}: the library yardstick disagrees")
+                out[key].update(
+                    library_ms=lib_ms, library_device_ms=lib_dev,
+                    library_call="torch.addmm" if uniform
+                    else "torch.baddbmm")
             del qw, gphi
         errs.update(check_dg_cell_shapes(dev, port, dtype, rtol))
         log(f"K3 check {str(dtype).split('.')[-1]} rtol {rtol} max |diff| "
@@ -774,6 +872,17 @@ def k3_degree2_meshes():
              "CG"))
 
 
+def per_cell_hexes():
+    """Phase 10b's 48x48x12 plate (1 x 1 x 0.01, 27,648 hexes) without
+    its box metadata: the heat operator keeps per-cell tables, as on a
+    graded or read hex mesh (nloc 27 at degree 2)."""
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+
+    mesh = box_mesh_3d(*N_GATHER, 1.0, 1.0, 0.01)
+    mesh.structured = None
+    return mesh
+
+
 def time_k3(port, call, Tc, Tpc, kw, qw, gphi, phi, uniform, rtol) -> dict:
     """K3's prepared call `call` on (Tc, Tpc) against its plain version and
     its bound: times (call, device, cold, plain) in ms."""
@@ -787,10 +896,7 @@ def time_k3(port, call, Tc, Tpc, kw, qw, gphi, phi, uniform, rtol) -> dict:
     if bool(((got - want).abs() > rtol * mag).any()):
         fail(f"K3 ({c}, {nloc}) q={q} {Tc.dtype}: max |diff| "
              f"{float((got - want).abs().max()):.3e}")
-    b, by = bound_ms(Tc.element_size() * c * k3_values_per_cell(
-        nloc, q, g, uniform, False), c * k3_ops_per_cell(nloc, q, g),
-        Tc.dtype)
-    return dict(
+    out = dict(
         cells=c, nloc=nloc, q=q, g=g, dtype=str(Tc.dtype).split(".")[-1],
         tables="uniform" if uniform else "per-cell", path=call.path,
         max_abs_err=float((got - want).abs().max()),
@@ -798,17 +904,38 @@ def time_k3(port, call, Tc, Tpc, kw, qw, gphi, phi, uniform, rtol) -> dict:
         device_ms=device_ms(lambda: call(Tc, Tpc, **kw)),
         device_cold_ms=device_cold_ms(lambda: call(Tc, Tpc, **kw)),
         plain_ms=time_ms(lambda: ref(Tc, Tpc, qw, gphi, phi, **kw), reps=5),
-        bound_ms=b, bound_by=by)
+        **k3_bounds(c, nloc, q, g, uniform, Tc.dtype,
+                    with_f=kw["f_src"] != 0.0))
+    out["share"] = out["bound_ms"] / out["device_ms"]
+    out["share_quadrature_form"] = (out["bound_quadrature_form_ms"]
+                                    / out["device_ms"])
+    if call.path == "element":
+        out["bake_seconds"] = call.bake_seconds
+        out["bake_bytes"] = call.bake_bytes
+        lib_ms, lib_dev, r = k3_yardstick(call._elem, call.uniform, Tc,
+                                          Tpc, kw)
+        torch.cuda.synchronize()
+        if bool(((r - want).abs() > rtol * mag).any()):
+            fail(f"K3 ({c}, {nloc}) {Tc.dtype}: the "
+                 f"{'addmm' if uniform else 'baddbmm'} yardstick disagrees")
+        out.update(library_ms=lib_ms, library_device_ms=lib_dev,
+                   library_call="torch.addmm" if uniform
+                   else "torch.baddbmm")
+    return out
 
 
 def check_dg_cell_degree2(dev, port) -> dict:
     """K3 at every degree-2 cell shape on the tables of the port's own
     HeatOperator, f64 (1e-12) and f32 (1e-5 of the terms' magnitudes, as
     at degree 1), in the operator's prepared call and in the direct call,
-    forward and through torch.func.jvp; then timed at the main paths'
-    sizes: nloc 27 with uniform f32 tables at 65,536 cells (the cell of
-    the 64x64x16 CG-2 plate of phase 9b) and nloc 10 with per-cell f64
-    tables at 67,584 tetrahedra."""
+    forward and through torch.func.jvp, every shape in the element form;
+    then timed at the main paths' sizes: nloc 27 with uniform f32 and f64
+    tables at 65,536 cells (the cell of the 64x64x16 CG-2 plate of phase
+    9b), nloc 10 with per-cell f64 tables at 67,584 tetrahedra and nloc
+    27 with per-cell f32 and f64 tables at 27,648 hexes (phase 10b's
+    plate as a mesh without box metadata, as a non-uniform hex mesh
+    gives), each against both its bounds and its addmm / baddbmm
+    yardstick."""
     from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
 
     errs = {}
@@ -820,6 +947,9 @@ def check_dg_cell_degree2(dev, port) -> dict:
                            is not None) or shape[1] != int(label.split()[1]):
                 fail(f"K3 {label}: tables {tuple(heat.qw.shape)}, cells "
                      f"{shape}")
+            if heat._cell_term.path != "element":
+                fail(f"K3 {label}: the prepared call takes "
+                     f"{heat._cell_term.path}, not the element form")
             errs[f"{label} {str(dtype).split('.')[-1]}"] = dict(
                 cells=shape[0], q=int(heat.phi.shape[0]),
                 tables="uniform" if uniform else "per-cell",
@@ -834,10 +964,11 @@ def check_dg_cell_degree2(dev, port) -> dict:
     out = dict(shapes=errs)
     kw = dict(dt=0.1, c_mass=1.0, c_diff=0.83, f_src=0.0)
     # the hex of the 64x64x16 plate (1 x 1 x 0.01): a 4 x 4 x 1 box of it
+    hexes = box_mesh_3d(4, 4, 1, 4 / N_CG2[0], 4 / N_CG2[1], 0.01 / N_CG2[2])
     for key, mesh, family, dtype, cells in (
-            ("nloc27_uniform_f32",
-             box_mesh_3d(4, 4, 1, 4 / N_CG2[0], 4 / N_CG2[1],
-                         0.01 / N_CG2[2]), "CG", torch.float32,
+            ("nloc27_uniform_f32", hexes, "CG", torch.float32,
+             int(np.prod(N_CG2))),
+            ("nloc27_uniform_f64", hexes, "CG", torch.float64,
              int(np.prod(N_CG2))),
             ("nloc10_per_cell_f64", box_mesh_3d(32, 32, 11, cell_type="tet"),
              "CG", torch.float64, None)):
@@ -851,6 +982,21 @@ def check_dg_cell_degree2(dev, port) -> dict:
                            1e-12 if dtype == torch.float64 else 1e-5)
         log(f"K3 {key} " + json.dumps(out[key]))
         del heat, Tc, Tpc
+    # per-cell hexes: one f64 operator's tables, rounded for f32 as the
+    # f32 operator rounds its own (its build is ~10 s of host time)
+    heat, shape = heat_tables(per_cell_hexes(), "CG", torch.float64, dev)
+    for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        key = f"nloc27_per_cell_{'f32' if dtype == torch.float32 else 'f64'}"
+        qw, gphi, phi = (t.to(dtype) for t in (heat.qw, heat.gphi, heat.phi))
+        call = port["PreparedDGCellResidual"](qw, gphi, phi)
+        Tc = torch.tensor(700.0 + 100.0 * rng.random(shape), dtype=dtype,
+                          device=dev)
+        Tpc = Tc + 1.0
+        out[key] = time_k3(port, call, Tc, Tpc, kw, qw, gphi, phi, False,
+                           rtol)
+        log(f"K3 {key} " + json.dumps(out[key]))
+        del call, qw, gphi, phi, Tc, Tpc
+    del heat
     return out
 
 
@@ -2212,8 +2358,6 @@ def cg2_plate_phase(dev, port) -> dict:
     if (not torch.equal(got, got_direct)
             or bool(((got - want).abs() > 1e-12 * mag).any())):
         fail(f"{tag}: K3 at nloc 27 disagrees with its plain version")
-    b, by = bound_ms(8 * c * k3_values_per_cell(nloc, q, g, True, False),
-                     c * k3_ops_per_cell(nloc, q, g), f64)
     out["k3_nloc27"] = dict(
         cells=c, nloc=nloc, q=q, g=g, path=call.path,
         max_abs_err=float((got - want).abs().max()),
@@ -2223,7 +2367,7 @@ def cg2_plate_phase(dev, port) -> dict:
         direct_call_device_ms=device_ms(
             lambda: k(Tc, Tpc, qw, gphi, phi, **kw)),
         plain_ms=time_ms(lambda: ref(Tc, Tpc, qw, gphi, phi, **kw), reps=5),
-        bound_ms=b, bound_by=by)
+        **k3_bounds(c, nloc, q, g, True, f64))
     log(tag + " " + json.dumps(out))
     return out
 
@@ -2838,11 +2982,14 @@ def bf16_plate_config(tc, steps, table_dtype, **solver):
 
 def k2_bf16_check(port, vals2, grid, dev) -> dict:
     """K2's bf16-table instantiation on real f32 value tables `vals2`
-    (cast to bf16), under an f32 and an f64 vector: equal to its plain
-    twin bit for bit, timed against its byte bound and against the CSR
-    yardstick on the same (bf16-rounded) values in the vector's dtype."""
+    (cast to bf16 in the pitched layout the V-cycle gives them), under an
+    f32 and an f64 vector: equal to its plain twin bit for bit, timed
+    against its byte bound and against the CSR yardstick on the same
+    (bf16-rounded) values in the vector's dtype."""
+    from fem_glass_tempering_tpu_torch.ops.cuda_stencil import pitched_tables
+
     k, ref = port["stencil_matvec"], port["stencil_matvec_reference"]
-    vb = vals2.to(torch.bfloat16).contiguous()
+    vb = pitched_tables(vals2)
     n = vals2.shape[1] * vals2.shape[2]
     rng = np.random.default_rng(12)
     out = {}
@@ -2864,6 +3011,7 @@ def k2_bf16_check(port, vals2, grid, dev) -> dict:
                  bound_ms=b, bound_by=by, library_ms=None)
         # the CSR yardstick holds the same bf16-exact values in the
         # vector's dtype; it sums in another order
+        e["share"] = b / e["device_ms"]
         e["library_ms"], y_lib = csr_library_ms(vb.to(dtype), x, grid)
         mag = ref(vb.abs(), x.abs(), grid)
         rtol = 1e-5 if dtype == torch.float32 else 1e-12
@@ -2930,7 +3078,9 @@ def bf16_plate_phase(dev, port) -> dict:
         fail(f"{tag}: not the f32 GeometricMG twin with bf16 tables on a "
              f"mesh whose facets the native runtime built "
              f"({mesh.facet_builder})")
-    # K2 bf16 on every smoothed level's real tables; timed on the fine one
+    # K2 bf16 on every smoothed level's real tables, in the pitched layout
+    # of the V-cycle's own cast; timed on the fine one
+    from fem_glass_tempering_tpu_torch.ops.cuda_stencil import pitched_tables
     levels = []
     T_levels = mg.linearization_states(prob.state.T.to(torch.float32))
     for i, (lvl, T) in enumerate(zip(mg.levels, T_levels)):
@@ -2943,7 +3093,7 @@ def bf16_plate_phase(dev, port) -> dict:
         else:
             x = torch.tensor(np.random.default_rng(i).standard_normal(g.n),
                              dtype=torch.float32, device=dev)
-            vb = vals2.to(torch.bfloat16)
+            vb = pitched_tables(vals2)
             if not torch.equal(port["stencil_matvec"](vb, x, g.grid),
                                port["stencil_matvec_reference"](vb, x,
                                                                 g.grid)):
@@ -3128,31 +3278,43 @@ def forms_phase(dev, port) -> dict:
             or abs(mms["cpu"][0] - mms[str(dev)][0])
             > 1e-6 * mms["cpu"][0]):
         fail(f"forms MMS: {json.dumps(out['mms'])}")
-    # (3) dense Newton on the validation slab
-    fs = FunctionSpace(reference_glass_mesh_1d(), "DG", 1)
-    direct = {}
-    for where in ("cpu", dev):
-        op = HeatOperator(fs, p, dt=dt, device=where)
-        T_prev = torch.full((fs.n_scalar_dofs,), p.T_0, dtype=torch.float64,
-                            device=op.device)
-        if where == dev:
-            torch.cuda.synchronize()
-            reset_counts(port)
-        xd, it, conv = newton_direct(lambda T: op.residual(T, T_prev),
-                                     T_prev)
-        if not conv:
-            fail(f"newton_direct did not converge on {where}")
-        direct[str(where)] = (xd.cpu().numpy(), it)
-        if where == dev:
-            torch.cuda.synchronize()
-            k3 = read_counts(port)["dg_cell_residual"]
-    (xc, ic), (xg, ig) = direct["cpu"], direct[str(dev)]
-    out["direct"] = dict(dofs=fs.n_scalar_dofs, iters_cpu=ic, iters_gpu=ig,
-                         T_max_rel=float(np.abs(xg - xc).max()
-                                         / np.abs(xc).max()),
-                         k3_launches_gpu=k3)
-    if ic != ig or not out["direct"]["T_max_rel"] <= 1e-9 or k3 == 0:
-        fail(f"newton_direct: {json.dumps(out['direct'])}")
+    # (3) dense Newton on the validation slab (graded: per-cell tables),
+    # and on a uniform slab of as many cells (uniform tables). K3's
+    # batching rule: the dense Jacobian's jvp columns, vmapped, launch
+    # once per column over per-cell tables and once for all columns over
+    # uniform ones, besides the residual's launch and the jvp's primal
+    for key, mesh in (("direct", reference_glass_mesh_1d()),
+                      ("direct_uniform", interval_mesh(48))):
+        fs = FunctionSpace(mesh, "DG", 1)
+        direct = {}
+        for where in ("cpu", dev):
+            op = HeatOperator(fs, p, dt=dt, device=where)
+            T_prev = torch.full((fs.n_scalar_dofs,), p.T_0,
+                                dtype=torch.float64, device=op.device)
+            if where == dev:
+                torch.cuda.synchronize()
+                reset_counts(port)
+            xd, it, conv = newton_direct(lambda T: op.residual(T, T_prev),
+                                         T_prev)
+            if not conv:
+                fail(f"newton_direct ({key}) did not converge on {where}")
+            direct[str(where)] = (xd.cpu().numpy(), it)
+            if where == dev:
+                torch.cuda.synchronize()
+                k3 = read_counts(port)["dg_cell_residual"]
+        (xc, ic), (xg, ig) = direct["cpu"], direct[str(dev)]
+        uniform = op.qw.dim() == 1
+        per_iter = 3 if uniform else 2 + fs.n_scalar_dofs
+        out[key] = dict(dofs=fs.n_scalar_dofs, iters_cpu=ic, iters_gpu=ig,
+                        tables="uniform" if uniform else "per-cell",
+                        T_max_rel=float(np.abs(xg - xc).max()
+                                        / np.abs(xc).max()),
+                        k3_launches_gpu=k3,
+                        k3_launches_per_iteration=per_iter)
+        if (ic != ig or not out[key]["T_max_rel"] <= 1e-9
+                or uniform != (key == "direct_uniform")
+                or k3 != ig * per_iter):
+            fail(f"newton_direct: {json.dumps(out[key])}")
     log("forms " + json.dumps(out))
     return out
 
@@ -3552,8 +3714,8 @@ def main() -> int:
                  "bfloat16"],
              vcycle_launches_per_apply=bf16["k2_launches_per_vcycle"]),
         # timed at the DG plate's shape (65,536 hex cells, uniform tables,
-        # f64) in the heat operator's prepared call; no single PyTorch call
-        # computes this function
+        # f64) in the heat operator's prepared call; the library call is
+        # torch.addmm on the element matrices baked from these tables
         dict(name="dg_cell_residual", route="cuda",
              source="fem_glass_tempering_tpu_torch/csrc/dg_cell_residual.cu",
              replaces="fem_glass_tempering_tpu/ops/pallas_kernels.py:218",
@@ -3561,7 +3723,11 @@ def main() -> int:
              max_abs_err=k3["uniform"]["max_abs_err"],
              ms=k3["uniform"]["ms"], plain_ms=k3["uniform"]["plain_ms"],
              bound_ms=k3["uniform"]["bound_ms"],
-             bound_by=k3["uniform"]["bound_by"], library_ms=None,
+             bound_by=k3["uniform"]["bound_by"],
+             library_ms=k3["uniform"]["library_ms"],
+             library_device_ms=k3["uniform"]["library_device_ms"],
+             bound_quadrature_form_ms=k3["uniform"][
+                 "bound_quadrature_form_ms"],
              device_ms=k3["uniform"]["device_ms"],
              device_cold_ms=k3["uniform"]["device_cold_ms"],
              bound_unfused_ms=k3["uniform"]["bound_unfused_ms"],
@@ -3590,6 +3756,8 @@ def main() -> int:
              launches_solve_scan=scan["launches_solve_scan"][
                  "dg_cell_residual"],
              launches_newton_direct=forms["direct"]["k3_launches_gpu"],
+             launches_newton_direct_uniform=forms["direct_uniform"][
+                 "k3_launches_gpu"],
              launches_degree2_parity={
                  label: case["k3_launches_gpu"]
                  for label, case in d2_parity.items()},

@@ -421,6 +421,324 @@ int launch_tables(const void* Tc, const void* Tpc, const void* qw,
   return (int)cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------------------ element form
+// The degree-2 cells (nloc, g) = (3, 1), (6, 2), (9, 2), (10, 3), (27, 3).
+// The cell term is linear in (Tc, Tpc) with per-call scalar coefficients,
+// so with the element matrices M = sum_q qw phi_q phi_q^T, K = sum_q qw
+// sum_g d_g phi_q d_g phi_q^T and b = sum_q qw phi_q, baked once from the
+// tables (ops/cuda_dg_cell.py), and s = sum_q qw src_q phi_q:
+//   r = c_mass M (Tc - Tpc) - dt (f b + s) + dt c_diff K Tc.
+// That is the function above with a fraction of its work: at nloc 27 two
+// 27 x 27 products (2,916 operations a cell) against 13,392 of the
+// quadrature form; with per-cell tables at nloc 10, the two symmetric
+// matrices (110 values a cell) against 1,984 table values.
+//
+// What bounds it: device-memory bytes. Uniform tables: Tc, Tpc and r
+// alone (81 values a cell at nloc 27); the FP32 / FP64 units could do the
+// products in half the time the bytes take, if their operands come cheap.
+// So one thread takes one cell and holds its nloc mass and nloc diffusion
+// sums in registers; M^T and K^T sit in shared memory, and the thread
+// reads row m of each (column m of M and K) as 16-byte vectors at the
+// same address in every lane (a broadcast): per m, 2 lane-own loads of
+// Tc[m] and Tc[m] - Tpc[m] and 2 nloc / (16 / sizeof(T)) broadcast loads
+// feed 2 nloc multiply-adds. Per-cell tables: the upper triangles of M and
+// K, entry-major (entry, cell), so a warp's 32 cells read each entry as one
+// coalesced run; every value is read once. A warp's Tc, Tpc and r rows are
+// one contiguous run each, moved with coalesced accesses through a shared
+// tile of odd row stride (no bank conflicts), as in the row kernel.
+// Measured on an H100 (700 W; PERF.md): nloc 27 at 65,536 cells 0.0128 ms
+// in f32 and 0.0271 in f64, about half the byte bound: each warp loads its
+// tile, then computes it, and nothing overlaps the two within a warp; f64
+// takes 180 registers a thread and 68 KB of shared memory a block (8
+// warps an SM). A persistent form that kept the next tile in flight
+// (cp.async into a second buffer) measured slower (0.0147 / 0.0298 ms):
+// its second buffer halves the warps an SM holds.
+//
+// K Tc cancels: K's rows sum to ~0 (the basis gradients do) while Tc is
+// ~700 K, so the products sum to a residual far below their size and
+// their rounding is noise that an rtol 1e-12 Newton solve sees (phase
+// 10a's CG-2 SA-AMG plate stopped a Newton iteration early). So the
+// diffusion sum runs on Tc - t0, t0 = Tc[c, 0], and adds t0 (K 1)
+// after: K Tc = K (Tc - t0) + t0 K 1, the same function for any tables.
+// K 1 is summed in f64 from K before K is rounded: the rows of the
+// rounded K sum to its rounding (in f32 ~1e-7 of K's entries), which t0
+// ~ 600 K turns into a spurious flux, ~4e-4 of the cell term on phase
+// 10b's thin plate. With K 1 so, the f32 form computes the function of
+// its tables there to ~3e-7 of the cell term, where the quadrature form
+// misses it by ~5e-4 (tests/test_torch_k3_element.py).
+//
+// Every output sums over m in ascending order, the mass and diffusion
+// sums apart, combined in the epilogue as the plain version combines its
+// two terms (with the packed triangle too: entry (l, m), l <= m, adds to
+// row l at column m and to row m at column l, so each row meets its
+// columns in ascending order). Built with contraction, like the kernels
+// above; held to the quadrature plain version at 1e-12 (f64) / 1e-5 (f32)
+// of the sum of the terms' magnitudes.
+constexpr int kElemThreads = 128;
+
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+  static constexpr int n = 4;
+  __device__ static void get(const float* p, float* v) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  }
+  __device__ static void put(float* p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+  static constexpr int n = 2;
+  __device__ static void get(const double* p, double* v) {
+    const double2 a = *reinterpret_cast<const double2*>(p);
+    v[0] = a.x; v[1] = a.y;
+  }
+  __device__ static void put(double* p, const double* v) {
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+  }
+};
+
+// odd row stride of the staged Tc and Tc - Tpc rows
+template <int NLOC>
+__host__ __device__ constexpr int elem_row() {
+  return NLOC % 2 ? NLOC : NLOC + 1;
+}
+// row pitch of the staged uniform matrices: rows start on 16 bytes
+template <typename T, int NLOC>
+__host__ __device__ constexpr int elem_pitch() {
+  return (NLOC + Vec16<T>::n - 1) / Vec16<T>::n * Vec16<T>::n;
+}
+// shared memory of a block, in elements of T: uniform M^T, K^T, b, K 1,
+// then each warp's 32 rows of Tc and 32 of Tc - Tpc
+template <typename T, int NLOC, bool PER_CELL>
+__host__ __device__ constexpr int elem_smem_elems() {
+  return (PER_CELL ? 0 : (2 * NLOC + 2) * elem_pitch<T, NLOC>()) +
+         kElemThreads * 2 * elem_row<NLOC>();
+}
+
+template <typename T, int NLOC, bool PER_CELL>
+__global__ void __launch_bounds__(kElemThreads) dg_cell_element_kernel(
+    const T* __restrict__ Tc, const T* __restrict__ Tpc,
+    const T* __restrict__ Mg, const T* __restrict__ Kg,
+    const T* __restrict__ bg, const T* __restrict__ k1g,
+    const T* __restrict__ sg, T* __restrict__ out, int64_t n_cells,
+    const Scalars<T> s, int aligned) {
+  constexpr int kRow = elem_row<NLOC>();
+  constexpr int kPitch = elem_pitch<T, NLOC>();
+  constexpr int kV = Vec16<T>::n;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s_M = reinterpret_cast<T*>(smem_raw);       // M^T, rows of kPitch
+  T* s_K = s_M + (PER_CELL ? 0 : NLOC * kPitch);  // K^T
+  T* s_b = s_K + (PER_CELL ? 0 : NLOC * kPitch);
+  T* s_k1 = s_b + (PER_CELL ? 0 : kPitch);        // K 1
+  T* s_rows = s_k1 + (PER_CELL ? 0 : kPitch);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  T* s_tc = s_rows + warp * 64 * kRow;
+  T* s_du = s_tc + 32 * kRow;
+  const bool has_b = bg != nullptr;
+
+  if (!PER_CELL) {
+    for (int i = threadIdx.x; i < NLOC * NLOC; i += kElemThreads) {
+      const int l = i / NLOC, m = i - l * NLOC;
+      s_M[m * kPitch + l] = Mg[i];
+      s_K[m * kPitch + l] = Kg[i];
+    }
+    if (threadIdx.x < NLOC) {
+      s_b[threadIdx.x] = has_b ? bg[threadIdx.x] : T(0);
+      s_k1[threadIdx.x] = k1g[threadIdx.x];
+    }
+    __syncthreads();
+  }
+
+  const int64_t c0 = (int64_t)blockIdx.x * kElemThreads + warp * 32;
+  if (c0 >= n_cells) return;                // after the block's one barrier
+  const int64_t e0 = c0 * NLOC;
+  const int64_t left = (n_cells - c0) * NLOC;
+  // Per-cell tables: a whole tile of 16-byte aligned rows moves as
+  // 16-byte vectors (a warp's tile, 32 NLOC values, is a whole number of
+  // them), stored as vectors too where the tile's rows are unpadded (odd
+  // NLOC). Measured on an H100 (700 W; PERF.md): per-cell nloc 27 at
+  // 27,648 cells 0.0498 -> 0.0343 ms in f32 (255 registers with spills
+  // -> 168 without) and 0.1155 -> 0.0656 in f64; the uniform kernel
+  // took 7% longer so (0.0126 -> 0.0135 ms at nloc 27 f32), and keeps
+  // the element-wise moves.
+  constexpr int kTile = 32 * NLOC;
+  const bool whole = PER_CELL && aligned && left >= kTile;
+  if (whole) {
+#pragma unroll
+    for (int i = 0; i < (kTile / kV + 31) / 32; ++i) {
+      const int k = (i * 32 + lane) * kV;
+      if (k < kTile) {
+        T a[kV], p[kV];
+        Vec16<T>::get(Tc + e0 + k, a);
+        Vec16<T>::get(Tpc + e0 + k, p);
+#pragma unroll
+        for (int v = 0; v < kV; ++v) p[v] = a[v] - p[v];
+        if (kRow == NLOC) {
+          Vec16<T>::put(s_tc + k, a);
+          Vec16<T>::put(s_du + k, p);
+        } else {
+#pragma unroll
+          for (int v = 0; v < kV; ++v) {
+            const int at = ((k + v) / NLOC) * kRow + (k + v) % NLOC;
+            s_tc[at] = a[v];
+            s_du[at] = p[v];
+          }
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < NLOC; ++i) {
+      const int j = i * 32 + lane;
+      if (j < left) {
+        const int at = (j / NLOC) * kRow + j % NLOC;
+        const T a = Tc[e0 + j];
+        s_tc[at] = a;
+        s_du[at] = a - Tpc[e0 + j];
+      }
+    }
+  }
+  __syncwarp();
+
+  const int64_t c = c0 + lane;
+  if (c < n_cells) {
+    const T* tc = s_tc + lane * kRow;
+    const T* du = s_du + lane * kRow;
+    const T t0 = tc[0];
+    T am[NLOC], ad[NLOC];
+#pragma unroll
+    for (int l = 0; l < NLOC; ++l) {
+      am[l] = T(0);
+      ad[l] = T(0);
+    }
+    if (PER_CELL) {
+      int e = 0;
+#pragma unroll
+      for (int l = 0; l < NLOC; ++l) {
+#pragma unroll
+        for (int m = l; m < NLOC; ++m, ++e) {
+          const T mv = Mg[(int64_t)e * n_cells + c];
+          const T kv = Kg[(int64_t)e * n_cells + c];
+          am[l] = am[l] + mv * du[m];
+          ad[l] = ad[l] + kv * (tc[m] - t0);
+          if (m != l) {
+            am[m] = am[m] + mv * du[l];
+            ad[m] = ad[m] + kv * (tc[l] - t0);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < NLOC; ++m) {
+        const T u = du[m], t = tc[m] - t0;
+#pragma unroll
+        for (int l0 = 0; l0 < NLOC; l0 += kV) {
+          T mv[kV], kv[kV];
+          Vec16<T>::get(s_M + m * kPitch + l0, mv);
+          Vec16<T>::get(s_K + m * kPitch + l0, kv);
+#pragma unroll
+          for (int v = 0; v < kV; ++v) {
+            if (l0 + v < NLOC) {
+              am[l0 + v] = am[l0 + v] + mv[v] * u;
+              ad[l0 + v] = ad[l0 + v] + kv[v] * t;
+            }
+          }
+        }
+      }
+    }
+    T* r = s_du + lane * kRow;      // this lane's row: read above, now free
+#pragma unroll
+    for (int l = 0; l < NLOC; ++l) {
+      T src = T(0);
+      if (has_b)
+        src = s.dt_f * (PER_CELL ? bg[(int64_t)l * n_cells + c] : s_b[l]);
+      if (sg != nullptr) src = src + s.dt * sg[(int64_t)l * n_cells + c];
+      const T k1 = PER_CELL ? k1g[(int64_t)l * n_cells + c] : s_k1[l];
+      r[l] = (s.c_mass * am[l] - src) + s.dt_cdiff * (ad[l] + t0 * k1);
+    }
+  }
+  __syncwarp();
+  if (whole) {
+#pragma unroll
+    for (int i = 0; i < (kTile / kV + 31) / 32; ++i) {
+      const int k = (i * 32 + lane) * kV;
+      if (k < kTile) {
+        T a[kV];
+        if (kRow == NLOC) {
+          Vec16<T>::get(s_du + k, a);
+        } else {
+#pragma unroll
+          for (int v = 0; v < kV; ++v)
+            a[v] = s_du[((k + v) / NLOC) * kRow + (k + v) % NLOC];
+        }
+        Vec16<T>::put(out + e0 + k, a);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < NLOC; ++i) {
+      const int j = i * 32 + lane;
+      if (j < left) out[e0 + j] = s_du[(j / NLOC) * kRow + j % NLOC];
+    }
+  }
+}
+
+template <typename T, int NLOC, bool PER_CELL>
+int launch_element(const void* Tc, const void* Tpc, const void* M,
+                   const void* K, const void* b, const void* k1,
+                   const void* src, void* out, int64_t n_cells,
+                   const Scalars<T>& s, void* stream) {
+  const size_t smem = (size_t)elem_smem_elems<T, NLOC, PER_CELL>() * sizeof(T);
+  auto kernel = dg_cell_element_kernel<T, NLOC, PER_CELL>;
+  // above 48 KB (nloc 27 in f64: 67.6 KB) the block's dynamic shared
+  // memory is asked for once per process
+  static bool opted = false;
+  if (smem > 48 * 1024 && !opted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    opted = true;
+  }
+  const int64_t blocks = (n_cells + kElemThreads - 1) / kElemThreads;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const int aligned =
+      (((uintptr_t)Tc | (uintptr_t)Tpc | (uintptr_t)out) & 15) == 0;
+  kernel<<<(unsigned)blocks, kElemThreads, smem, (cudaStream_t)stream>>>(
+      (const T*)Tc, (const T*)Tpc, (const T*)M, (const T*)K, (const T*)b,
+      (const T*)k1, (const T*)src, (T*)out, n_cells, s, aligned);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_element_shapes(const void* Tc, const void* Tpc, const void* M,
+                          const void* K, const void* b, const void* k1,
+                          const void* src, void* out, int64_t n_cells,
+                          int nloc, int per_cell, double dt, double c_mass,
+                          double c_diff, double f_src, void* stream) {
+  const Scalars<T> s = make_scalars<T>(dt, c_mass, c_diff, f_src);
+#define FGT_ELEM(NLOC)                                                   \
+  (per_cell ? launch_element<T, NLOC, true>(Tc, Tpc, M, K, b, k1, src,  \
+                                            out, n_cells, s, stream)    \
+            : launch_element<T, NLOC, false>(Tc, Tpc, M, K, b, k1, src, \
+                                             out, n_cells, s, stream))
+  switch (nloc) {
+    case 3: return FGT_ELEM(3);
+    case 6: return FGT_ELEM(6);
+    case 9: return FGT_ELEM(9);
+    case 10: return FGT_ELEM(10);
+    case 27: return FGT_ELEM(27);
+  }
+#undef FGT_ELEM
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype_code: 0 = float32, 1 = float64. Tables in device memory;
@@ -465,3 +783,29 @@ extern "C" int fgt_dg_cell_residual_param(
 
 // bytes of uniform tables the parameter struct holds
 extern "C" int fgt_dg_cell_param_table_bytes() { return kParamTableBytes; }
+
+// The element form (degree-2 cells, nloc 3, 6, 9, 10, 27). per_cell == 0:
+// M and K are (nloc, nloc) row-major and b (nloc,); per_cell != 0: M and K
+// hold the upper triangles (l <= m, row-major order of the pairs) as
+// (nloc (nloc + 1) / 2, cells) and b is (nloc, cells). k1 = K 1, formed
+// before K was rounded, is shaped as b. b may be null (no f term); src,
+// the baked source sum_q qw src_q phi_q, is (nloc, cells) or null.
+// Returns cudaGetLastError().
+extern "C" int fgt_dg_cell_element(
+    int dtype_code, const void* Tc, const void* Tpc, const void* M,
+    const void* K, const void* b, const void* k1, const void* src, void* out,
+    int64_t n_cells, int nloc, int per_cell, double dt, double c_mass,
+    double c_diff, double f_src, void* stream) {
+  if (n_cells <= 0) return 0;
+  if (M == nullptr || K == nullptr || k1 == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (dtype_code == 0)
+    return launch_element_shapes<float>(Tc, Tpc, M, K, b, k1, src, out,
+                                        n_cells, nloc, per_cell, dt, c_mass,
+                                        c_diff, f_src, stream);
+  if (dtype_code == 1)
+    return launch_element_shapes<double>(Tc, Tpc, M, K, b, k1, src, out,
+                                         n_cells, nloc, per_cell, dt, c_mass,
+                                         c_diff, f_src, stream);
+  return (int)cudaErrorInvalidValue;
+}

@@ -13,7 +13,7 @@ fem_glass_tempering_tpu/ops/pallas_kernels.py:make_dg_cell_residual and is
 the cell term of every heat residual and, through its forward-mode
 derivative, of every matrix-free CG matvec, for DG and CG spaces alike.
 
-What bounds it on the card, and the two kernels that follow (the source's
+What bounds it on the card, and the kernels that follow (the source's
 head note has the detail). With per-cell tables it is bound by
 device-memory bytes (224 values per hex DG-1 cell): the split kernel, one
 thread per (cell, local dof), reads and writes contiguous runs. With the
@@ -26,6 +26,16 @@ once. Uniform tables that do not fit the parameters, or that arrive as
 device tensors in a direct call, are staged in shared memory by the split
 kernel. Both kernels sum in the plain version's order, so the result does
 not depend on the path.
+
+The degree-2 cells, (nloc, g) in ELEMENT_SHAPES, take the element form
+instead ("element"): the cell term is linear with per-call scalar
+coefficients, so r = c_mass M (Tc - Tpc) - dt (f b + s) + dt c_diff K Tc
+with the element matrices M, K and the vectors b, s baked once from the
+tables (`bake_element_tables`, in f64, rounded once to the working
+dtype), and one thread per cell forms the two matrix-vector products.
+`element_matrices_reference` is the bake as einsums and
+`element_residual_reference` the element form's plain version; the CPU
+path stays the quadrature twin `dg_cell_residual_reference`.
 
 The host's share of a call is larger than the device's at the sizes the
 solver uses, so the launch path is short: the static tables (`qw`, `gphi`,
@@ -47,6 +57,7 @@ launched; anything the kernels do not take raises.
 from __future__ import annotations
 
 import itertools
+import time
 import weakref
 
 import numpy as np
@@ -62,6 +73,12 @@ MAX_GDIM = 3
 # tensor-product cells of the uniform boxes)
 PARAM_TABLE_BYTES = 3584
 PARAM_SHAPES = ((2, 1), (4, 2), (8, 3))           # (nloc, g)
+# the degree-2 cells (interval, triangle, quadrilateral, tetrahedron,
+# hexahedron) take the element form
+ELEMENT_SHAPES = ((3, 1), (6, 2), (9, 2), (10, 3), (27, 3))   # (nloc, g)
+# cells of per-cell tables baked at once: the f64 copy of a chunk's gphi
+# (10-node tetrahedra, q 64: 15 KB a cell) stays near 128 MB
+BAKE_CHUNK_CELLS = 8192
 
 
 def dg_cell_residual_reference(Tc, Tpc, qw, gphi, phi, *, dt, c_diff, f_src,
@@ -86,6 +103,97 @@ def dg_cell_residual_reference(Tc, Tpc, qw, gphi, phi, *, dt, c_diff, f_src,
         "cqg,cqlg->cl", qw[..., None] * gTq, gphi)
 
 
+def element_matrices_reference(qw, gphi, phi):
+    """The element form's tables as einsums: the mass matrix M = sum_q qw
+    phi_q phi_q^T, the stiffness matrix K = sum_q qw sum_g d_g phi_q d_g
+    phi_q^T and b = sum_q qw phi_q, in the tables' dtype. Uniform tables
+    give M, K (nloc, nloc) and b (nloc,); per-cell tables (cells, nloc,
+    nloc) and (cells, nloc)."""
+    if qw.dim() == 1:
+        M = torch.einsum("q,ql,qm->lm", qw, phi, phi)
+        K = torch.einsum("q,qlg,qmg->lm", qw, gphi, gphi)
+    else:
+        M = torch.einsum("cq,ql,qm->clm", qw, phi, phi)
+        K = torch.einsum("cq,cqlg,cqmg->clm", qw, gphi, gphi)
+    return M, K, qw @ phi
+
+
+def element_source_reference(qw, phi, source_q):
+    """The per-point source as element vectors: s (cells, nloc) = sum_q
+    qw src_q phi_q, for qw (q,) or (cells, q)."""
+    return (qw * source_q) @ phi
+
+
+def element_residual_reference(Tc, Tpc, M, K, b, *, dt, c_diff, f_src,
+                               c_mass=1.0, s=None, k1=None):
+    """Plain version of the element form: c_mass M (Tc - Tpc) - dt (f b +
+    s) + dt c_diff K Tc, per cell, with the tables of
+    `element_matrices_reference` (and `element_source_reference`). K Tc
+    is formed as the kernel forms it, K (Tc - t0) + t0 k1 with t0 =
+    Tc[:, 0] and k1 = K 1 (by default from K; the bake's from K before
+    rounding): K's rows sum to ~0, so K Tc cancels, and the shift keeps
+    the cancellation's rounding out of the sum."""
+    t0 = Tc[:, :1]
+    if M.dim() == 2:
+        mass, diff = (Tc - Tpc) @ M.T, (Tc - t0) @ K.T
+    else:
+        mass = torch.einsum("clm,cm->cl", M, Tc - Tpc)
+        diff = torch.einsum("clm,cm->cl", K, Tc - t0)
+    diff = diff + t0 * (K.sum(-1) if k1 is None else k1)
+    src = f_src * b if s is None else f_src * b + s
+    return (c_mass * mass - dt * src) + dt * c_diff * diff
+
+
+def bake_element_tables(qw, gphi, phi, source_q, dtype) -> dict:
+    """The element form's tables in the kernel's layout, formed in f64
+    from the tables (promoted exactly) on their device and rounded once
+    to `dtype`: uniform tables give M, K (nloc, nloc) and b (nloc,);
+    per-cell tables the upper triangles of M and K entry-major, (nloc
+    (nloc + 1) / 2, cells) in the row-major order of the pairs (l <= m),
+    and b (nloc, cells), baked BAKE_CHUNK_CELLS cells at a time. "k1" is
+    K 1, summed in f64 before K is rounded (the rows of K sum to ~0; those
+    of the rounded K sum to its rounding), shaped as b. "s" is the source
+    (nloc, cells), or None."""
+    dev = qw.device
+    f64 = lambda a: a.to(dtype=torch.float64)  # noqa: E731
+    phi64 = f64(phi)
+    nloc = phi.shape[1]
+    chunk = BAKE_CHUNK_CELLS
+    out = {}
+    if qw.ndim == 1:
+        M, K, b = element_matrices_reference(f64(qw), f64(gphi), phi64)
+        out.update(M=M.to(dtype).contiguous(), K=K.to(dtype).contiguous(),
+                   b=b.to(dtype).contiguous(),
+                   k1=K.sum(-1).to(dtype).contiguous())
+    else:
+        cells = qw.shape[0]
+        iu = torch.triu_indices(nloc, nloc, device=dev)
+        npack = iu.shape[1]
+        out.update(M=torch.empty((npack, cells), dtype=dtype, device=dev),
+                   K=torch.empty((npack, cells), dtype=dtype, device=dev),
+                   b=torch.empty((nloc, cells), dtype=dtype, device=dev),
+                   k1=torch.empty((nloc, cells), dtype=dtype, device=dev))
+        for c0 in range(0, cells, chunk):
+            sl = slice(c0, c0 + chunk)
+            M, K, b = element_matrices_reference(f64(qw[sl]), f64(gphi[sl]),
+                                                 phi64)
+            out["M"][:, sl] = M[:, iu[0], iu[1]].T
+            out["K"][:, sl] = K[:, iu[0], iu[1]].T
+            out["b"][:, sl] = b.T
+            out["k1"][:, sl] = K.sum(-1).T
+            del M, K, b
+    out["s"] = None
+    if source_q is not None:
+        cells = source_q.shape[0]
+        out["s"] = torch.empty((nloc, cells), dtype=dtype, device=dev)
+        for c0 in range(0, cells, chunk):
+            sl = slice(c0, c0 + chunk)
+            w = f64(qw) if qw.ndim == 1 else f64(qw[sl])
+            out["s"][:, sl] = element_source_reference(
+                w, phi64, f64(source_q[sl])).T
+    return out
+
+
 # ----------------------------------------------------------------------
 # uniform tables for the row kernel's parameter struct
 def packed_table_bytes(nloc: int, q: int, g: int, itemsize: int) -> int:
@@ -94,8 +202,11 @@ def packed_table_bytes(nloc: int, q: int, g: int, itemsize: int) -> int:
 
 def table_path(nloc: int, q: int, g: int, itemsize: int,
                uniform: bool) -> str:
-    """Which kernel a prepared call takes: "param" (row kernel, tables by
-    value) or "shared" (split kernel, tables in device memory)."""
+    """Which kernel a prepared call takes: "element" (the element form,
+    every degree-2 cell), "param" (row kernel, tables by value) or
+    "shared" (split kernel, tables in device memory)."""
+    if (nloc, g) in ELEMENT_SHAPES:
+        return "element"
     if (uniform and (nloc, g) in PARAM_SHAPES
             and packed_table_bytes(nloc, q, g, itemsize) <= PARAM_TABLE_BYTES):
         return "param"
@@ -138,8 +249,12 @@ class PreparedDGCellResidual:
     `Tc` and `Tpc` (shape, dtype, device, contiguity) and runs the plain
     version (CPU tensors) or launches a kernel (CUDA tensors). With
     `pack=True` uniform CUDA tables that fit are copied to the host once
-    and travel by value (`table_path`); the tables must not change
-    afterwards."""
+    and travel by value (`table_path`). CUDA tables of a degree-2 cell are
+    baked here into the element form's matrices (`bake_element_tables`;
+    `bake_bytes` says what they hold and, on a prepared call,
+    `bake_seconds` what the bake took). Either way the tables must not
+    change afterwards: a call reads the copy or the bake, not the
+    tables."""
 
     def __init__(self, qw, gphi, phi, source_q=None, *, nloc=None,
                  cells=None, pack=True):
@@ -182,6 +297,8 @@ class PreparedDGCellResidual:
                             f"{[str(t.dtype) for t in tables]}")
         self.path = "plain"
         self._packed = None
+        self._elem = None
+        self.bake_seconds = self.bake_bytes = None
         self._id = next(_ids)        # how the dispatcher op finds this call
         _PREPARED[self._id] = self
         if self.device.type != "cuda":
@@ -194,8 +311,20 @@ class PreparedDGCellResidual:
         if not all(t.is_contiguous() for t in tables):
             raise ValueError("dg_cell_residual: inputs must be contiguous")
         self.path = "shared"
-        if pack and table_path(nloc, q, self.g, qw.element_size(),
-                               self.uniform) == "param":
+        if table_path(nloc, q, self.g, qw.element_size(),
+                      self.uniform) == "element":
+            self.path = "element"
+            t0 = time.perf_counter()
+            self._elem = bake_element_tables(qw, gphi, phi, source_q,
+                                             self.dtype)
+            if pack:
+                torch.cuda.synchronize(self.device)
+                self.bake_seconds = time.perf_counter() - t0
+            self.bake_bytes = sum(t.numel() * t.element_size()
+                                  for t in self._elem.values()
+                                  if t is not None)
+        elif pack and table_path(nloc, q, self.g, qw.element_size(),
+                                 self.uniform) == "param":
             held = kernel_lib.library().cdll.fgt_dg_cell_param_table_bytes()
             if held != PARAM_TABLE_BYTES:
                 raise RuntimeError(
@@ -211,11 +340,16 @@ class PreparedDGCellResidual:
         return _evaluate(self, Tc, Tpc, float(dt), float(c_mass),
                          float(c_diff), float(f_src), _NO_TABLES)
 
-    def run(self, Tc, Tpc, dt, c_mass, c_diff, f_src, with_src):
+    def run(self, Tc, Tpc, dt, c_mass, c_diff, f_src, with_src,
+            any_cells=False):
         """Check Tc and Tpc, then the plain version or one launch, on
         tensors that own their storage (no automatic differentiation:
-        `__call__` adds it)."""
-        _check_rows(Tc, Tpc, self.nloc, self.cells)
+        `__call__` adds it). `any_cells`: uniform tables without the
+        source take any number of rows (the batching rule's stacked
+        batch)."""
+        free = any_cells and self.uniform and not (
+            with_src and self.source_q is not None)
+        _check_rows(Tc, Tpc, self.nloc, None if free else self.cells)
         if Tc.dtype != self.dtype or Tpc.dtype != self.dtype:
             raise TypeError(
                 f"dg_cell_residual: mixed dtypes: Tc {Tc.dtype}, Tpc "
@@ -235,7 +369,17 @@ class PreparedDGCellResidual:
         out = torch.empty_like(Tc)
         lib = kernel_lib.library().cdll
         src_ptr = None if src is None else src.data_ptr()
-        if self.path == "param":
+        if self.path == "element":
+            e = self._elem
+            b_ptr = e["b"].data_ptr() if f_src != 0.0 else None
+            s_ptr = None if src is None else e["s"].data_ptr()
+            launch = lambda stream: lib.fgt_dg_cell_element(
+                self._code, Tc.data_ptr(), Tpc.data_ptr(), e["M"].data_ptr(),
+                e["K"].data_ptr(), b_ptr, e["k1"].data_ptr(), s_ptr,
+                out.data_ptr(),
+                Tc.shape[0], self.nloc, int(not self.uniform), dt, c_mass,
+                c_diff, f_src, stream)
+        elif self.path == "param":
             launch = lambda stream: lib.fgt_dg_cell_residual_param(
                 self._code, Tc.data_ptr(), Tpc.data_ptr(), self._packed_ptr,
                 src_ptr, out.data_ptr(), Tc.shape[0], self.nloc, self.q,
@@ -289,6 +433,45 @@ def _dg_cell_launch(Tc, Tpc, qw, gphi, phi, source_q, call_id, dt, c_mass,
 
 
 _OPS.impl("dg_cell_launch", _dg_cell_launch, "CompositeExplicitAutograd")
+
+
+def _dg_cell_launch_vmap(info, in_dims, Tc, Tpc, qw, gphi, phi, source_q,
+                         call_id, dt, c_mass, c_diff, f_src, with_src):
+    """Batching rule of the launch (torch.func.vmap, as
+    solver/direct.py's materialize_jacobian maps the jvp over the columns
+    of the identity). Uniform tables, on a launch without the per-point
+    source (every tangent's): the batch is folded into the cell axis, one
+    launch for the whole batched call. Per-cell tables, or the source:
+    one launch per batch entry, since the kernels index their tables by
+    cell and take no table period."""
+    if any(d is not None for d in in_dims[2:6]):
+        raise NotImplementedError(
+            "dg_cell_residual is batched in Tc and Tpc only")
+    n = info.batch_size
+    Tc, Tpc = (t.movedim(d, 0) if d is not None else t.expand(n, *t.shape)
+               for t, d in zip((Tc, Tpc), in_dims[:2]))
+    call = _PREPARED[call_id] if call_id else None
+    uniform = call.uniform if call is not None else qw.dim() == 1
+    src = (call.source_q if call is not None else source_q) if with_src \
+        else None
+    if uniform and src is None:
+        cells, nloc = Tc.shape[1:]
+        if call is None:
+            call = PreparedDGCellResidual(qw, gphi, phi, nloc=nloc,
+                                          pack=False)
+        out = call.run(Tc.reshape(-1, nloc).contiguous(),
+                       Tpc.reshape(-1, nloc).contiguous(), dt, c_mass,
+                       c_diff, f_src, False, any_cells=True)
+        return out.reshape(n, cells, nloc), 0
+    launch = torch.ops.fgt_torch.dg_cell_launch
+    return torch.stack([
+        launch(Tc[i].contiguous(), Tpc[i].contiguous(), qw, gphi, phi,
+               source_q, call_id, dt, c_mass, c_diff, f_src, with_src)
+        for i in range(n)]), 0
+
+
+torch.library.register_vmap("fgt_torch::dg_cell_launch",
+                            _dg_cell_launch_vmap, lib=_OPS)
 _functorch_active = getattr(torch._C, "_are_functorch_transforms_active",
                             None)
 

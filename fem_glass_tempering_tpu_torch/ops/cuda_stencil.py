@@ -14,7 +14,12 @@ axis, x read through L1/L2. The value tables may stream in bfloat16 under
 an f32 or f64 vector (the V-cycle's `table_dtype`): the kernel widens each
 value exactly and sums in the vector's type, 62 bytes per point with an
 f32 vector; each table type is its own instantiation of the kernel, and
-`stencil_matvec.launches_by_table` counts the launches of each.
+`stencil_matvec.launches_by_table` counts the launches of each. The bf16
+instantiation is a kernel of its own: a thread takes 4 consecutive
+outputs and loads each table as one 8-byte vector, so bf16 tables must
+start every table on 16 bytes: `pitched_tables` casts them into such a
+layout, table o at o * pitch (pitch a multiple of 8 values), as a (3^d,
+gx, M) view that the plain version reads as it reads any.
 
 The wrapper takes the plain version for tensors on the CPU and launches
 the kernel for CUDA tensors; anything the kernel does not take raises.
@@ -42,6 +47,24 @@ def flat_shifts(grid_shape) -> list:
     return out
 
 
+# bf16 tables: the pitch's multiple, in values (16 bytes)
+BF16_PITCH = 8
+
+
+def pitched_tables(vals2: torch.Tensor,
+                   dtype=torch.bfloat16) -> torch.Tensor:
+    """vals2 (3^d, gx, M) cast to `dtype` (as `.to(dtype)` rounds) into a
+    zeroed buffer whose tables start every `pitch` values, pitch = gx M
+    rounded up to a multiple of BF16_PITCH: the (3^d, gx, M) view of
+    strides (pitch, M, 1) that K2's bf16 instantiation takes."""
+    no, gx, M = vals2.shape
+    pitch = -(-(gx * M) // BF16_PITCH) * BF16_PITCH
+    buf = torch.zeros(no * pitch, dtype=dtype, device=vals2.device)
+    view = buf.as_strided((no, gx, M), (pitch, M, 1))
+    view.copy_(vals2)
+    return view
+
+
 def stencil_matvec_reference(vals2: torch.Tensor, x: torch.Tensor,
                              grid_shape) -> torch.Tensor:
     """Plain PyTorch version: pad by one row and by the widest flat shift,
@@ -65,7 +88,8 @@ def stencil_matvec(vals2: torch.Tensor, x: torch.Tensor,
                    grid_shape) -> torch.Tensor:
     """y = A x for stencil values vals2 (3^d, gx, M) and flat x (gx*M,).
     Kernel on CUDA tensors (d = 2 or 3), plain version on CPU tensors.
-    vals2 has x's dtype, or is bfloat16 under an f32 or f64 x."""
+    vals2 has x's dtype (contiguous), or is bfloat16 under an f32 or f64
+    x, laid out as `pitched_tables` lays it out."""
     grid_shape = tuple(int(g) for g in grid_shape)
     d = len(grid_shape)
     gx = grid_shape[0]
@@ -87,7 +111,18 @@ def stencil_matvec(vals2: torch.Tensor, x: torch.Tensor,
     if vals2.dtype != x.dtype and vals2.dtype != torch.bfloat16:
         raise TypeError(f"stencil_matvec: vals {vals2.dtype} vs x {x.dtype}")
     table_code = 2 if vals2.dtype == torch.bfloat16 else code
-    if not (vals2.is_contiguous() and x.is_contiguous()):
+    pitch = gx * M
+    if table_code == 2:
+        pitch = vals2.stride(0)
+        if (tuple(vals2.stride()[1:]) != (M, 1) or pitch % BF16_PITCH
+                or pitch < gx * M or vals2.data_ptr() % 16):
+            raise ValueError(
+                "stencil_matvec: bf16 tables must start every table on 16 "
+                "bytes, at a pitch that is a multiple of 8 values "
+                f"(pitched_tables); got strides {tuple(vals2.stride())}")
+    elif not vals2.is_contiguous():
+        raise ValueError("stencil_matvec: inputs must be contiguous")
+    if not x.is_contiguous():
         raise ValueError("stencil_matvec: inputs must be contiguous")
     y = torch.empty_like(x)
     lib = kernel_lib.library().cdll
@@ -95,7 +130,7 @@ def stencil_matvec(vals2: torch.Tensor, x: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fgt_stencil_matvec(code, table_code, d, vals2.data_ptr(),
                                     x.data_ptr(), y.data_ptr(), gx, M,
-                                    grid_shape[-1], stream)
+                                    grid_shape[-1], pitch, stream)
     kernel_lib.check(rc, "stencil_matvec")
     stencil_matvec.launches += 1
     stencil_matvec.launches_by_table[str(vals2.dtype)[6:]] += 1

@@ -36,7 +36,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fem_glass_tempering_tpu_torch.ops.cuda_stencil import flat_shifts
+from fem_glass_tempering_tpu_torch.ops.cuda_stencil import (
+    flat_shifts,
+    pitched_tables,
+)
 from fem_glass_tempering_tpu_torch.ops.heat import HeatOperator
 from fem_glass_tempering_tpu_torch.ops.stencil import StencilMatrix
 
@@ -412,12 +415,14 @@ class GridHeatOperator:
     def _mv_flat(self, vals, stream_dtype=None):
         """Flat-vector matvec from materialised values: the CUDA stencil
         kernel on the GPU, its plain twin on the CPU. `stream_dtype`
-        (torch.bfloat16) casts the value tables alone, once here; the
-        vector and the sums keep the operator's dtype."""
+        (torch.bfloat16) casts the value tables alone, once here (on the
+        card into the pitched layout of K2's bf16 kernel); the vector and
+        the sums keep the operator's dtype."""
         if self.d > 1:
             vals2 = vals.reshape(vals.shape[0], self.grid[0], -1)
             if stream_dtype is not None:
-                vals2 = vals2.to(stream_dtype)
+                vals2 = (pitched_tables(vals2, stream_dtype) if vals2.is_cuda
+                         else vals2.to(stream_dtype))
             return lambda v: self.st.matvec_flat(vals2, v)
         if stream_dtype is not None:
             vals = vals.to(stream_dtype)

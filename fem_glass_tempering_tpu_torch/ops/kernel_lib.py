@@ -55,7 +55,7 @@ _SIGNATURES = {
                             _D, _D, _D, _D, ctypes.POINTER(_D),
                             ctypes.POINTER(_D), _P],
     "fgt_stencil_matvec": [ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
-                           _P, _P, _I64, _I64, _I64, _P],
+                           _P, _P, _I64, _I64, _I64, _I64, _P],
     "fgt_dg_cell_residual": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _I64,
                              ctypes.c_int, ctypes.c_int, ctypes.c_int,
                              ctypes.c_int, _D, _D, _D, _D, _P],
@@ -63,6 +63,9 @@ _SIGNATURES = {
                                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                    _D, _D, _D, _D, _P],
     "fgt_dg_cell_param_table_bytes": [],
+    "fgt_dg_cell_element": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I64, ctypes.c_int, ctypes.c_int, _D, _D, _D, _D,
+                            _P],
 }
 
 

@@ -12,7 +12,11 @@ the absolute values of its terms. K3 runs through both of its kernels:
 the direct call (tables in device memory, the split kernel) and the
 prepared call (uniform tables that fit travel by value, the row kernel),
 which must agree bit for bit, and at every degree-2 cell shape on the
-heat operator's own tables. The grouped scatter-adds of the gather path
+heat operator's own tables and on random ones, where both calls take the
+element form (the baked element matrices), uniform and per cell, on cell
+counts that fill no whole block. K2's bf16 kernel takes tables pitched
+to 16 bytes (`pitched_tables`) and equals its twin bit for bit on odd
+grids, the 161x161x41 fine level among them. The grouped scatter-adds of the gather path
 (ops/scatter.py) must repeat their bits on the card, and equal the CPU's.
 """
 
@@ -89,23 +93,27 @@ def test_stencil_matvec_kernel(cuda, grid, dtype):
     assert torch.equal(y, y_ref)
 
 
-@pytest.mark.parametrize("grid", [(9, 7, 5), (10, 8), (41, 21, 6)])
+@pytest.mark.parametrize("grid", [(9, 7, 5), (10, 8), (41, 21, 6),
+                                  (161, 161, 41), (81, 81, 21), (6, 6, 2),
+                                  (3, 2, 2), (11, 7)])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_stencil_matvec_kernel_bf16_tables(cuda, grid, dtype):
     """K2's bf16-table instantiation under an f32 / f64 vector equals its
     plain twin bit for bit (both widen the tables exactly and round in
-    the vector's dtype) and counts as a bf16 launch; other table / vector
-    pairs raise."""
+    the vector's dtype) on the pitched tables of odd grids, x at an
+    offset too, and counts as a bf16 launch; other table / vector pairs
+    raise."""
     from fem_glass_tempering_tpu_torch.ops.cuda_stencil import (
+        pitched_tables,
         stencil_matvec,
         stencil_matvec_reference,
     )
 
     rng = np.random.default_rng(4)
     d = len(grid)
-    vals = torch.tensor(rng.standard_normal((3 ** d,) + grid),
-                        device=cuda).reshape(3 ** d, grid[0], -1).to(
-                            torch.bfloat16)
+    vals = pitched_tables(torch.tensor(
+        rng.standard_normal((3 ** d,) + grid),
+        device=cuda).reshape(3 ** d, grid[0], -1))
     x = torch.tensor(rng.standard_normal(int(np.prod(grid))), dtype=dtype,
                      device=cuda)
     before = dict(stencil_matvec.launches_by_table)
@@ -116,6 +124,10 @@ def test_stencil_matvec_kernel_bf16_tables(cuda, grid, dtype):
     y_ref = stencil_matvec_reference(vals, x, grid)
     torch.cuda.synchronize()
     assert torch.equal(y, y_ref)
+    # x off 16 bytes: the kernel reads its windows point by point
+    x_off = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)[1:]
+    x_off.copy_(x)
+    assert torch.equal(stencil_matvec(vals, x_off, grid), y_ref)
     other = torch.float32 if dtype == torch.float64 else torch.float64
     with pytest.raises(TypeError):
         stencil_matvec(vals.to(other), x, grid)
@@ -125,11 +137,19 @@ def test_stencil_matvec_kernel_bf16_tables(cuda, grid, dtype):
 
 @pytest.mark.parametrize("shape,q,g,uniform", [
     ((48, 2), 2, 1, False),        # the 1D reference slab
+    ((50, 12), 11, 3, True),       # the runtime-shape split kernel
+    ((50, 12), 11, 3, False),
     ((1000, 8), 8, 3, False),      # hex DG-1, per-cell tables
     ((1000, 8), 8, 3, True),       # hex DG-1, uniform box
     ((77, 3), 3, 2, False),        # triangles
-    ((50, 10), 11, 3, True),       # no unrolled instantiation: runtime shape
+    ((50, 10), 11, 3, True),       # degree-2 shapes: the element form
     ((50, 10), 11, 3, False),
+    ((1029, 27), 27, 3, True),     # no whole block of cells
+    ((1029, 27), 27, 3, False),
+    ((333, 10), 64, 3, False),
+    ((129, 9), 9, 2, True),
+    ((129, 6), 16, 2, False),
+    ((5, 3), 3, 1, False),
     ((1029, 8), 8, 3, True),       # no whole warp or block of cells
     ((1029, 8), 8, 3, False),
     ((5, 8), 8, 3, True),
@@ -227,9 +247,10 @@ def test_dg_cell_residual_kernel_at_degree_two(cuda, cell, dtype, rtol):
     dTc = t(rng.standard_normal(shape))
     kw = dict(dt=0.1, c_diff=heat.c_diff, f_src=0.3, c_mass=heat.c_mass)
     call = heat._cell_term
+    assert call.path == "element"
     fn = lambda u: call(u, Tpc, **kw)  # noqa: E731
     direct = dg_cell_residual(Tc, Tpc, qw, gphi, phi, **kw)
-    assert torch.equal(fn(Tc), direct)          # either kernel, same bits
+    assert torch.equal(fn(Tc), direct)          # either call, same bits
     before = dg_cell_residual.launches
     y, dy = torch.func.jvp(fn, (Tc,), (dTc,))
     assert dg_cell_residual.launches == before + 2
@@ -246,6 +267,61 @@ def test_dg_cell_residual_kernel_at_degree_two(cuda, cell, dtype, rtol):
     assert ((dy - dwant).abs() <= rtol * dmag).all()
 
 
+def test_dg_cell_residual_paths(cuda):
+    """The degree-2 shapes take the element form, uniform or per cell, in
+    the prepared and the direct call; the degree-1 shapes keep the row
+    kernel ("param") and the split kernel ("shared")."""
+    from fem_glass_tempering_tpu_torch.ops.cuda_dg_cell import (
+        ELEMENT_SHAPES,
+        PreparedDGCellResidual,
+    )
+
+    rng = np.random.default_rng(8)
+    t = lambda *s: torch.tensor(rng.random(s), device=cuda)  # noqa: E731
+    for nloc, g in ELEMENT_SHAPES:
+        for lead in ((), (7,)):
+            call = PreparedDGCellResidual(t(*lead, 5), t(*lead, 5, nloc, g),
+                                          t(5, nloc))
+            assert call.path == "element"
+            assert call.bake_bytes > 0 and call.bake_seconds >= 0.0
+    for nloc, g, lead, path in ((8, 3, (), "param"), (4, 2, (), "param"),
+                                (2, 1, (), "param"), (8, 3, (7,), "shared"),
+                                (3, 2, (7,), "shared"), (4, 3, (), "shared")):
+        call = PreparedDGCellResidual(t(*lead, 4), t(*lead, 4, nloc, g),
+                                      t(4, nloc))
+        assert call.path == path and call.bake_bytes is None
+
+
+def test_batching_rule_launches_once_over_uniform_tables(cuda):
+    """solver/direct.py's dense Jacobian vmaps the jvp: over uniform
+    tables K3 launches once for all the columns' tangents; the Jacobian
+    equals the CPU's."""
+    from fem_glass_tempering_tpu_torch.config import ModelParams
+    from fem_glass_tempering_tpu_torch.fem.functionspace import FunctionSpace
+    from fem_glass_tempering_tpu_torch.fem.mesh import interval_mesh
+    from fem_glass_tempering_tpu_torch.ops.cuda_dg_cell import (
+        dg_cell_residual,
+    )
+    from fem_glass_tempering_tpu_torch.ops.heat import HeatOperator
+    from fem_glass_tempering_tpu_torch.solver.direct import (
+        materialize_jacobian,
+    )
+
+    fs = FunctionSpace(interval_mesh(24), "DG", 1)
+    J = {}
+    for where in ("cpu", cuda):
+        op = HeatOperator(fs, ModelParams(), 0.1, device=where)
+        T = torch.linspace(800.0, 830.0, fs.n_scalar_dofs,
+                           dtype=torch.float64, device=op.device)
+        before = dg_cell_residual.launches
+        J[str(where)] = materialize_jacobian(
+            lambda u: op.residual(u, T - 1.0), T).cpu()
+        if where == cuda:
+            assert dg_cell_residual.launches == before + 2
+    a, b = J["cpu"], J[str(cuda)]
+    assert ((a - b).abs() <= 1e-12 * a.abs().max()).all()
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     from fem_glass_tempering_tpu_torch.ops.cuda_stencil import stencil_matvec
 
@@ -255,6 +331,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                        (4, 3, 2))
     v = torch.zeros((27, 6, 4), device=cuda).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
+        stencil_matvec(v, torch.zeros(24, device=cuda), (4, 3, 2))
+    # bf16 tables off the 16-byte pitch (n = 30: contiguous tables start
+    # every 60 bytes) or off 16 bytes themselves
+    v = torch.zeros((27, 5, 6), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16"):
+        stencil_matvec(v, torch.zeros(30, device=cuda), (5, 3, 2))
+    v = torch.zeros(27 * 32 + 1, device=cuda,
+                    dtype=torch.bfloat16)[1:].as_strided((27, 4, 6),
+                                                         (32, 6, 1))
+    with pytest.raises(ValueError, match="16"):
         stencil_matvec(v, torch.zeros(24, device=cuda), (4, 3, 2))
 
     from fem_glass_tempering_tpu_torch.ops.cuda_dg_cell import (

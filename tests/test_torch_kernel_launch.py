@@ -281,7 +281,11 @@ def test_table_path_of_the_shapes_on_the_main_paths():
     assert dgc.table_path(8, 8, 3, 8, True) == "param"
     # cells the row kernel has no instantiation for stay in device memory
     assert dgc.table_path(3, 9, 2, 8, True) == "shared"
-    assert dgc.table_path(27, 27, 3, 8, True) == "shared"
+    # the degree-2 cells take the element form, uniform or per cell
+    for nloc, g in dgc.ELEMENT_SHAPES:
+        for uniform in (True, False):
+            assert dgc.table_path(nloc, 27, g, 8, uniform) == "element"
+    assert dgc.table_path(27, 27, 3, 4, True) == "element"
     # the struct and the other arguments fit a kernel's 4 KB of parameters
     assert dgc.PARAM_TABLE_BYTES + 128 <= 4096
 
