@@ -35,6 +35,9 @@ parity cases, the CG-2 gather plate, the mixed CG-2 plate) alone.
 V-cycle tables and its "same" arm, with K2's bf16-table instantiation
 checked and timed; 12b-12e: bf16 parity, the custom-PDE API,
 solve_scan, the native runtime), with each part's seconds.
+`phase13` runs phase 13 alone (shard_problem and CGDDProblem: the
+unsharded and one-NCCL-rank runs in this process, then two gloo ranks
+on the card), with its seconds.
 `kernels` times K1 (material_tspace, n = 1,062,761, f32 and f64), K3
 (dg_cell_residual, 65,536 hex cells, f64, uniform and per-cell tables; the
 direct call, and the prepared call where the tree has one; and the
@@ -293,7 +296,8 @@ def main() -> int:
     ap.add_argument("tree", help="root of the checkout to measure")
     ap.add_argument("what", choices=("kernels", "phase5", "phase6",
                                      "phase8b", "phase9", "phase10",
-                                     "phase11", "phase12", "dgparity"))
+                                     "phase11", "phase12", "phase13",
+                                     "dgparity"))
     ap.add_argument("--source-flags", default="", metavar="SRC:FLAG[,FLAG]",
                     help="replace one source's nvcc flags (empty FLAG: none)")
     ap.add_argument("--plain-cell-term", action="store_true",
@@ -381,6 +385,10 @@ def main() -> int:
             res[part] = run()
             seconds[part] = time.perf_counter() - t0
         res["seconds"] = seconds
+    elif args.what == "phase13":
+        t0 = time.perf_counter()
+        res = cs.distributed_phase(dev, port)
+        res["phase13_s"] = time.perf_counter() - t0
     elif args.what == "phase8b":
         full = cs.mechanics_plate_phase(dev, port)
         res = {k: full[k] for k in (

@@ -17,6 +17,9 @@ path:
   - models/   thermal + viscoelastic physics, equilibrium mechanics, the
               problem driver, the temper analysis
   - io/       npz, VTU and XDMF time series, checkpoints
+  - parallel/ distribution over torch.distributed: the collectives, cell-
+              axis sharding of a problem, the partition, the CG domain
+              decomposition
   - utils/    logging helpers, phase timers, the torch.profiler trace,
               the native runtime's bindings (native.py)
   - main.py   the command line (python -m fem_glass_tempering_tpu_torch.main)

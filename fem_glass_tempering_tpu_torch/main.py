@@ -12,6 +12,8 @@ Examples:
   python -m fem_glass_tempering_tpu_torch.main --problem-dim 3 --nx 32 --steps 100
   python -m fem_glass_tempering_tpu_torch.main --device cpu --steps 3 --output-dir /tmp/out
   python -m fem_glass_tempering_tpu_torch.main --mesh mesh1d.msh --write-mesh out.msh
+  torchrun --standalone --nproc-per-node 2 -m fem_glass_tempering_tpu_torch.main \
+      --shard --device cpu --problem-dim 2 --t-element DG1 --nx 8 --ny 8 --steps 3
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 
 
@@ -54,8 +57,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every", type=int)
     p.add_argument("--resume", help="checkpoint file to resume from")
     p.add_argument("--shard", action="store_true",
-                   help="shard over all visible devices (waits for Slice 7 "
-                        "of the port)")
+                   help="shard the heat operator's cells over the ranks of "
+                        "a torch.distributed group (under torchrun: its "
+                        "ranks, NCCL for --device cuda, gloo for cpu; "
+                        "else one rank); rank 0 writes the output")
     p.add_argument("--write-mesh", help="write the mesh as gmsh 4.1 and exit")
     p.add_argument("--progress", action="store_true")
     p.add_argument("--profile-dir",
@@ -107,6 +112,8 @@ def _parse_element(s: str) -> tuple[str, int]:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
+    import torch
+
     from fem_glass_tempering_tpu_torch.config import RunConfig
     from fem_glass_tempering_tpu_torch.device import resolve_device
     from fem_glass_tempering_tpu_torch.fem.mesh import (
@@ -114,10 +121,11 @@ def main(argv=None) -> int:
     )
     from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
 
-    if args.shard:
-        raise NotImplementedError("sharding (--shard) waits for Slice 7 of "
-                                  "the PyTorch port (ROADMAP.md)")
     device = resolve_device(args.device)
+    if (args.shard and device.type == "cuda" and device.index is None
+            and "LOCAL_RANK" in os.environ):
+        # torchrun: one card a rank on a host
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
 
     cfg = RunConfig()
     if args.config:
@@ -196,26 +204,45 @@ def main(argv=None) -> int:
         print(f"wrote {args.write_mesh} ({mesh.n_cells} {mesh.cell_type} cells)")
         return 0
 
-    prob = ThermoViscoProblem(mesh=mesh, config=cfg, device=device)
-    prob.setup(dirichlet_bc=args.dirichlet_bc)
-
-    if args.resume:
-        prob.resume_from(args.resume)
-
-    if args.profile_dir:
-        from fem_glass_tempering_tpu_torch.utils.profiling import device_trace
-        with device_trace(args.profile_dir, device=device):
-            prob.solve(progress=args.progress)
-    else:
-        prob.solve(progress=args.progress)
-    d = prob.diagnostics
-    print(json.dumps({
-        "elapsed_seconds": prob.elapsed_seconds,
-        "n_steps": prob.n_steps,
-        "newton_iters": d.newton_iters,
-        "krylov_iters": d.krylov_iters,
-        "io_seconds": d.io_seconds,
-    }))
+    mesh_dev = None
+    if args.shard:
+        from fem_glass_tempering_tpu_torch.parallel.sharding import (
+            make_device_mesh, shard_problem,
+        )
+        mesh_dev = make_device_mesh(device)
+    lead = mesh_dev is None or mesh_dev.rank == 0
+    if not lead:
+        # rank 0 writes; the others step alike (the same write_every
+        # chunks) and write nothing
+        cfg = dataclasses.replace(cfg, output=dataclasses.replace(
+            cfg.output, formats=(), checkpoint_every=0))
+    try:
+        prob = ThermoViscoProblem(mesh=mesh, config=cfg, device=device)
+        prob.setup(dirichlet_bc=args.dirichlet_bc)
+        if args.resume:
+            prob.resume_from(args.resume)
+        if mesh_dev is not None:
+            shard_problem(prob, mesh_dev)
+        if args.profile_dir and lead:
+            from fem_glass_tempering_tpu_torch.utils.profiling import (
+                device_trace,
+            )
+            with device_trace(args.profile_dir, device=device):
+                prob.solve(progress=args.progress)
+        else:
+            prob.solve(progress=args.progress and lead)
+    finally:
+        if mesh_dev is not None:
+            mesh_dev.close()
+    if lead:
+        d = prob.diagnostics
+        print(json.dumps({
+            "elapsed_seconds": prob.elapsed_seconds,
+            "n_steps": prob.n_steps,
+            "newton_iters": d.newton_iters,
+            "krylov_iters": d.krylov_iters,
+            "io_seconds": d.io_seconds,
+        }))
     return 0
 
 

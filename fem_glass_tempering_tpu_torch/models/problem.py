@@ -512,7 +512,11 @@ class ThermoViscoProblem:
         # the CG-1 grid operator or the CG-2 lattice operator: one surface
         # for the residual, the diagonal and the Jacobian action
         grid = self._grid if self._grid is not None else self._grid2
-        ell = self._krylov_operator(heat, grid, dg_mg)
+        # a sharded heat operator (parallel/sharding.py) assembles this
+        # rank's cells; the Krylov operator is built whole, as the solver's
+        # other operators are
+        ell = self._krylov_operator(getattr(heat, "whole", heat), grid,
+                                    dg_mg)
         self._ell = ell
         hres = self._residual_operator(heat, grid, ell)
         # mixed precision: f32 twins for the inner CG

@@ -232,7 +232,13 @@ class HeatOperator:
                    + ein("fq,fql->fl", coef * avg_dT, self.i_phi_m))
             r = r + self._sc_p(r_p)
             r = r + self._sc_m(r_m)
-        return r
+        return self._reduce(r)
+
+    def _reduce(self, partial):
+        """The sum of a partial assembly over the ranks that hold this
+        operator's cells: the identity here, an all-reduce in the sharded
+        operator (parallel/sharding.py)."""
+        return partial
 
     def residual(self, T, T_prev, dt=None):
         """Assembled residual, with Dirichlet lifting if configured."""
@@ -292,7 +298,7 @@ class HeatOperator:
         d_b = torch.einsum(
             "fq,fql,fql->fl", self.b_qw * dt * dflux, self.b_phi, self.b_phi)
         d_mass, d_stiff = self._const_diag
-        d = d_mass + dt * d_stiff + self._sc_b(d_b)
+        d = d_mass + dt * d_stiff + self._reduce(self._sc_b(d_b))
         if self.has_bc:
             d = torch.where(self.bc_mask, torch.ones_like(d), d)
         return d

@@ -118,11 +118,24 @@ def test_cli_write_mesh(tmp_path, capsys):
     assert (tmp_path / "t.msh").read_bytes() == (tmp_path / "j.msh").read_bytes()
 
 
-def test_cli_shard_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="Slice 7"):
-        tmain(["--device", "cpu", "--shard", "--steps", "1",
-               "--output-dir", str(tmp_path)])
-    assert not any(tmp_path.iterdir())
+def test_cli_shard_raises(tmp_path, monkeypatch, capsys):
+    """--shard runs (parallel/sharding.py): as one rank on the CPU it
+    steps as the unsharded command line does. Without a GPU the default
+    device raises before any output, sharded or not."""
+    counts = {}
+    for tag in ("plain", "shard"):
+        argv = ["--device", "cpu", "--steps", "2", "--output-dir",
+                str(tmp_path / tag)] + (["--shard"] if tag == "shard" else [])
+        assert tmain(argv) == 0
+        out = json.loads(capsys.readouterr().out.splitlines()[-1])
+        counts[tag] = (out["newton_iters"], out["krylov_iters"])
+    assert counts["shard"] == counts["plain"]
+    assert not torch.distributed.is_initialized()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tmain(["--shard", "--steps", "1", "--output-dir",
+               str(tmp_path / "cuda")])
+    assert not (tmp_path / "cuda").exists()
 
 
 @pytest.mark.parametrize("extra", [[], ["--write-mesh", "MESH"]],

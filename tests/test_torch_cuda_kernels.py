@@ -536,3 +536,42 @@ def test_grid2_jacobian_action_repeats_its_bits(cuda):
         out[str(dev)] = [a.cpu().numpy() for a in runs[0]]
     for a, b in zip(out["cpu"], out[str(cuda)]):
         assert np.abs(a - b).max() <= 1e-12 * np.abs(a).max()
+
+
+def test_two_gloo_ranks_on_one_card(cuda):
+    """Two ranks on one card over gloo (NCCL refuses two ranks on one
+    device): all_reduce_sum's tangent and the summed all-gather on CUDA
+    tensors, shard_problem on the DG box and the graded slab (K3 on each
+    rank's cells) and the CGDD hex box, every rank in lockstep and each
+    run held to the unsharded run on the card at the CPU tests' bounds
+    (tests/test_torch_parallel.py)."""
+    import torch_parallel_ranks as R
+    from fem_glass_tempering_tpu_torch.models.problem import (
+        ThermoViscoProblem,
+    )
+    from fem_glass_tempering_tpu_torch.parallel.comm import run_ranks
+
+    res = run_ranks(R.card_body, 2, "cuda:0", backend="gloo", timeout=600)
+    col = [r["collectives"] for r in res]
+    t = sum(2 * c["x"] * c["v"] for c in col)
+    for c in col:
+        np.testing.assert_allclose(c["t"], t, rtol=1e-15)
+        assert np.array_equal(c["gathered"].view(np.int64),
+                              c["all_gather"].view(np.int64))
+    for name in ("dg1_2d", "slab"):
+        ref = R.solve_problem(name, device=cuda)
+        for r in res:
+            got = r["shard"][name]
+            assert (got["newton"], got["cg"]) == (ref["newton"], ref["cg"])
+            np.testing.assert_array_equal(got["T"], res[0]["shard"][name]["T"])
+            np.testing.assert_allclose(got["T"], ref["T"], rtol=1e-12,
+                                       atol=1e-10)
+    prob = ThermoViscoProblem(mesh=R.CGDD_CASES["hex"][0](),
+                              config=R.cgdd_config("hex"), device=cuda)
+    prob.setup()
+    T_ref = prob.solve().T.cpu().numpy()
+    for r in res:
+        got = r["cgdd"]["hex"]
+        assert all(got["ok"]) and got["newton"] == res[0]["cgdd"]["hex"][
+            "newton"]
+        np.testing.assert_allclose(got["T"], T_ref, rtol=1e-10, atol=1e-9)

@@ -25,7 +25,8 @@ def _port_files():
             "io/checkpoint.py", "main.py", "io/vtu.py", "io/xdmf.py",
             "fem/mshio.py", "models/analysis.py", "utils/logging.py",
             "utils/profiling.py", "ops/forms.py", "solver/direct.py",
-            "utils/native.py"} <= names
+            "utils/native.py", "parallel/comm.py", "parallel/partition.py",
+            "parallel/sharding.py", "parallel/domain_cg.py"} <= names
     return files
 
 
@@ -124,6 +125,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
     for op in (ElasticityOperator, GridElasticityOperator):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             op(fs)
+    from fem_glass_tempering_tpu_torch.parallel.comm import make_device_mesh
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_device_mesh()
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
