@@ -39,7 +39,7 @@ Phases (each raises on failure; the exit code is then nonzero):
      step 10, equal to the whole run bit for bit in every field;
   6. the DG-1 plate on SA-AMG: 48x48x12 hex cells, 221,184 T dofs (the
      64x64x16 plate's host setup took 60-151 s), f64, rtol 1e-12,
-     matrix-free CG + SA-AMG, 1 warm-up step and 2 timed steps; before
+     matrix-free CG + SA-AMG, 1 warm-up step and 1 timed step; before
      it the same configuration at 8x8x4 twice on the GPU (equal bits:
      the gather residual's scatter-adds are grouped, ops/scatter.py) and
      against the port on the CPU (fields tight, Newton equal, CG within
@@ -48,7 +48,7 @@ Phases (each raises on failure; the exit code is then nonzero):
      column-smoothed, with its CG-1 geometric-MG correction) and the DG
      block stencil: (a) 8x8x4, 3 steps, the GPU against the CPU; (b) the
      64x64x16 plate in f64 and then with cg_dtype="float32" (mixed
-     precision), each 1 warm-up step and 2 timed steps, with the mixed
+     precision), each 1 warm-up step and 1 timed step, with the mixed
      run's T held to the f64 run's within 5e-3 K, the launch counts held
      to what the code implies (K1 once a step, K2 25 times a V-cycle, no
      K3), and K2 held to its plain version on every CG-1 level's real
@@ -62,7 +62,7 @@ Phases (each raises on failure; the exit code is then nonzero):
      DG-1 plate through "auto" with mechanics, 3 steps, GPU against CPU;
      (b) the JAX package's first coupled row of 500k dofs or more, the
      128x128x32 plate (549,153 T dofs, 1,647,459 displacement dofs), f32,
-     1 warm-up step and 3 timed steps: ms per step, the three iteration
+     1 warm-up step and 2 timed steps: ms per step, the three iteration
      counts, exact K1/K2 launches, layer times, setup by part, peak
      memory, the residual-stress profile;
   9. the CG-2 lattice path (GridHeatOperator2 + Q2MG, ops/grid2.py, over
@@ -73,7 +73,7 @@ Phases (each raises on failure; the exit code is then nonzero):
      card against the gather operator at 1e-12 (K3 at nloc 27 held to its
      plain version there); (b) the JAX
      package's largest CG-2 row, the 64x64x16 plate (549,153 T dofs), f32,
-     1 warm-up step and 5 timed steps: ms per step, Newton and CG per
+     1 warm-up step and 3 timed steps: ms per step, Newton and CG per
      step, the layers (Q2MG apply and build, line factorisation and
      solve, coarse V-cycle apply), setup by part, peak memory, exact
      K1/K2/K3 launches, K2 on every smoothed coarse level, and K3 at
@@ -86,11 +86,11 @@ Phases (each raises on failure; the exit code is then nonzero):
      against the CPU, with K3 launched exactly where the gather residual
      runs; (b) the 48x48x12 CG-2 plate (235,225 T dofs) on the gather
      path (grid_native="off", matrix-free, SA-AMG, f32, rtol 1e-5,
-     jac_every 5), 1 warm-up step and 3 timed steps: ms per step, counts,
+     jac_every 5), 1 warm-up step and 2 timed steps: ms per step, counts,
      setup by part, peak memory, K3 launches per step and K3 on the
      operator's tables against its bound; (c) the 64x64x16 CG-2 plate of
      phase 9b in f64 with the f32 twins of the lattice operator and of
-     Q2MG (cg_dtype="float32", rtol 1e-12, "auto"), 1 + 2 steps, K1/K2
+     Q2MG (cg_dtype="float32", rtol 1e-12, "auto"), 1 + 1 steps, K1/K2
      launches exact, T after one step within 5e-3 K of an f64 run's;
  11. the command-line entry point (`fem_glass_tempering_tpu_torch.main`,
      called in this process, its output in a directory deleted after):
@@ -99,7 +99,7 @@ Phases (each raises on failure; the exit code is then nonzero):
      chunk, the VTU's Temperature and the npz's T equal to its T bit for
      bit, K1 5 and K2 31 per CG or Newton iteration, file sizes, io
      seconds, the temper metrics of the written sigma; (b) the
-     reference's default run, 10 steps, on the card with --profile-dir
+     reference's default run, 6 steps, on the card with --profile-dir
      and on the CPU: equal counts, T and Tf within max-rel 1e-9, sigma
      1e-6 of max, temper profiles 1e-9, and the trace's K1 and K3 kernel
      events equal to their launch counts; (c) that run from a gmsh file
@@ -110,9 +110,9 @@ Phases (each raises on failure; the exit code is then nonzero):
  12. bf16 V-cycle tables, the custom-PDE API, solve_scan and the native
      runtime: (a) the 1,062,761-dof CG-1 plate in mixed precision (f64
      Newton at rtol 1e-12 over the f32 CG and the f32 GeometricMG twin,
-     Chebyshev) with mg_table_dtype="bfloat16", 1 warm-up step and 2
-     timed steps, then the same problem with the hierarchy's table dtype
-     set to None ("same": f32 tables), 1 + 2 steps, then same and bf16
+     Chebyshev) with mg_table_dtype="bfloat16", 1 warm-up step and 1
+     timed step, then the same problem with the hierarchy's table dtype
+     set to None ("same": f32 tables), 1 + 1 steps, then same and bf16
      once more (ms per step compared in turns): ms per step, counts,
      setup, peak memory, K2 launches per table dtype exact, T of the two
      arms within max-rel 1e-10, CG at most 2x; before that K2's bf16-table
@@ -125,28 +125,39 @@ Phases (each raises on failure; the exit code is then nonzero):
      MMS through the form layer, newton_direct on the validation slab
      and on a uniform slab (K3's batching rule: one launch per Jacobian
      column over per-cell tables, one for all columns over uniform
-     ones), each GPU against CPU; (d) solve_scan on the default slab, 10
-     steps in chunks of 5, equal bit for bit to solve()'s snapshots, counts and
+     ones), each GPU against CPU; (d) solve_scan on the default slab, 6
+     steps in chunks of 3, equal bit for bit to solve()'s snapshots, counts and
      K1 / K3 launches equal; (e) the 1,024,000-hex plate: native facets
      equal to the numpy builder's, and its --write-mesh file read back
      through the native parser equal to the built mesh, with the seconds;
  13. distribution (parallel/): (a) two gloo ranks on this card, spawned
      (NCCL refuses two ranks on one device): shard_problem on the DG-1
      8x8x4 box ("auto", matrix-free: K3 on each rank's cells) and
-     CGDDProblem on the 4x4 CG-2 square, 3 steps each, and CGDDProblem
+     CGDDProblem on the 4x4 CG-2 square, 1 step each, and CGDDProblem
      on the JAX package's dry-run plate (8x4x2, f64), 1 step, held to the
      unsharded run on the card (T rtol 1e-12 / atol 1e-10; CGDD 1e-10 /
      1e-9), Newton equal on both ranks and to the unsharded run (CGDD:
      to one NCCL rank's), CG within 1%, the ranks in lockstep, K1 / K2 /
-     K3 launches per rank exact; (b) the 64x64x16 DG-1 plate ("auto", matrix-free, f64), 1 + 2
-     steps unsharded, then the same problem sharded in place over one
-     NCCL rank (bit-equal), then over the two gloo ranks (max-rel 1e-12,
-     Newton equal); and the 160x160x40 CGDD plate (1,062,761 dofs, f32)
+     K3 launches per rank exact; (b) the 64x64x16 DG-1 plate ("auto",
+     matrix-free, f64), 1 + 1 steps unsharded, then the same problem
+     sharded in place over one NCCL rank (bit-equal), then over the two
+     gloo ranks (max-rel 1e-12, Newton equal); and the 160x160x40 CGDD
+     plate (1,062,761 dofs, f32)
      in one capped step (one Newton iteration of CGDD_FULL_CG Jacobi-CG
      iterations: a converged step takes ~8,800) over one NCCL rank and
      over the two gloo ranks (finite, the ranks in lockstep); ms per step
      and per CG iteration, counts, setup seconds, peak memory per rank
-     and K1 / K2 / K3 launches.
+     and K1 / K2 / K3 launches; (c) DDProblem (the DG domain
+     decomposition, K3 on each rank's cells, K1 in its material step):
+     the reference's graded slab, 3 steps on the two gloo ranks, held to
+     the unsharded run on the card at JAX's tolerances (T 1e-10 / 1e-9,
+     sigma 1e-8 / 1e-12, the gathered state 1e-9 / 1e-11), Newton equal
+     to JAX's 4 / 3 / 3 and CG within 2% of its 217 / 164 / 166, the
+     ranks in lockstep; then phase 7's 64x64x16 plate (524,288 dofs, f64)
+     in one capped step (1 Newton x CGDD_FULL_CG CG) over one NCCL rank
+     and over the two gloo ranks (T max-rel 1e-7, the ranks bit-equal):
+     ms per CG iteration, setup seconds, peak memory and K1 / K3 launches
+     per rank.
 Phase 2 also holds K3 at every degree-2 cell shape (nloc 3, 6, 9, 10, 27)
 on the port's HeatOperator tables, f64 and f32, all in the element form,
 and times nloc 27 (uniform f32 and f64, 65,536 cells) and nloc 10
@@ -207,24 +218,24 @@ N_DG = (64, 64, 16)              # 65,536 hex cells, 524,288 DG-1 dofs
 # SA-AMG) took 60-151 s, and the script 1,179.1 s of its 1,200 on a slow
 # host; 27,648 hex cells, 221,184 DG-1 dofs
 N_DG_AMG = (48, 48, 12)
-DG_TIMED_STEPS = 2
+DG_TIMED_STEPS = 1
 DG_PARITY_STEPS = 3
 N_MECH = (128, 128, 32)          # 524,288 hex cells, 549,153 T dofs
-MECH_TIMED_STEPS = 3
+MECH_TIMED_STEPS = 2
 # the quenching plate: 50 steps with the reference xi, as the JAX
 # package's test (its quench signature, the membrane balance, holds from
 # there: at 20 steps the centre column is 7.7% asymmetric); 10 with the
 # trapezoid xi, the strict parity run
 MECH_PLATE_STEPS = dict(reference=50, trapezoid=10)
 N_CG2 = (64, 64, 16)             # 65,536 hex cells, 549,153 CG-2 T dofs
-CG2_TIMED_STEPS = 5
+CG2_TIMED_STEPS = 3
 # the CG-2 plate on the gather path: the 48x48x12 row of the JAX
 # package's CG-2 table (BENCH.md:355), 27,648 hex cells, 235,225 T dofs;
 # at 64x64x16 its ELL and SA-AMG setup on the host took 98-135 s and the
 # script 1,131 s of its 1,200 (an NVIDIA H100 80GB HBM3 at 700 W)
 N_GATHER = (48, 48, 12)
-GATHER_TIMED_STEPS = 3
-MIXED_TIMED_STEPS = 2
+GATHER_TIMED_STEPS = 2
+MIXED_TIMED_STEPS = 1
 DEGREE2_PARITY_STEPS = 2
 KERNELS = ("material_tspace", "stencil_matvec", "dg_cell_residual")
 # the golden values of the default run (CPU reference, confirmed by the
@@ -2724,7 +2735,7 @@ def mixed_plate_phase(dev, port) -> dict:
 # ----------------------------------------------------------------------
 # Phase 11: the command-line entry point
 # ----------------------------------------------------------------------
-CLI_DEFAULT_STEPS = 10
+CLI_DEFAULT_STEPS = 6
 CLI_DEFAULT_ARGV = ["--t-end", str(CLI_DEFAULT_STEPS * 0.1),
                     "--write-every", str(CLI_DEFAULT_STEPS // 2),
                     "--formats", "npz,vtu"]     # 2 snapshots
@@ -2995,9 +3006,9 @@ def cli_phase(dev, port, warmup, k2_per_apply, scratch_dir) -> dict:
 # Phase 12: bf16 V-cycle tables, the custom-PDE API, solve_scan and the
 # native runtime
 # ----------------------------------------------------------------------
-BF16_TIMED_STEPS = 2
+BF16_TIMED_STEPS = 1
 BF16_PARITY_STEPS = 2
-SCAN_STEPS, SCAN_EVERY = 10, 5
+SCAN_STEPS, SCAN_EVERY = 6, 3
 # 65,536 quads, 66,049 CG-1 dofs on a square as wide as the reference
 # slab is thick (50 length units)
 FORMS_SQUARE, FORMS_SIDE = 256, 50.0
@@ -3478,13 +3489,11 @@ SHARD_BOX = (8, 8, 4)
 # JAX's dry-run plate (__graft_entry__.py:133-145)
 CGDD_PLATE = (8, 4, 2, 1.0, 1.0, 0.01)
 CGDD_Q2 = (4, 4)
-P13_STEPS = 3
-# the dry-run plate's CGDD steps: one, where the others take P13_STEPS;
-# its Jacobi-CG takes 621 + 508 + 537 iterations in three (f64, rtol
-# 1e-12), at 16 ms an iteration on one NCCL rank and 25 over two gloo
-# ranks on an H100: 68.5 s for three steps
-CGDD_PLATE_STEPS = 1
-P13_TIMED_STEPS = 2
+# 13a's steps: the dry-run plate's Jacobi-CG takes 621 + 508 + 537
+# iterations in three (f64, rtol 1e-12), at 16 ms an iteration on one
+# NCCL rank and 25 over two gloo ranks on an H100: 68.5 s for three steps
+P13_STEPS = 1
+P13_TIMED_STEPS = 1
 P13_RANKS = 2
 # The CGDD plate at full size runs one capped step: one Newton iteration of
 # CGDD_FULL_CG Jacobi-CG iterations. Converged, a step takes ~8,800 CG
@@ -3492,6 +3501,13 @@ P13_RANKS = 2
 # count follows the 40 layers through the 0.01 thickness), ~10 minutes on
 # the card at its 70 ms an iteration (PERF.md).
 CGDD_FULL_CG = 100
+# 13c, the DG domain decomposition (DDProblem): the reference's own slab,
+# DD_SLAB_STEPS steps, held to JAX's counts (DDProblem of the JAX package on
+# the CPU, the same at P = 1, 2, 4 and 8: Newton and CG per step) and to the
+# unsharded run on the card; then phase 7's plate in one capped step
+DD_SLAB_STEPS = 3
+DD_SLAB_JAX = ((4, 217), (3, 164), (3, 166))
+DD_FIELDS = ("T", "Tf", "Tf_partial", "xi", "sigma", "sigma_partial")
 
 
 def rank_port() -> dict:
@@ -3531,9 +3547,25 @@ def cgdd_config(tc, steps, degree=1, rtol=None, cap=None):
         output=tc.OutputConfig(write_every=0, formats=()))
 
 
+def dd_config(tc, steps, cap=None):
+    """DG-1 T at the config defaults (f64, rtol 1e-12); `cap` stops Newton
+    after one iteration of `cap` CG iterations."""
+    solver = {} if cap is None else dict(newton_max_it=1, cg_max_it=cap)
+    return tc.RunConfig(
+        fe=tc.FEConfig(T_family="DG", T_degree=1),
+        time=tc.TimeConfig(0.0, steps * 0.1, 0.1),
+        solver=tc.SolverConfig(**solver),
+        output=tc.OutputConfig(write_every=0, formats=()))
+
+
 def p13_meshes():
-    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_2d, box_mesh_3d
+    from fem_glass_tempering_tpu_torch.fem.mesh import (
+        box_mesh_2d,
+        box_mesh_3d,
+        reference_glass_mesh_1d,
+    )
     return dict(shard_box=lambda: box_mesh_3d(*SHARD_BOX),
+                dd_slab=reference_glass_mesh_1d,
                 cgdd_plate=lambda: box_mesh_3d(*CGDD_PLATE),
                 cgdd_q2=lambda: box_mesh_2d(*CGDD_Q2),
                 shard_plate=lambda: box_mesh_3d(*N_DG, 1.0, 1.0, 0.01),
@@ -3640,38 +3672,96 @@ def cgdd_run(dev, port, mesh_name, steps, mesh_dev, degree=1,
                 ms_per_step=elapsed / steps * 1e3,
                 ms_per_cg=elapsed / sum(cg) * 1e3, launches=launches,
                 max_memory_allocated_bytes=peak, T=dd.gather_T(st),
-                local_cells=dd.n_local_cells, local_dofs=dd.Lg)
+                local_cells=dd.n_local_cells, local_dofs=dd.n_local_dofs)
 
 
-def numpy_T(res: dict) -> dict:
-    """A run's result with T on the host (what a rank sends back)."""
-    return dict(res, T=res["T"].cpu().numpy())
+def dd_run(dev, port, mesh_name, steps, mesh_dev, cap=None) -> dict:
+    """A DDProblem over `mesh_dev`: `steps` steps from the initial state,
+    counted and timed, K1 once a step and K3 on each residual and twice
+    on each Jacobian action over the rank's cells; the gathered fields
+    (DD_FIELDS; T alone with `cap`, where each step is one Newton
+    iteration of `cap` CG iterations, not converged)."""
+    from fem_glass_tempering_tpu_torch import config as tc
+    from fem_glass_tempering_tpu_torch.parallel.domain import DDProblem
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dd = DDProblem(p13_meshes()[mesh_name](), dd_config(tc, steps, cap),
+                   mesh_dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    st = dd.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(port)
+    newton, cg = [], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        st, ok, ni, ki = dd.step(st)
+        if cap is None and not ok:
+            fail(f"{mesh_name}: DD step did not converge")
+        if cap is not None and (ni, ki) != (1, cap):
+            fail(f"{mesh_name}: a capped step took {ni} / {ki}")
+        newton.append(ni)
+        cg.append(ki)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_counts(port)
+    expect = dict(material_tspace=steps,
+                  dg_cell_residual=k3_expected(sum(newton), sum(cg)),
+                  stencil_matvec=0)
+    if launches != expect:
+        fail(f"{mesh_name}: launches {launches}, expected {expect}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    g = dd.gather_state(st)
+    fields = ("T",) if cap is not None else DD_FIELDS
+    return dict(setup_s=setup_s, newton=newton, cg=cg,
+                ms_per_step=elapsed / steps * 1e3,
+                ms_per_cg=elapsed / sum(cg) * 1e3, launches=launches,
+                max_memory_allocated_bytes=peak,
+                local_cells=dd.n_local_cells, local_dofs=dd.n_local_dofs,
+                k3_path=dd._cell_term.path,
+                **{f: getattr(g, f) for f in fields})
+
+
+def to_host(res: dict) -> dict:
+    """A run's result with its fields on the host (what a rank sends
+    back)."""
+    return {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in res.items()}
 
 
 def phase13_rank(mesh_dev) -> dict:
     """Phase 13 on one of the two gloo ranks: 13a's three configurations,
-    then 13b's two plates."""
+    13b's two plates, then 13c's slab and plate."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev, port = mesh_dev.device, rank_port()
     t0 = time.perf_counter()
-    out = {"shard_box": numpy_T(shard_run(dev, port, "shard_box", P13_STEPS,
+    out = {"shard_box": to_host(shard_run(dev, port, "shard_box", P13_STEPS,
                                           mesh_dev)[0]),
-           "cgdd_plate": numpy_T(cgdd_run(dev, port, "cgdd_plate",
-                                          CGDD_PLATE_STEPS, mesh_dev)),
-           "cgdd_q2": numpy_T(cgdd_run(dev, port, "cgdd_q2", P13_STEPS,
+           "cgdd_plate": to_host(cgdd_run(dev, port, "cgdd_plate",
+                                          P13_STEPS, mesh_dev)),
+           "cgdd_q2": to_host(cgdd_run(dev, port, "cgdd_q2", P13_STEPS,
                                        mesh_dev, degree=2))}
     out["a_s"] = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
-    out["shard_plate"] = numpy_T(shard_run(dev, port, "shard_plate",
+    out["shard_plate"] = to_host(shard_run(dev, port, "shard_plate",
                                            P13_TIMED_STEPS, mesh_dev,
                                            warmup=True)[0])
     gc.collect()
     torch.cuda.empty_cache()
-    out["cgdd_full"] = numpy_T(cgdd_run(
+    out["cgdd_full"] = to_host(cgdd_run(
         dev, port, "cgdd_full", 1, mesh_dev, dtype=torch.float32,
         rtol=1e-5, cap=CGDD_FULL_CG))
+    out["b_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["dd_slab"] = to_host(dd_run(dev, port, "dd_slab", DD_SLAB_STEPS,
+                                    mesh_dev))
+    out["dd_plate"] = to_host(dd_run(dev, port, "shard_plate", 1, mesh_dev,
+                                     cap=CGDD_FULL_CG))
     out["s"] = time.perf_counter() - t0
     return out
 
@@ -3701,14 +3791,14 @@ def distributed_phase(dev, port) -> dict:
     try:
         # 13a's references: unsharded, and CGDD as one rank
         plain["shard_box"], _ = shard_run(dev, port, "shard_box", P13_STEPS)
-        for name, degree, steps in (("cgdd_plate", 1, CGDD_PLATE_STEPS),
-                                    ("cgdd_q2", 2, P13_STEPS)):
+        for name, degree in (("cgdd_plate", 1), ("cgdd_q2", 2)):
             prob = ThermoViscoProblem(mesh=p13_meshes()[name](),
-                                      config=cgdd_config(tc, steps, degree),
+                                      config=cgdd_config(tc, P13_STEPS,
+                                                         degree),
                                       device=dev)
             prob.setup()
             plain[name] = dict(T=prob.solve().T)
-            one[name] = cgdd_run(dev, port, name, steps, mesh1,
+            one[name] = cgdd_run(dev, port, name, P13_STEPS, mesh1,
                                  degree=degree)
         # 13b at world size 1: the plate unsharded, then the same problem
         # sharded in place (bit-equal), then CGDD
@@ -3724,11 +3814,25 @@ def distributed_phase(dev, port) -> dict:
         one["cgdd_full"] = cgdd_run(dev, port, "cgdd_full", 1, mesh1,
                                     dtype=torch.float32, rtol=1e-5,
                                     cap=CGDD_FULL_CG)
+        # 13c: the slab unsharded (the two ranks' reference), the plate's
+        # capped DD step as one rank
+        drop_garbage("phase 13c")
+        t_c = time.perf_counter()
+        prob = ThermoViscoProblem(mesh=p13_meshes()["dd_slab"](),
+                                  config=dd_config(tc, DD_SLAB_STEPS),
+                                  device=dev)
+        prob.setup()
+        st = prob.solve()
+        plain["dd_slab"] = {f: getattr(st, f) for f in DD_FIELDS}
+        del prob, st
+        one["dd_plate"] = dd_run(dev, port, "shard_plate", 1, mesh1,
+                                 cap=CGDD_FULL_CG)
+        world1_c_s = time.perf_counter() - t_c
     finally:
         mesh1.close()
     world1_s = time.perf_counter() - t_phase
     log(f"13 in this process ({world1_s:.1f} s): " + json.dumps(
-        {f"{who}_{k}": {f: x for f, x in v.items() if f != "T"}
+        {f"{who}_{k}": {f: x for f, x in v.items() if f not in DD_FIELDS}
          for who, runs in (("unsharded", plain), ("one_rank", one))
          for k, v in runs.items()}))
     drop_garbage("phase 13 ranks")
@@ -3739,12 +3843,14 @@ def distributed_phase(dev, port) -> dict:
     if len(ranks) != P13_RANKS:
         fail(f"phase 13: {len(ranks)} of {P13_RANKS} ranks reported")
 
-    out = {"world_size_1_s": world1_s, "ranks_s": ranks_s,
-           "ranks_body_s": [r["s"] for r in ranks],
-           "ranks_13a_s": [r["a_s"] for r in ranks]}
+    out = {"world_size_1_s": world1_s, "world_size_1_13c_s": world1_c_s,
+           "ranks_s": ranks_s, "ranks_body_s": [r["s"] for r in ranks],
+           "ranks_13a_s": [r["a_s"] for r in ranks],
+           "ranks_13c_s": [r["s"] - r["b_s"] for r in ranks]}
     log("13 over two ranks, s: " + json.dumps(out) + " " + json.dumps(
-        {name: [{k: v for k, v in r[name].items() if k != "T"}
-                for r in ranks] for name in ("shard_plate", "cgdd_full")}))
+        {name: [{k: v for k, v in r[name].items() if k not in DD_FIELDS}
+                for r in ranks]
+         for name in ("shard_plate", "cgdd_full", "dd_slab", "dd_plate")}))
 
     def host(x):
         return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
@@ -3824,6 +3930,53 @@ def distributed_phase(dev, port) -> dict:
         cgdd_full=dict(world_size_1=summary(c1),
                        ranks=[summary(r["cgdd_full"]) for r in ranks],
                        T_max_abs_diff_K=diffs))
+
+    # ---- 13c: DDProblem, the slab against the unsharded run ----
+    ref = {f: host(v) for f, v in plain["dd_slab"].items()}
+    for r, rk in enumerate(ranks):
+        got = rk["dd_slab"]
+        for k, (n, c) in enumerate(DD_SLAB_JAX):
+            if got["newton"][k] != n or abs(got["cg"][k] - c) > 0.02 * c:
+                fail(f"13c dd_slab rank {r}: {got['newton']} / {got['cg']} "
+                     f"against JAX's {DD_SLAB_JAX}")
+        # JAX's tolerances (tests/test_domain_decomposition.py)
+        bad = [f for f, rtol, atol in (
+            ("T", 1e-10, 1e-9), ("sigma", 1e-8, 1e-12),
+            *((f, 1e-9, 1e-11) for f in DD_FIELDS))
+            if not np.allclose(got[f], ref[f], rtol=rtol, atol=atol)]
+        if bad:
+            fail(f"13c dd_slab rank {r}: {bad} off the unsharded run's")
+    a, b = ranks[0]["dd_slab"], ranks[1]["dd_slab"]
+    if (a["newton"], a["cg"]) != (b["newton"], b["cg"]) or not all(
+            np.array_equal(a[f], b[f]) for f in DD_FIELDS):
+        fail("13c dd_slab: the ranks disagree")
+    # ---- 13c: the plate's capped step, one rank and two ----
+    c1 = one["dd_plate"]
+    T1 = host(c1["T"])
+    if not np.isfinite(T1).all():
+        fail("13c dd_plate: non-finite T")
+    if not np.array_equal(ranks[0]["dd_plate"]["T"],
+                          ranks[1]["dd_plate"]["T"]):
+        fail("13c dd_plate: the ranks disagree")
+    # the capped step stops 100 CG iterations into a solve that takes
+    # thousands; the iterate there carries the rounding of each run's own
+    # sums (the dots' order over the ranks, the facet products' batch),
+    # grown by CG: 1.5e-8 between one rank and two on an H100, where the
+    # same comparison converged agrees to ~1e-15 (the 16x16x4 plate on the
+    # CPU: 5.0e-10 capped, 1.1e-15 converged; 0.24 capped where the halo
+    # drops the remote side's tangent)
+    rel = max_rel(ranks[0]["dd_plate"]["T"], T1)
+    if not rel <= 1e-7:
+        fail(f"13c dd_plate: two ranks' T max-rel {rel:.3e} off one rank's")
+    out["c"] = dict(
+        dd_slab=dict(ranks=[{k: v for k, v in r["dd_slab"].items()
+                             if k not in DD_FIELDS} for r in ranks],
+                     T_max_rel=max_rel(a["T"], ref["T"]),
+                     sigma_max_abs_diff=float(np.abs(a["sigma"]
+                                                     - ref["sigma"]).max())),
+        dd_plate=dict(world_size_1=summary(c1),
+                      ranks=[summary(r["dd_plate"]) for r in ranks],
+                      T_max_rel=rel))
     out["s"] = time.perf_counter() - t_phase
     log("distributed " + json.dumps(out))
     return out
@@ -3832,7 +3985,7 @@ def distributed_phase(dev, port) -> dict:
 def distributed_launches(dist: dict, name: str) -> dict:
     """A kernel's launches in phase 13's counted windows, per rank."""
     out = {}
-    for part in ("a", "b"):
+    for part in ("a", "b", "c"):
         for case, res in dist[part].items():
             for who in ("unsharded", "world_size_1"):
                 if who in res:

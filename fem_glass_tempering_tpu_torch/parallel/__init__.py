@@ -1,10 +1,14 @@
 """Distribution over torch.distributed ranks (counterpart of
 fem_glass_tempering_tpu/parallel): the collectives (comm.py), cell-axis
 sharding of a ThermoViscoProblem (sharding.py), the partition
-(partition.py) and the CG domain decomposition (domain_cg.py)."""
+(partition.py) and the DG and CG domain decompositions (domain.py,
+domain_cg.py)."""
 
 from fem_glass_tempering_tpu_torch.parallel.comm import (  # noqa: F401
     make_device_mesh,
+)
+from fem_glass_tempering_tpu_torch.parallel.domain import (  # noqa: F401
+    DDProblem,
 )
 from fem_glass_tempering_tpu_torch.parallel.domain_cg import (  # noqa: F401
     CGDDProblem,

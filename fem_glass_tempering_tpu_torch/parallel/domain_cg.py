@@ -13,6 +13,8 @@ rank's), keeps the values of shared dofs equal on every rank, and
 The material chain runs on each rank's own sigma dofs (those whose owner
 cell it holds). Rank p holds row p of the JAX version's (P, ...) arrays,
 which the setup builds with the same partition (parallel/partition.py).
+The spaces, the state, the step and the gathers are those of the DG
+decomposition's `RankProblem` (parallel/domain.py).
 """
 
 from __future__ import annotations
@@ -20,31 +22,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fem_glass_tempering_tpu_torch.config import RunConfig
-from fem_glass_tempering_tpu_torch.device import resolve_dtype
-from fem_glass_tempering_tpu_torch.fem.functionspace import FunctionSpace
-from fem_glass_tempering_tpu_torch.fem.mesh import Mesh
-from fem_glass_tempering_tpu_torch.models.viscoelastic import (
-    TABLEAU_SIZE,
-    ViscoelasticEngine,
-    ViscoState,
-)
 from fem_glass_tempering_tpu_torch.ops.assembly import (
     build_boundary_geometry,
     build_cell_geometry,
 )
 from fem_glass_tempering_tpu_torch.ops.scatter import GroupedScatter
 from fem_glass_tempering_tpu_torch.parallel.comm import (
-    DeviceMesh,
     all_gather,
     all_reduce_sum,
-    gather_rows,
 )
+from fem_glass_tempering_tpu_torch.parallel.domain import RankProblem
 from fem_glass_tempering_tpu_torch.parallel.partition import partition_cells
-from fem_glass_tempering_tpu_torch.solver.newton import newton_solve
-
-# the T-space fields of the state (the rest live at the sigma points)
-_T_FIELDS = ("T", "T_prev", "Tf", "Tf_prev", "Tf_partial", "phi", "xi")
 
 
 def _local_ids(gids: np.ndarray, sorted_gids: np.ndarray) -> np.ndarray:
@@ -52,31 +40,12 @@ def _local_ids(gids: np.ndarray, sorted_gids: np.ndarray) -> np.ndarray:
     return np.searchsorted(sorted_gids, gids).astype(np.int32)
 
 
-class CGDDProblem:
+class CGDDProblem(RankProblem):
     """Domain-decomposed coupled tempering problem (CG temperature): this
     rank's share, on `device_mesh.device`."""
 
-    def __init__(self, mesh: Mesh, config: RunConfig, device_mesh: DeviceMesh,
-                 dtype=torch.float64):
-        fe = config.fe
-        if fe.T_family != "CG":
-            raise ValueError("CGDDProblem requires a CG temperature space")
-        self.config = config
-        self.mesh = mesh
-        self.dtype = resolve_dtype(dtype)
-        self.comm = device_mesh
-        self.device = device_mesh.device
-        self.n_parts = device_mesh.size
-        self.fs_T = FunctionSpace(mesh, "CG", fe.T_degree)
-        self.fs_sigma = FunctionSpace(mesh, fe.sigma_family, fe.sigma_degree,
-                                      value_shape=(mesh.tdim, mesh.tdim))
-        self.engine = ViscoelasticEngine(
-            self.fs_T, self.fs_sigma, config.params, config.time.dt,
-            physics_mode=config.physics_mode, dtype=self.dtype,
-            device=self.device)
-        self.params = config.params
-        self.dt = config.time.dt
-        self._build_arrays()
+    T_FAMILY = "CG"
+    REFUSAL = "CGDDProblem requires a CG temperature space"
 
     # ------------------------------------------------------------------
     def _build_arrays(self) -> None:
@@ -141,32 +110,14 @@ class CGDDProblem:
         is_iface = np.zeros(Lg)
         is_iface[iface[p]] = 1.0
 
-        # sigma dofs by owner cell, with their evaluation rows
-        fs_s = self.fs_sigma
-        sdev = part[fs_s.owner_cell]
-        Ls = max(int((sdev == r).sum()) for r in range(Pn)) or 1
-        if (fs_s.family, fs_s.degree) == (fs.family, fs.degree):
-            tab_rows = np.eye(nloc)[fs_s.owner_lpoint]
-        else:
-            tab = fs.element.tabulate(fs_s.element.interpolation_points())
-            tab_rows = tab[fs_s.owner_lpoint]
         slot_of_cell = np.full(mesh.n_cells, -1, dtype=np.int32)
         slot_of_cell[cl] = np.arange(len(cl), dtype=np.int32)
-        sidx = np.nonzero(sdev == p)[0]
-        sg_tab = np.zeros((Ls, nloc))
-        sg_src = np.zeros(Ls, dtype=np.int32)
-        sg_dof = np.full(Ls, -1, dtype=np.int64)
-        sg_tab[: len(sidx)] = tab_rows[sidx]
-        sg_src[: len(sidx)] = slot_of_cell[fs_s.owner_cell[sidx]]
-        sg_dof[: len(sidx)] = sidx
+        sg_tab, sg_src = self._sigma_rows(part, slot_of_cell)
 
-        self.Lg, self.n_local_cells, self.n_local_sigma = Lg, L, Ls
+        self.n_local_dofs, self.n_local_cells = Lg, L
         self.local_gids = gids
-        self.sg_dof = sg_dof
         dev = self.device
-        f = lambda a: torch.as_tensor(a, dtype=self.dtype, device=dev)
-        i = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64),
-                                      device=dev)
+        f, i = self._float, self._index
         self.arrs = dict(
             qw=f(qw), gphi=f(gphi), phi=f(cg.phi), ldof=i(ldof),
             b_ldof=i(b_ldof), b_qw=f(b_qw), b_phi=f(b_phi),
@@ -182,13 +133,10 @@ class CGDDProblem:
         keep = np.nonzero(map_acc < Lg)[0]
         self._acc_rows = i(keep)
         self._sc_acc = GroupedScatter(map_acc[keep], Lg, dev)
-        self._sg_ldof = i(ldof[sg_src])
         self._diag_cell = self._cell_diag()
-        # what the gathers place: owned T dofs, valid sigma dofs
+        # what the gathers place: owned T dofs
         own_l = np.nonzero(own[:n] > 0)[0]
-        self._own_lids, self._own_gids = i(own_l), i(gids[own_l])
-        sv = np.nonzero(sg_dof >= 0)[0]
-        self._sg_lids, self._sg_gids = i(sv), i(sg_dof[sv])
+        self._gather_maps(ldof, sg_src, own_l, gids[own_l])
 
     # ------------------------------------------------------------------
     def _dot(self, a, b):
@@ -242,75 +190,3 @@ class CGDDProblem:
         dd = self._halo_sum(self._diag_cell + self._sc_b(d_b[: self._nb]))
         # padded slots: identity rows
         return dd * A["valid"] + (1.0 - A["valid"])
-
-    def _eval_sigma(self, name, arr):
-        """A T-space field at this rank's sigma points."""
-        src = arr[self._sg_ldof]                             # (Ls, nloc)
-        return torch.einsum("tl,tl->t", self.arrs["sg_tab"], src)
-
-    # ------------------------------------------------------------------
-    def init_state(self) -> ViscoState:
-        """This rank's initial state: (Lg,) T-space fields, (Ls, d, d)
-        sigma-space fields."""
-        p = self.params
-        Lg, Ls, d = self.Lg, self.n_local_sigma, self.mesh.tdim
-        f = lambda shape, v=0.0: torch.full(shape, v, dtype=self.dtype,
-                                            device=self.device)
-        return ViscoState(
-            t=f(()),
-            T=f((Lg,), p.T_0), T_prev=f((Lg,), p.T_0),
-            Tf=f((Lg,), p.T_0), Tf_prev=f((Lg,), p.T_0),
-            Tf_partial=f((Lg, TABLEAU_SIZE), p.T_0),
-            phi=f((Lg,)), xi=f((Lg,)),
-            thermal_strain=f((Ls, d, d)),
-            total_strain=f((Ls, d, d)),
-            deviatoric_strain=f((Ls, d, d)),
-            s_tilde=f((Ls, TABLEAU_SIZE, d, d)),
-            sigma_tilde=f((Ls, TABLEAU_SIZE, d, d)),
-            s_partial=f((Ls, TABLEAU_SIZE, d, d)),
-            sigma_partial=f((Ls, TABLEAU_SIZE, d, d)),
-            sigma=f((Ls, d, d)),
-        )
-
-    def step(self, state: ViscoState):
-        """One coupled step -> (state, converged on every rank, newton,
-        cg); every rank must call it."""
-        sc = self.config.solver
-        res = newton_solve(
-            lambda T: self._local_residual(T, state.T), state.T,
-            jac_diag_fn=self._local_diag,
-            rtol=sc.newton_rtol, atol=sc.newton_atol,
-            max_it=sc.newton_max_it, cg_rtol=sc.cg_rtol,
-            cg_atol=sc.cg_atol, cg_max_it=sc.cg_max_it, dot=self._dot)
-        st = self.engine.material_step_with(state, res.x, self._eval_sigma)
-        failed = torch.tensor(0.0 if res.converged else 1.0,
-                              dtype=self.dtype, device=self.device)
-        ok = bool(all_reduce_sum(failed, self.comm) == 0)
-        return st, ok, res.iters, res.krylov_iters
-
-    # ------------------------------------------------------------------
-    def _gather_T(self, arr):
-        return gather_rows(arr[self._own_lids], self._own_gids,
-                           self.fs_T.n_scalar_dofs, self.comm)
-
-    def _gather_S(self, arr):
-        return gather_rows(arr[self._sg_lids], self._sg_gids,
-                           self.fs_sigma.n_scalar_dofs, self.comm)
-
-    def gather_T(self, state: ViscoState) -> torch.Tensor:
-        """The global temperature, on every rank."""
-        return self._gather_T(state.T)
-
-    def gather_sigma(self, state: ViscoState) -> torch.Tensor:
-        """The global (n_S, d, d) stress, on every rank."""
-        return self._gather_S(state.sigma)
-
-    def gather_state(self, state: ViscoState) -> ViscoState:
-        """The global-layout ViscoState, on every rank: what the writers
-        and io/checkpoint.py take."""
-        return ViscoState(*(
-            state.t if name == "t"
-            else self._gather_T(v) if name in _T_FIELDS
-            else None if v is None
-            else self._gather_S(v)
-            for name, v in zip(ViscoState._fields, state)))

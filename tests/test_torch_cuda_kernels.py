@@ -575,3 +575,32 @@ def test_two_gloo_ranks_on_one_card(cuda):
         assert all(got["ok"]) and got["newton"] == res[0]["cgdd"]["hex"][
             "newton"]
         np.testing.assert_allclose(got["T"], T_ref, rtol=1e-10, atol=1e-9)
+
+
+def test_dd_two_gloo_ranks_on_one_card(cuda):
+    """DDProblem on the graded slab over two gloo ranks on one card (K3
+    on each rank's cells, K1 in its material step, the halo through the
+    host), every rank in lockstep and held to the unsharded run on the
+    card at JAX's tolerances (tests/test_domain_decomposition.py); the
+    jvp of each rank's residual equal to its rows of the unsharded heat
+    operator's."""
+    import torch_dd_ranks as R
+    from fem_glass_tempering_tpu_torch.parallel.comm import run_ranks
+
+    res = run_ranks(R.card_body, 2, "cuda:0", backend="gloo", timeout=600)
+    ref = R.unsharded("slab", device=cuda)
+    for r in res:
+        assert all(r["ok"])
+        assert (r["newton"], r["cg"]) == (res[0]["newton"], res[0]["cg"])
+        np.testing.assert_array_equal(r["T"], res[0]["T"])
+        t = r["tangent"]
+        np.testing.assert_allclose(t["local"], t["unsharded"], rtol=0,
+                                   atol=1e-12 * np.abs(t["unsharded"]).max())
+    np.testing.assert_allclose(res[0]["T"], ref["end"]["T"], rtol=1e-10,
+                               atol=1e-9)
+    np.testing.assert_allclose(res[0]["sigma"], ref["end"]["sigma"],
+                               rtol=1e-8, atol=1e-12)
+    for f in R.STATE_FIELDS:
+        np.testing.assert_allclose(res[0]["gathered"][f],
+                                   ref["at_gather"][f], rtol=1e-9,
+                                   atol=1e-11, err_msg=f)

@@ -26,7 +26,8 @@ def _port_files():
             "fem/mshio.py", "models/analysis.py", "utils/logging.py",
             "utils/profiling.py", "ops/forms.py", "solver/direct.py",
             "utils/native.py", "parallel/comm.py", "parallel/partition.py",
-            "parallel/sharding.py", "parallel/domain_cg.py"} <= names
+            "parallel/sharding.py", "parallel/domain_cg.py",
+            "parallel/domain.py"} <= names
     return files
 
 
