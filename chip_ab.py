@@ -37,7 +37,9 @@ checked and timed; 12b-12e: bf16 parity, the custom-PDE API,
 solve_scan, the native runtime), with each part's seconds.
 `phase13` runs phase 13 alone (shard_problem and CGDDProblem: the
 unsharded and one-NCCL-rank runs in this process, then two gloo ranks
-on the card), with its seconds.
+on the card), with its seconds; `phase13d` phase 13d alone (the
+grid-sharded CG-1 step: the small cases and the 1M-dof plate over one
+NCCL rank and two gloo ranks, K2's halo form checked and timed).
 `kernels` times K1 (material_tspace, n = 1,062,761, f32 and f64), K3
 (dg_cell_residual, 65,536 hex cells, f64, uniform and per-cell tables; the
 direct call, and the prepared call where the tree has one; and the
@@ -297,7 +299,7 @@ def main() -> int:
     ap.add_argument("what", choices=("kernels", "phase5", "phase6",
                                      "phase8b", "phase9", "phase10",
                                      "phase11", "phase12", "phase13",
-                                     "dgparity"))
+                                     "phase13d", "dgparity"))
     ap.add_argument("--source-flags", default="", metavar="SRC:FLAG[,FLAG]",
                     help="replace one source's nvcc flags (empty FLAG: none)")
     ap.add_argument("--plain-cell-term", action="store_true",
@@ -338,7 +340,8 @@ def main() -> int:
             for name in ("PreparedDGCellResidual", "dg_cell_residual",
                          "dg_cell_residual_reference", "material_tspace",
                          "material_tspace_reference", "stencil_matvec",
-                         "stencil_matvec_reference") if hasattr(mod, name)}
+                         "stencil_matvec_halo", "stencil_matvec_reference")
+            if hasattr(mod, name)}
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     if args.what == "kernels":
@@ -389,6 +392,10 @@ def main() -> int:
         t0 = time.perf_counter()
         res = cs.distributed_phase(dev, port)
         res["phase13_s"] = time.perf_counter() - t0
+    elif args.what == "phase13d":
+        t0 = time.perf_counter()
+        res = cs.grid_shard_phase(dev, port)
+        res["phase13d_s"] = time.perf_counter() - t0
     elif args.what == "phase8b":
         full = cs.mechanics_plate_phase(dev, port)
         res = {k: full[k] for k in (

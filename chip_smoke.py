@@ -157,7 +157,19 @@ Phases (each raises on failure; the exit code is then nonzero):
      in one capped step (1 Newton x CGDD_FULL_CG CG) over one NCCL rank
      and over the two gloo ranks (T max-rel 1e-7, the ranks bit-equal):
      ms per CG iteration, setup seconds, peak memory and K1 / K3 launches
-     per rank.
+     per rank; (d) GridShardedProblem (the grid-sharded CG-1 step, K2's
+     halo form on each rank's planes, K1 in its material step): JAX's
+     12x6x4 MG plate (f64, CG rtol 1e-12, 3 steps) on the two gloo ranks
+     against the unsharded run on the card (T, Tf rtol 1e-10, sigma 1e-6
+     of its max, Newton equal, CG within max(5, 2%)) and the dry run's
+     f32 "gspmd-grid" config at JAX's Newton / CG; then phase 4's plate
+     (1 + 2 steps) over one NCCL rank and over the two gloo ranks (Newton
+     equal, CG within 2%, T max-rel 1e-6, the ranks bit-equal): ms a step,
+     counts, setup seconds, peak memory, K1 and K2 launches per rank by
+     form (exact: no full-grid K2 on the sharded levels), halo exchanges
+     an iteration; K2's halo form bit-equal to its twin and to the
+     full-grid kernel's rows on the two-rank slabs of the plate's fine
+     level, timed on the first (81 x 6,601 points).
 Phase 2 also holds K3 at every degree-2 cell shape (nloc 3, 6, 9, 10, 27)
 on the port's HeatOperator tables, f64 and f32, all in the element form,
 and times nloc 27 (uniform f32 and f64, 65,536 cells) and nloc 10
@@ -166,13 +178,26 @@ given the prepared tables, and the quadrature form's) and against one
 PyTorch call on the baked matrices (torch.addmm / torch.baddbmm), with
 the bake's seconds and bytes.
 Every main path (4, 5, 6, 7b f64, 7b mixed, 8b, 9b, 10b, 10c, 11a, 11b,
-12a's two arms, 12b, 12d's two runs, each run of 13 on every rank) runs
+12a's two arms, 12b, 12d's two runs, each run of 13 and 13d on every
+rank) runs
 with the launch counters set to 0 just before it and read just after; K2
-also counts its launches per table dtype (an instantiation each). A line
-"phase N ends at S s" follows each phase, 13 included
+also counts its launches per table dtype (an instantiation each), and its
+halo form its own (`stencil_matvec_halo.launches`). A line
+"phase N ends at S s" follows each phase, 13 and 13d included
 (seconds since the kernel build began). Then one
 JSON line per kernel, one {"kernels": [...]} line, the card's name and power limit,
 and last {"ok": true, "device": {...}}.
+
+Phases whose times feed no kernel's `ms` (dispatch-bound runs on tiny
+meshes, the GPU-against-CPU runs, the command line, the native runtime,
+phase 13) run in SIDE_GROUPS: three processes of their own on the same
+card, started after phase 4, beside this process's plates of phases 6,
+7b, 8b, 10b and 10c, and joined before phase 9b. Their lines carry a
+"[side ...]" prefix, their launch counters are their own, and their
+checks fail the script as any other's do; the main process stops them
+if it fails first. The phases that time a kernel for the kernels line
+(2, 4, 9b, 12a, 13d) run with no side process beside them. Phase 13
+runs its two gloo ranks beside its in-process runs, as 13d does.
 
 A kernel's `ms` and `plain_ms` are CUDA-event means over back-to-back
 calls of the wrapper (the host's cost of issuing a call shows where it
@@ -198,14 +223,19 @@ import gc
 import importlib.util
 import io
 import json
+import multiprocessing as mp
 import os
+import queue
 import re
 import shutil
+import signal
 import struct
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -347,6 +377,8 @@ def k3_yardstick(e, uniform, Tc, Tpc, kw) -> tuple[float, float,
 def reset_counts(port) -> None:
     for name in KERNELS:
         port[name].launches = 0
+    if "stencil_matvec_halo" in port:
+        port["stencil_matvec_halo"].launches = 0
     by_table = port["stencil_matvec"].launches_by_table
     for k in by_table:
         by_table[k] = 0
@@ -372,8 +404,11 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return bool(torch.equal(a, b))
 
 
+LOG_PREFIX = ""                  # "[side ...] " in a side process
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(LOG_PREFIX + msg, flush=True)
 
 
 def drop_garbage(before: str) -> None:
@@ -3517,10 +3552,14 @@ def rank_port() -> dict:
         dg_cell_residual,
     )
     from fem_glass_tempering_tpu_torch.ops.cuda_kernels import material_tspace
-    from fem_glass_tempering_tpu_torch.ops.cuda_stencil import stencil_matvec
+    from fem_glass_tempering_tpu_torch.ops.cuda_stencil import (
+        stencil_matvec,
+        stencil_matvec_halo,
+    )
     return dict(dg_cell_residual=dg_cell_residual,
                 material_tspace=material_tspace,
-                stencil_matvec=stencil_matvec)
+                stencil_matvec=stencil_matvec,
+                stencil_matvec_halo=stencil_matvec_halo)
 
 
 def shard_box_config(tc, steps):
@@ -3772,10 +3811,10 @@ def max_rel(a: np.ndarray, b: np.ndarray) -> float:
 
 def distributed_phase(dev, port) -> dict:
     """Phase 13: shard_problem and CGDDProblem (parallel/) on the card.
-    First in this process: the unsharded runs and, over a process group
-    of one rank (NCCL), the sharded ones; then the same over two gloo
-    ranks in two new processes on this card (NCCL refuses two ranks on
-    one device)."""
+    In this process: the unsharded runs and, over a process group of one
+    rank (NCCL), the sharded ones; meanwhile the same over two gloo ranks
+    in two new processes on this card (NCCL refuses two ranks on one
+    device), started first."""
     from fem_glass_tempering_tpu_torch import config as tc
     from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
     from fem_glass_tempering_tpu_torch.parallel.comm import (
@@ -3784,6 +3823,9 @@ def distributed_phase(dev, port) -> dict:
     )
 
     t_phase = time.perf_counter()
+    pool = ThreadPoolExecutor(1)
+    job = pool.submit(run_ranks, phase13_rank, P13_RANKS, dev,
+                      backend="gloo", timeout=900)
     mesh1 = make_device_mesh(dev)
     if (mesh1.size, mesh1.backend) != (1, "nccl"):
         fail(f"phase 13: a group of {mesh1.size} over {mesh1.backend}")
@@ -3835,11 +3877,11 @@ def distributed_phase(dev, port) -> dict:
         {f"{who}_{k}": {f: x for f, x in v.items() if f not in DD_FIELDS}
          for who, runs in (("unsharded", plain), ("one_rank", one))
          for k, v in runs.items()}))
-    drop_garbage("phase 13 ranks")
-    t0 = time.perf_counter()
-    ranks = run_ranks(phase13_rank, P13_RANKS, dev, backend="gloo",
-                      timeout=900)
-    ranks_s = time.perf_counter() - t0
+    try:
+        ranks = job.result()
+    finally:
+        pool.shutdown()
+    ranks_s = time.perf_counter() - t_phase
     if len(ranks) != P13_RANKS:
         fail(f"phase 13: {len(ranks)} of {P13_RANKS} ranks reported")
 
@@ -3982,6 +4024,333 @@ def distributed_phase(dev, port) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 13d: the grid-sharded CG-1 step (parallel/grid_shard.py
+# GridShardedProblem), K2's halo form on each rank's planes
+GS_SMALL = (12, 6, 4, 1.0, 1.0, 0.01)
+GS_SMALL_STEPS = 3
+GS_DRYRUN_STEPS = 2
+# the dry run's "gspmd-grid" counts (Newton, CG): JAX's at P = 4, which
+# tests/test_torch_grid_shard.py holds the port's equal to on the CPU
+GS_DRYRUN_COUNTS = (14, 14)
+GS_PLATE_STEPS = 2              # timed, after one warm-up step
+GS_RANKS = 2
+
+
+def gs_small_config(tc):
+    """JAX's tests/test_grid_mg.py `_cfg()`: Chebyshev MG, f64, CG rtol
+    1e-12, the increment forcing off."""
+    return tc.RunConfig(
+        fe=tc.FEConfig(T_family="CG", T_degree=1),
+        time=tc.TimeConfig(0.0, GS_SMALL_STEPS * 0.1, 0.1),
+        solver=tc.SolverConfig(linear_operator="stencil",
+                               preconditioner="mg", mg_smoother="chebyshev",
+                               cg_rtol=1e-12, newton_inc_forcing=0.0),
+        output=tc.OutputConfig(write_every=0, formats=()))
+
+
+def gs_dryrun_config(tc):
+    """The dry run's "gspmd-grid" strategy (__graft_entry__.py:146-166)."""
+    return tc.RunConfig(
+        fe=tc.FEConfig(T_family="CG", T_degree=1, sigma_family="CG",
+                       sigma_degree=1),
+        time=tc.TimeConfig(0.0, 0.1, 0.1),
+        solver=tc.SolverConfig(newton_rtol=1e-6, newton_atol=1e-6,
+                               cg_rtol=1e-6, cg_max_it=500,
+                               linear_operator="matrix_free",
+                               preconditioner="mg", mg_smoother="chebyshev"),
+        dtype="float32")
+
+
+def gs_cases():
+    from fem_glass_tempering_tpu_torch import config as tc
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+    return dict(
+        small=(lambda: box_mesh_3d(*GS_SMALL), gs_small_config(tc)),
+        dryrun=(lambda: box_mesh_3d(*GS_SMALL), gs_dryrun_config(tc)),
+        plate=(lambda: box_mesh_3d(*N_FULL, 1.0, 1.0, 0.01),
+               plate_config(tc, GS_PLATE_STEPS, True)))
+
+
+def k2_forms_per_apply(gs) -> dict:
+    """K2's launches by form in one Newton or CG iteration of a
+    GridShardedProblem: the Jacobian action (halo form) and one V-cycle,
+    whose sharded levels smooth with the halo form and whose replicated
+    smoothed levels with the full-grid form (nu_pre + 1 + nu_post each,
+    coarse_iters on a smoothed coarsest level)."""
+    out = dict(halo=1, full=0)
+    mg, rmg = gs.grid_mg, gs.rank_mg
+    for i, axes in enumerate(mg.axes):
+        if axes is None and mg.coarse_inv is not None:
+            continue
+        n = (mg.nu_pre + 1 + mg.nu_post) if axes is not None \
+            else mg.coarse_iters
+        out["halo" if rmg.sharded[i] else "full"] += n
+    return out
+
+
+def grid_shard_run(dev, port, mesh_dev, name, steps, warmup=0,
+                   keep=False, before=None, after=None) -> dict:
+    """GridShardedProblem on case `name` over `mesh_dev`: set up, `warmup`
+    steps from the initial state, then `steps` counted and timed from a
+    fresh one (`before()` / `after()` called just outside the window);
+    the state gathered to the global layout."""
+    from fem_glass_tempering_tpu_torch.parallel.comm import halo_exchange
+    from fem_glass_tempering_tpu_torch.parallel.grid_shard import (
+        GridShardedProblem,
+    )
+    make_mesh, cfg = gs_cases()[name]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gs = GridShardedProblem(make_mesh(), cfg, mesh_dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if warmup:
+        _, ok, _, _ = gs.run(gs.init_state(), warmup)
+        if not ok:
+            fail(f"13d {name}: the warm-up did not converge")
+    state0 = gs.init_state()
+    if before is not None:
+        before()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(port)
+    h0 = halo_exchange.count
+    t0 = time.perf_counter()
+    st, ok, ni, ki = gs.run(state0, steps)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    if after is not None:
+        after()
+    launches = dict(read_counts(port),
+                    stencil_matvec_halo=port["stencil_matvec_halo"].launches)
+    exchanges = halo_exchange.count - h0
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not ok:
+        fail(f"13d {name}: did not converge")
+    per = k2_forms_per_apply(gs)
+    expect = dict(material_tspace=steps, dg_cell_residual=0,
+                  stencil_matvec=per["full"] * (ni + ki),
+                  stencil_matvec_halo=per["halo"] * (ni + ki))
+    if launches != expect or launches["stencil_matvec_halo"] == 0:
+        fail(f"13d {name} rank {mesh_dev.rank}: launches {launches}, "
+             f"expected {expect}")
+    flat = gs.gather_state(st)
+    out = dict(newton=ni, cg=ki, newton_per_step=ni / steps,
+               cg_per_step=ki / steps, ms_per_step=elapsed / steps * 1e3,
+               setup_s=setup_s, setup_parts_s=gs.setup_seconds,
+               launches=launches, k2_per_apply=per,
+               halo_exchanges=exchanges,
+               halo_exchanges_per_iteration=exchanges / max(ni + ki, 1),
+               max_memory_allocated_bytes=peak,
+               sharded_levels=list(gs.rank_mg.sharded), rows=gs.rows,
+               **{f: getattr(flat, f) for f in ("T", "Tf", "sigma")})
+    if keep:
+        out["problem"], out["state"] = gs, st
+    return out
+
+
+GS_FIELDS = ("T", "Tf", "sigma")
+
+
+def grid_shard_rank(mesh_dev, go) -> dict:
+    """Phase 13d on one of the two gloo ranks: (a) the 12x6x4 plate and
+    the dry-run config, (b) the 160x160x40 plate; rank 0 creates the file
+    `go` when the plate's timed window is over."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, port = mesh_dev.device, rank_port()
+    t0 = time.perf_counter()
+    out = {"small": to_host(grid_shard_run(dev, port, mesh_dev, "small",
+                                           GS_SMALL_STEPS)),
+           "dryrun": to_host(grid_shard_run(dev, port, mesh_dev, "dryrun",
+                                            GS_DRYRUN_STEPS))}
+    out["a_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def done():
+        if mesh_dev.rank == 0:
+            open(go, "w").close()
+    out["plate"] = to_host(grid_shard_run(dev, port, mesh_dev, "plate",
+                                          GS_PLATE_STEPS, warmup=1,
+                                          after=done))
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def grid_shard_one(mesh_dev, go) -> dict:
+    """Phase 13d(b) over one NCCL rank, in a process of its own that sets
+    up while the two gloo ranks do; its timed window waits for theirs to
+    end (the file `go`), so the two never share the card. Then K2's halo
+    form on the plate's tables."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, port = mesh_dev.device, rank_port()
+
+    def wait():
+        t0 = time.perf_counter()
+        while not os.path.exists(go):
+            if time.perf_counter() - t0 > 500:
+                fail("13d: the two ranks' timed window never ended")
+            time.sleep(0.05)
+    one = grid_shard_run(dev, port, mesh_dev, "plate", GS_PLATE_STEPS,
+                         warmup=1, keep=True, before=wait)
+    k2h = k2_halo_check(one.pop("problem"), one.pop("state"), port)
+    return dict(plate=to_host(one), k2_halo=k2h)
+
+
+def k2_halo_check(gs, st, port) -> dict:
+    """K2's halo form on the plate's real tables, the two-rank layout's
+    slabs of the fine level (planes [0, 81) and [81, 161)), against its
+    plain twin and the full-grid kernel's rows (bit for bit), timed on the
+    first against its bound, the twin and a CSR product."""
+    from fem_glass_tempering_tpu_torch.ops.cuda_stencil import (
+        stencil_matvec,
+        stencil_matvec_halo,
+        stencil_matvec_halo_reference,
+    )
+    op, dt = gs.grid_op, gs.dt
+    G0 = op.grid[0]
+    Tg = st.T.reshape(op.grid)
+    x = torch.tensor(np.random.default_rng(13).standard_normal(
+        Tg.shape), dtype=Tg.dtype, device=Tg.device)
+    full = stencil_matvec(op.stencil_values_g(Tg, dt).reshape(27, G0, -1),
+                          x.reshape(-1), op.grid).reshape(G0, -1)
+    z = torch.zeros_like(x[:1])
+    out = {}
+    for lo, hi in ((0, (G0 + 1) // 2), ((G0 + 1) // 2, G0)):
+        sl = op.slab(lo, hi)
+
+        def ext(a):
+            return torch.cat([z if lo == 0 else a[lo - 1:lo], a[lo:hi],
+                              z if hi == G0 else a[hi:hi + 1]])
+        vals2 = sl.stencil_values_r(ext(Tg), dt)
+        xe = ext(x).reshape(-1)
+        shape = sl.slab_grid
+        y = stencil_matvec_halo(vals2, xe, shape)
+        twin = stencil_matvec_halo_reference(vals2, xe, shape)
+        if not bits_equal(y, twin) or not bits_equal(
+                y.reshape(hi - lo, -1), full[lo:hi].contiguous()):
+            fail(f"K2 halo form on planes [{lo}, {hi}): not its twin's or "
+                 f"the full grid's bits")
+        out.setdefault("max_abs_err", float((y - twin).abs().max()))
+        if lo == 0:
+            n, nx = vals2.shape[1] * vals2.shape[2], xe.numel()
+            b, by = bound_ms((27 * n + nx + n) * 4, K2_OPS_PER_POINT * n,
+                             torch.float32)
+            lib_ms, y_lib = csr_library_ms(vals2, xe, shape, halo=True)
+            mag = stencil_matvec_halo_reference(vals2.abs(), xe.abs(), shape)
+            if bool(((y - y_lib).abs() > 1e-5 * mag).any()):
+                fail("the CSR yardstick disagrees with K2's halo form")
+            out.update(
+                slab=list(shape), bound_ms=b, bound_by=by, library_ms=lib_ms,
+                ms=time_ms(lambda: stencil_matvec_halo(vals2, xe, shape)),
+                device_ms=device_ms(
+                    lambda: stencil_matvec_halo(vals2, xe, shape)),
+                plain_ms=time_ms(lambda: stencil_matvec_halo_reference(
+                    vals2, xe, shape), reps=10))
+    out["checked_slabs"] = [[0, (G0 + 1) // 2], [(G0 + 1) // 2, G0]]
+    return out
+
+
+def grid_shard_phase(dev, port) -> dict:
+    """Phase 13d: GridShardedProblem on the card. Three processes start at
+    once: the 160x160x40 plate over one NCCL rank, and both sizes over two
+    gloo ranks; they set up together, and the one rank's timed window
+    follows the two ranks'. Meanwhile this process runs the 12x6x4 plate
+    unsharded (the ranks' reference)."""
+    from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
+    from fem_glass_tempering_tpu_torch.parallel.comm import run_ranks
+    t_phase = time.perf_counter()
+    go_dir = tempfile.mkdtemp(prefix="fgt_13d_")
+    go = os.path.join(go_dir, "two_ranks_timed")
+    with ThreadPoolExecutor(2) as ex:
+        job_two = ex.submit(run_ranks, grid_shard_rank, GS_RANKS, dev, go,
+                            backend="gloo", timeout=600)
+        job_one = ex.submit(run_ranks, grid_shard_one, 1, dev, go,
+                            backend="nccl", timeout=600)
+        make_mesh, cfg = gs_cases()["small"]
+        prob = ThermoViscoProblem(mesh=make_mesh(), config=cfg, device=dev)
+        prob.setup()
+        st = prob.solve()
+        ref = {f: getattr(st, f).cpu().numpy() for f in GS_FIELDS}
+        ref_counts = (prob.diagnostics.newton_iters,
+                      prob.diagnostics.krylov_iters)
+        del prob, st
+        try:
+            ranks = job_two.result()
+        finally:
+            # a failed pair must not leave the one rank waiting
+            open(go, "a").close()
+        res_one = job_one.result()[0]
+    shutil.rmtree(go_dir, ignore_errors=True)
+    one, k2h = res_one["plate"], res_one["k2_halo"]
+    processes_s = time.perf_counter() - t_phase
+
+    def summary(res):
+        return {k: v for k, v in res.items() if k not in GS_FIELDS}
+
+    # ---- (a) the 12x6x4 plate against the unsharded run on the card ----
+    for r, rk in enumerate(ranks):
+        got = rk["small"]
+        if got["newton"] != ref_counts[0] or abs(got["cg"] - ref_counts[1]) \
+                > max(5, 0.02 * ref_counts[1]):
+            fail(f"13d small rank {r}: {got['newton']} / {got['cg']} "
+                 f"against unsharded {ref_counts}")
+        for f in ("T", "Tf"):
+            if not np.allclose(got[f], ref[f], rtol=1e-10, atol=0):
+                fail(f"13d small rank {r}: {f} off the unsharded run's")
+        scale = max(float(np.abs(ref["sigma"]).max()), 1e-30)
+        if not float(np.abs(got["sigma"] - ref["sigma"]).max()) <= \
+                1e-6 * scale:
+            fail(f"13d small rank {r}: sigma off the unsharded run's")
+        dr = rk["dryrun"]
+        if (dr["newton"], dr["cg"]) != GS_DRYRUN_COUNTS or \
+                not np.isfinite(dr["T"]).all():
+            fail(f"13d dryrun rank {r}: {dr['newton']} / {dr['cg']}, "
+                 f"JAX's {GS_DRYRUN_COUNTS}")
+    for name in ("small", "dryrun", "plate"):
+        a, b = ranks[0][name], ranks[1][name]
+        if (a["newton"], a["cg"]) != (b["newton"], b["cg"]) or not all(
+                np.array_equal(a[f], b[f]) for f in GS_FIELDS):
+            fail(f"13d {name}: the ranks disagree")
+    # ---- (b) the plate: one NCCL rank against two gloo ranks ----
+    two = ranks[0]["plate"]
+    rel = max_rel(two["T"], one["T"])
+    if two["newton"] != one["newton"] or \
+            abs(two["cg"] - one["cg"]) > 0.02 * one["cg"] or not rel <= 1e-6:
+        fail(f"13d plate: two ranks {two['newton']} / {two['cg']} against "
+             f"one's {one['newton']} / {one['cg']}, T max-rel {rel:.3e}")
+    from fem_glass_tempering_tpu_torch.config import ModelParams
+    mp, T1 = ModelParams(), one["T"]
+    if not (np.isfinite(T1).all() and mp.T_ambient - 1 < T1.min()
+            and T1.max() < mp.T_0 + 1):
+        fail(f"13d plate: T out of [T_ambient, T_0]: {T1.min()} .. "
+             f"{T1.max()}")
+    out = dict(
+        a=dict(unsharded_newton_cg=list(ref_counts),
+               ranks=[dict(small=summary(r["small"]),
+                           dryrun=summary(r["dryrun"])) for r in ranks],
+               T_max_rel=max_rel(ranks[0]["small"]["T"], ref["T"])),
+        b=dict(world_size_1=summary(one),
+               ranks=[summary(r["plate"]) for r in ranks], T_max_rel=rel),
+        k2_halo=k2h, processes_s=processes_s,
+        ranks_body_s=[r["s"] for r in ranks],
+        ranks_a_s=[r["a_s"] for r in ranks])
+    out["s"] = time.perf_counter() - t_phase
+    log("grid sharded " + json.dumps(out))
+    return out
+
+
+def grid_shard_launches(gs: dict, name: str) -> dict:
+    """A kernel's launches in phase 13d's counted windows, per rank."""
+    out = {f"{case}_ranks": [r[case]["launches"][name]
+                             for r in gs["a"]["ranks"]]
+           for case in ("small", "dryrun")}
+    out["plate_world_size_1"] = gs["b"]["world_size_1"]["launches"][name]
+    out["plate_ranks"] = [r["launches"][name] for r in gs["b"]["ranks"]]
+    return out
+
+
 def distributed_launches(dist: dict, name: str) -> dict:
     """A kernel's launches in phase 13's counted windows, per rank."""
     out = {}
@@ -4022,9 +4391,10 @@ def profile(prob, dev, out_dir) -> None:
     log(table)
 
 
-def csr_library_ms(vals2, x, grid):
+def csr_library_ms(vals2, x, grid, halo=False):
     """One PyTorch call that computes K2's function: a CSR sparse matrix
-    holding the same 27 entries per row, times x -> (ms, its y)."""
+    holding the same 27 entries per row, times x -> (ms, its y). `halo`:
+    K2's halo form, x over the rows' planes and one more on each side."""
     gx, M = vals2.shape[1], vals2.shape[2]
     n = gx * M
     gz = grid[-1]
@@ -4036,20 +4406,166 @@ def csr_library_ms(vals2, x, grid):
         for dy in range(3):
             for dz in range(3):
                 s = (dy - 1) * gz + (dz - 1)
-                r, c = i + dx - 1, m + s
-                ok = (r >= 0) & (r < gx) & (c >= 0) & (c < M)
+                r, c = i + dx - (0 if halo else 1), m + s
+                ok = (c >= 0) & (c < M)
+                if not halo:
+                    ok &= (r >= 0) & (r < gx)
                 rows.append(idx[ok])
                 cols.append((r * M + c)[ok])
                 vs.append(vals2[o].reshape(-1)[ok])
                 o += 1
     A = torch.sparse_coo_tensor(torch.stack([torch.cat(rows),
                                              torch.cat(cols)]),
-                                torch.cat(vs), (n, n)).coalesce()
+                                torch.cat(vs), (n, x.numel())).coalesce()
     A = A.to_sparse_csr()
     del rows, cols, vs
     y = (A @ x[:, None])[:, 0]
     torch.cuda.synchronize()
     return time_ms(lambda: A @ x[:, None], reps=20), y
+
+
+def load_port() -> dict:
+    """The kernels' wrappers and plain versions, by name."""
+    from fem_glass_tempering_tpu_torch.ops.cuda_dg_cell import (
+        PreparedDGCellResidual,
+        dg_cell_residual,
+        dg_cell_residual_reference,
+    )
+    from fem_glass_tempering_tpu_torch.ops.cuda_kernels import (
+        material_tspace,
+        material_tspace_reference,
+    )
+    from fem_glass_tempering_tpu_torch.ops.cuda_stencil import (
+        stencil_matvec,
+        stencil_matvec_halo,
+        stencil_matvec_reference,
+    )
+    return dict(PreparedDGCellResidual=PreparedDGCellResidual,
+                stencil_matvec_halo=stencil_matvec_halo,
+                dg_cell_residual=dg_cell_residual,
+                dg_cell_residual_reference=dg_cell_residual_reference,
+                material_tspace=material_tspace,
+                material_tspace_reference=material_tspace_reference,
+                stencil_matvec=stencil_matvec,
+                stencil_matvec_reference=stencil_matvec_reference)
+
+
+def setup_device() -> torch.device:
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+# The side processes' phases, a group a process (see the docstring): each
+# group's card work is small beside the main process's plates, and each
+# group takes about as long as what the main process runs meanwhile
+# (6a: phase 6's 8x8x4 parity runs; 7a: phase 7's).
+SIDE_GROUPS = (("5", "12b", "12c", "12d", "12e"), ("6a", "7a", "8a"),
+               ("13", "11", "9a", "10a"))
+
+
+def side_phases(names, t0_epoch, scratch_dir, warmup, k2_per_apply) -> dict:
+    """Run phases `names` in this process -> {"results": {name: phase
+    result}, "ends": {name: seconds since the main process's kernel
+    build began}}. The kernel library is the one phase 1 built; phase 11
+    holds the command line to phase 4's warm-up chunk (`warmup`, and K2's
+    launches an apply, `k2_per_apply`)."""
+    global LOG_PREFIX
+    LOG_PREFIX = f"[side {','.join(names)}] "
+    from fem_glass_tempering_tpu_torch.ops import kernel_lib
+
+    dev = setup_device()
+    kernel_lib.library()
+    port = load_port()
+    phases = {
+        "5": lambda: default_workload_phase(dev, port, scratch_dir),
+        "6a": lambda: dg_parity_phase(dev),
+        "7a": lambda: dg_auto_parity_phase(dev),
+        "8a": lambda: mechanics_parity_phase(dev, port),
+        "9a": lambda: cg2_parity_phase(dev, port),
+        "10a": lambda: degree2_parity_phase(dev, port),
+        "11": lambda: cli_phase(dev, port, warmup, k2_per_apply,
+                                scratch_dir),
+        "12b": lambda: bf16_parity_phase(dev, port),
+        "12c": lambda: forms_phase(dev, port),
+        "12d": lambda: solve_scan_phase(dev, port),
+        "12e": lambda: native_phase(dev, scratch_dir),
+        "13": lambda: distributed_phase(dev, port),
+    }
+    out, ends = {}, {}
+    for name in names:
+        drop_garbage(f"phase {name}")
+        out[name] = phases[name]()
+        ends[name] = round(time.time() - t0_epoch, 1)
+        log(f"phase {name} ends at {ends[name]} s")
+    return dict(results=out, ends=ends)
+
+
+def _side_main(results, args) -> None:
+    # SIGTERM from the main process unwinds, so that phase 13's own rank
+    # processes are stopped by run_ranks on the way out
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(1))
+    try:
+        results.put((True, side_phases(*args)))
+    except BaseException:
+        results.put((False, traceback.format_exc()))
+        raise
+
+
+class Side:
+    """A side process (the spawn start method, no process group) running
+    side_phases(*args); `result()` waits for its result and raises with
+    its traceback if it failed, `stop()` ends it if it still runs. Not
+    parallel.comm.run_ranks: a rank there holds a process group, which
+    phase 13's own NCCL group of one cannot join, and is daemonic, so it
+    cannot start phase 13's gloo ranks."""
+
+    def __init__(self, *args):
+        ctx = mp.get_context("spawn")
+        self.names = args[0]
+        self.results = ctx.Queue()
+        self.proc = ctx.Process(target=_side_main, args=(self.results, args))
+        # up to six processes share the host's cores while the sides run:
+        # an idle OpenMP thread of a side (and of phase 13's ranks) sleeps
+        # at once instead of spinning, which leaves the arithmetic as it is
+        before = os.environ.get("OMP_WAIT_POLICY")
+        os.environ["OMP_WAIT_POLICY"] = "PASSIVE"
+        try:
+            self.proc.start()
+        finally:
+            if before is None:
+                del os.environ["OMP_WAIT_POLICY"]
+            else:
+                os.environ["OMP_WAIT_POLICY"] = before
+
+    def result(self, timeout: float = 900.0) -> dict:
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                ok, payload = self.results.get(timeout=1.0)
+                break
+            except queue.Empty:
+                if self.proc.exitcode is not None:
+                    fail(f"side process {self.names} exited with code "
+                         f"{self.proc.exitcode} and no result")
+                if time.monotonic() > deadline:
+                    fail(f"side process {self.names} still running after "
+                         f"{timeout} s")
+        if not ok:
+            fail(f"side process {self.names} failed:\n{payload}")
+        self.proc.join(timeout=60)
+        return payload
+
+    def stop(self) -> None:
+        self.proc.join(timeout=5)        # a failed side is on its way out
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(timeout=30)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join()
 
 
 def main() -> int:
@@ -4063,32 +4579,12 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from fem_glass_tempering_tpu_torch.ops import kernel_lib
-    from fem_glass_tempering_tpu_torch.ops.cuda_kernels import (
-        material_tspace,
-        material_tspace_reference,
-    )
-    from fem_glass_tempering_tpu_torch.ops.cuda_dg_cell import (
-        PreparedDGCellResidual,
-        dg_cell_residual,
-        dg_cell_residual_reference,
-    )
-    from fem_glass_tempering_tpu_torch.ops.cuda_stencil import (
-        stencil_matvec,
-        stencil_matvec_reference,
-    )
-    port = dict(PreparedDGCellResidual=PreparedDGCellResidual,
-                dg_cell_residual=dg_cell_residual,
-                dg_cell_residual_reference=dg_cell_residual_reference,
-                material_tspace=material_tspace,
-                material_tspace_reference=material_tspace_reference,
-                stencil_matvec=stencil_matvec,
-                stencil_matvec_reference=stencil_matvec_reference)
+    port = load_port()
+    stencil_matvec = port["stencil_matvec"]
+    stencil_matvec_reference = port["stencil_matvec_reference"]
     if torch.cuda.device_count() < 1:
         fail("no CUDA device")
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    dev = setup_device()
     card = card_line()
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -4096,6 +4592,7 @@ def main() -> int:
     # seconds since the build started at the end of each phase: what a
     # later phase may spend within the script's time limit
     t0 = time.perf_counter()
+    t0_epoch = time.time()
     ends = {}
 
     def phase_end(name):
@@ -4148,75 +4645,68 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_end("4")
 
-    # ---- phase 5: the default workload ----
+    # ---- the side processes (SIDE_GROUPS) ----
     scratch_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                "build", "chip_smoke")
     os.makedirs(scratch_dir, exist_ok=True)
-    drop_garbage("phase 5")
-    default = default_workload_phase(dev, port, scratch_dir)
-    phase_end("5")
+    drop_garbage("the side processes")
+    sides = []
+    try:
+        for names in SIDE_GROUPS:
+            sides.append(Side(names, t0_epoch, scratch_dir, warmup,
+                              full["stencil_launches_per_apply"]))
 
-    # ---- phase 6: the DG-1 plate, small against the CPU, then full ----
-    dg_parity_phase(dev)
-    drop_garbage("phase 6")
-    plate = dg_plate_phase(dev, port)
-    phase_end("6")
+        # ---- phase 6: the DG-1 plate on SA-AMG ----
+        plate = dg_plate_phase(dev, port)
+        phase_end("6")
 
-    # ---- phase 7: the DG-1 plate through "auto" (DG p-multigrid) ----
-    drop_garbage("phase 7a")
-    dg_auto_parity = dg_auto_parity_phase(dev)
-    dg_auto = dg_auto_plate_phase(dev, port)
-    phase_end("7")
+        # ---- phase 7b: the DG-1 plate through "auto" (DG p-multigrid) ----
+        drop_garbage("phase 7b")
+        dg_auto = dg_auto_plate_phase(dev, port)
+        phase_end("7")
 
-    # ---- phase 8: equilibrium mechanics ----
-    drop_garbage("phase 8a")
-    mech_parity = mechanics_parity_phase(dev, port)
-    phase_end("8a")
-    drop_garbage("phase 8b")
-    mech = mechanics_plate_phase(dev, port)
-    phase_end("8b")
+        # ---- phase 8b: equilibrium mechanics at full width ----
+        drop_garbage("phase 8b")
+        mech = mechanics_plate_phase(dev, port)
+        phase_end("8b")
 
-    # ---- phase 9: the CG-2 plate on the lattice path ----
-    drop_garbage("phase 9a")
-    cg2_parity = cg2_parity_phase(dev, port)
-    phase_end("9a")
+        # ---- phase 10b, 10c: the gather path, the mixed twins ----
+        drop_garbage("phase 10b")
+        gather = gather_plate_phase(dev, port)
+        phase_end("10b")
+        drop_garbage("phase 10c")
+        mixed = mixed_plate_phase(dev, port)
+        phase_end("10c")
+
+        side = {}
+        for sp in sides:
+            res = sp.result()
+            side.update(res["results"])
+            ends.update(res["ends"])
+    finally:
+        for sp in sides:
+            sp.stop()
+    phase_end("sides")
+    default, dg_auto_parity = side["5"], side["7a"]
+    mech_parity, cg2_parity = side["8a"], side["9a"]
+    d2_parity, cli, dist = side["10a"], side["11"], side["13"]
+    bf16_parity, forms, scan = side["12b"], side["12c"], side["12d"]
+    native_rt = side["12e"]
+
+    # ---- phase 9b: the CG-2 plate on the lattice path ----
     drop_garbage("phase 9b")
     cg2 = cg2_plate_phase(dev, port)
     phase_end("9b")
 
-    # ---- phase 10: the rest of degree 2 (gather paths, mixed twins) ----
-    drop_garbage("phase 10a")
-    d2_parity = degree2_parity_phase(dev, port)
-    phase_end("10a")
-    drop_garbage("phase 10b")
-    gather = gather_plate_phase(dev, port)
-    phase_end("10b")
-    drop_garbage("phase 10c")
-    mixed = mixed_plate_phase(dev, port)
-    phase_end("10c")
-
-    # ---- phase 11: the command-line entry point ----
-    drop_garbage("phase 11")
-    cli = cli_phase(dev, port, warmup, full["stencil_launches_per_apply"],
-                    scratch_dir)
-    phase_end("11")
-
-    # ---- phase 12: bf16 tables, forms, solve_scan, the native runtime ----
+    # ---- phase 12a: bf16 V-cycle tables ----
     drop_garbage("phase 12a")
     bf16 = bf16_plate_phase(dev, port)
     phase_end("12a")
-    drop_garbage("phase 12b")
-    bf16_parity = bf16_parity_phase(dev, port)
-    forms = forms_phase(dev, port)
-    scan = solve_scan_phase(dev, port)
-    phase_end("12d")
-    native_rt = native_phase(dev, scratch_dir)
-    phase_end("12")
 
-    # ---- phase 13: distribution (shard_problem, CGDDProblem) ----
-    drop_garbage("phase 13")
-    dist = distributed_phase(dev, port)
-    phase_end("13")
+    # ---- phase 13d: the grid-sharded CG-1 step ----
+    drop_garbage("phase 13d")
+    gshard = grid_shard_phase(dev, port)
+    phase_end("13d")
 
     k1_32 = k1["float32"]
     sigma_ms = full["material_step_ms"] - k1_32["ms"]
@@ -4246,7 +4736,9 @@ def main() -> int:
              launches_solve_scan=scan["launches_solve_scan"][
                  "material_tspace"],
              launches_distributed=distributed_launches(
-                 dist, "material_tspace")),
+                 dist, "material_tspace"),
+             launches_grid_sharded=grid_shard_launches(
+                 gshard, "material_tspace")),
         dict(name="stencil_matvec", route="cuda",
              source="fem_glass_tempering_tpu_torch/csrc/stencil_matvec.cu",
              replaces="fem_glass_tempering_tpu/ops/pallas_stencil.py:54",
@@ -4267,7 +4759,27 @@ def main() -> int:
                  "stencil_matvec"],
              cg2_coarse_levels=cg2["k2_levels"],
              launches_distributed=distributed_launches(
-                 dist, "stencil_matvec")),
+                 dist, "stencil_matvec"),
+             launches_grid_sharded=grid_shard_launches(
+                 gshard, "stencil_matvec")),
+        # K2's halo form (a rank's planes of the grid-sharded step, f32 /
+        # f64 tables): launches of phase 13d's plate over one NCCL rank,
+        # timed on the two-rank layout's first slab of its fine level
+        dict(name="stencil_matvec_halo", route="cuda",
+             source="fem_glass_tempering_tpu_torch/csrc/stencil_matvec.cu",
+             replaces="fem_glass_tempering_tpu/ops/pallas_stencil.py:54",
+             launches=gshard["b"]["world_size_1"]["launches"][
+                 "stencil_matvec_halo"],
+             max_abs_err=gshard["k2_halo"]["max_abs_err"],
+             ms=gshard["k2_halo"]["ms"],
+             plain_ms=gshard["k2_halo"]["plain_ms"],
+             bound_ms=gshard["k2_halo"]["bound_ms"],
+             bound_by=gshard["k2_halo"]["bound_by"],
+             library_ms=gshard["k2_halo"]["library_ms"],
+             device_ms=gshard["k2_halo"]["device_ms"],
+             slab=gshard["k2_halo"]["slab"],
+             launches_grid_sharded=grid_shard_launches(
+                 gshard, "stencil_matvec_halo")),
         # the bf16-table instantiation of K2 (f32 vector: the mixed
         # V-cycle's), timed on the fine level's tables of the 1M-dof plate
         dict(name="stencil_matvec_bf16_tables", route="cuda",
@@ -4365,6 +4877,7 @@ def main() -> int:
     log("summary solve_scan " + json.dumps(scan))
     log("summary native runtime " + json.dumps(native_rt))
     log("summary distributed " + json.dumps(dist))
+    log("summary grid sharded " + json.dumps(gshard))
     log("summary phase end times, s " + json.dumps(ends))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

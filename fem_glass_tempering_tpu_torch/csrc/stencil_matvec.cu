@@ -54,6 +54,13 @@
 // still sums its 27 products in offset order with the plain version's
 // roundings: bit-equal to it, as the one-point kernel.
 
+// The halo form (fgt_stencil_matvec_halo; HALO = true in the f32 / f64
+// kernel): the rows of one rank's planes of a grid split along axis 0
+// (parallel/grid_shard.py), with x carrying one plane of each neighbour
+// rank above and below its own, zeros where there is none. The rows of x
+// need no test then; every output sums the products of the whole-grid
+// kernel's row in its order, so the two agree bit for bit.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,7 +72,11 @@ __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-template <typename T, int D>
+// HALO = false: the whole grid, gx rows of x and y. HALO = true: a slab
+// of gx rows of a grid split along axis 0 (one rank's planes); x holds
+// gx + 2 rows, the first and the last the neighbours' planes (zeros where
+// there is none), so every row x read lies in x and takes no test.
+template <typename T, int D, bool HALO>
 __global__ void stencil_matvec_kernel(const T* __restrict__ vals,
                                       const T* __restrict__ x,
                                       T* __restrict__ y, int64_t gx,
@@ -80,8 +91,8 @@ __global__ void stencil_matvec_kernel(const T* __restrict__ vals,
     int o = 0;
 #pragma unroll
     for (int dx = 0; dx < 3; ++dx) {
-      const int64_t r = i + dx - 1;
-      const bool row_ok = r >= 0 && r < gx;
+      const int64_t r = HALO ? i + dx : i + dx - 1;
+      const bool row_ok = HALO || (r >= 0 && r < gx);
 #pragma unroll
       for (int dy = 0; dy < 3; ++dy) {
 #pragma unroll
@@ -281,7 +292,7 @@ int launch_bf16(int d, const void* vals, const void* x, void* y,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool HALO>
 int launch(int d, const void* vals, const void* x, void* y, int64_t gx,
            int64_t m_cols, int64_t gz, void* stream) {
   const int64_t n = gx * m_cols;
@@ -291,10 +302,10 @@ int launch(int d, const void* vals, const void* x, void* y, int64_t gx,
   if (blocks < 1) blocks = 1;
   cudaStream_t s = (cudaStream_t)stream;
   if (d == 3)
-    stencil_matvec_kernel<T, 3><<<(unsigned)blocks, threads, 0, s>>>(
+    stencil_matvec_kernel<T, 3, HALO><<<(unsigned)blocks, threads, 0, s>>>(
         (const T*)vals, (const T*)x, (T*)y, gx, m_cols, gz);
   else if (d == 2)
-    stencil_matvec_kernel<T, 2><<<(unsigned)blocks, threads, 0, s>>>(
+    stencil_matvec_kernel<T, 2, HALO><<<(unsigned)blocks, threads, 0, s>>>(
         (const T*)vals, (const T*)x, (T*)y, gx, m_cols, gz);
   else
     return (int)cudaErrorInvalidValue;
@@ -316,13 +327,31 @@ extern "C" int fgt_stencil_matvec(int dtype_code, int table_code, int d,
   if (table_code != 2 && pitch != gx * m_cols)
     return (int)cudaErrorInvalidValue;
   if (dtype_code == 0 && table_code == 0)
-    return launch<float>(d, vals, x, y, gx, m_cols, gz, stream);
+    return launch<float, false>(d, vals, x, y, gx, m_cols, gz, stream);
   if (dtype_code == 1 && table_code == 1)
-    return launch<double>(d, vals, x, y, gx, m_cols, gz, stream);
+    return launch<double, false>(d, vals, x, y, gx, m_cols, gz, stream);
   if (dtype_code == 0 && table_code == 2)
     return launch_bf16<float>(d, vals, x, y, gx, m_cols, gz, pitch, stream);
   if (dtype_code == 1 && table_code == 2)
     return launch_bf16<double>(d, vals, x, y, gx, m_cols, gz, pitch,
                                stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The halo form: y (gx, m_cols) over a rank's gx planes, from its tables
+// vals (3^d, gx, m_cols) and x_ext (gx + 2, m_cols), whose first and last
+// rows are the neighbour ranks' planes (zeros where there is none). Each
+// output sums the same products in the same order as the whole-grid
+// kernel's row, whose zero rows the halo's zeros stand for: bit-equal to
+// it. dtype_code as above (the tables in the vector's type); d = 2 or 3.
+extern "C" int fgt_stencil_matvec_halo(int dtype_code, int d,
+                                       const void* vals, const void* x_ext,
+                                       void* y, int64_t gx, int64_t m_cols,
+                                       int64_t gz, void* stream) {
+  if (gx * m_cols <= 0) return 0;
+  if (dtype_code == 0)
+    return launch<float, true>(d, vals, x_ext, y, gx, m_cols, gz, stream);
+  if (dtype_code == 1)
+    return launch<double, true>(d, vals, x_ext, y, gx, m_cols, gz, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -21,7 +21,15 @@ start every table on 16 bytes: `pitched_tables` casts them into such a
 layout, table o at o * pitch (pitch a multiple of 8 values), as a (3^d,
 gx, M) view that the plain version reads as it reads any.
 
-The wrapper takes the plain version for tensors on the CPU and launches
+stencil_matvec_halo — the same matvec over one rank's slab of planes of
+a grid split along axis 0 (parallel/grid_shard.py): the rank's tables
+(3^d, L, M) and x over L + 2 planes, the first and the last its
+neighbours' planes (zeros where there is none), give y over its L planes,
+equal bit for bit to the whole grid's rows (the same kernel source, a
+template flag; f32 and f64 tables only). It counts its launches in
+`stencil_matvec_halo.launches`.
+
+The wrappers take the plain version for tensors on the CPU and launch
 the kernel for CUDA tensors; anything the kernel does not take raises.
 """
 
@@ -141,3 +149,64 @@ def stencil_matvec(vals2: torch.Tensor, x: torch.Tensor,
 stencil_matvec.launches = 0
 stencil_matvec.launches_by_table = {"float32": 0, "float64": 0,
                                     "bfloat16": 0}
+
+
+def stencil_matvec_halo_reference(vals2: torch.Tensor, x_ext: torch.Tensor,
+                                  slab_shape) -> torch.Tensor:
+    """Plain PyTorch version of the halo form: the whole-grid version with
+    its one-row zero pad replaced by the halo rows of x_ext. vals2 (3^d,
+    L, M), x_ext ((L + 2) M,), slab_shape (L, *grid[1:]) -> (L M,)."""
+    L = slab_shape[0]
+    M = vals2.shape[-1]
+    shifts = flat_shifts(slab_shape)
+    P = max(abs(s) for _, s in shifts) if len(slab_shape) > 1 else 1
+    xp = F.pad(x_ext.reshape(L + 2, M), (P, P))
+    acc = torch.zeros((L, M), dtype=x_ext.dtype, device=x_ext.device)
+    for o, (dx, s) in enumerate(shifts):
+        acc = acc + vals2[o] * xp[dx:dx + L, P + s:P + s + M]
+    return acc.reshape(-1)
+
+
+def stencil_matvec_halo(vals2: torch.Tensor, x_ext: torch.Tensor,
+                        slab_shape) -> torch.Tensor:
+    """y = A x over a rank's slab: vals2 (3^d, L, M) in x's dtype
+    (contiguous), x_ext ((L + 2) M,) with the neighbours' planes first and
+    last, slab_shape (L, *grid[1:]) -> (L M,). Kernel on CUDA tensors
+    (d = 2 or 3), plain version on CPU tensors."""
+    slab_shape = tuple(int(g) for g in slab_shape)
+    d = len(slab_shape)
+    L = slab_shape[0]
+    M = int(np.prod(slab_shape[1:])) if d > 1 else 1
+    if vals2.shape != (3 ** d, L, M) or x_ext.shape != ((L + 2) * M,):
+        raise ValueError(f"stencil_matvec_halo: slab {slab_shape} needs vals "
+                         f"({3 ** d}, {L}, {M}) and x ({(L + 2) * M},), got "
+                         f"{tuple(vals2.shape)} and {tuple(x_ext.shape)}")
+    if vals2.dtype != x_ext.dtype:
+        raise TypeError(f"stencil_matvec_halo: vals {vals2.dtype} vs x "
+                        f"{x_ext.dtype} (the halo form takes tables in the "
+                        f"vector's dtype)")
+    if vals2.device.type == "cpu" and x_ext.device.type == "cpu":
+        return stencil_matvec_halo_reference(vals2, x_ext, slab_shape)
+    if vals2.device.type != "cuda" or vals2.device != x_ext.device:
+        raise ValueError("stencil_matvec_halo: vals and x must lie on one "
+                         f"CUDA device or both on the CPU, got {vals2.device} "
+                         f"and {x_ext.device}")
+    if d not in (2, 3):
+        raise ValueError(f"stencil_matvec_halo: the kernel takes d = 2 or 3, "
+                         f"got {d}")
+    if not (vals2.is_contiguous() and x_ext.is_contiguous()):
+        raise ValueError("stencil_matvec_halo: inputs must be contiguous")
+    code = kernel_lib.dtype_code(x_ext.dtype)
+    y = torch.empty(L * M, dtype=x_ext.dtype, device=x_ext.device)
+    lib = kernel_lib.library().cdll
+    with torch.cuda.device(x_ext.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.fgt_stencil_matvec_halo(code, d, vals2.data_ptr(),
+                                         x_ext.data_ptr(), y.data_ptr(), L,
+                                         M, slab_shape[-1], stream)
+    kernel_lib.check(rc, "stencil_matvec_halo")
+    stencil_matvec_halo.launches += 1
+    return y
+
+
+stencil_matvec_halo.launches = 0

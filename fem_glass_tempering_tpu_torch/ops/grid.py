@@ -27,7 +27,16 @@ boundary-flux linearisation rides per apply as face-local blocks. It is
 plain PyTorch, taken only without a `stream_dtype`. The solver builds
 the table form (the default), whose Jacobian action is K2.
 
-Waiting for Slice 7 (ROADMAP.md): padded grids (`pad_axis0`).
+Padded grids (`pad_axis0`, the grid-sharded step of
+parallel/grid_shard.py): ghost node planes appended along axis 0 are
+identity rows (residual T - T_0, unit diagonal, identity Jacobian
+action), with zero coupling in the value tables; the flat (n,) API
+refuses them. `slab(lo, hi)` is the operator restricted to planes
+[lo, hi) of the (padded) grid, one rank's share: its tables are sliced
+from the whole grid's, and its residual, diagonal and table bake take
+the rank's planes with one halo plane on each side, computing on those
+L + 2 planes as the whole grid does and keeping the L owned rows; its
+Jacobian action is K2's halo form.
 """
 
 from __future__ import annotations
@@ -39,6 +48,8 @@ import torch.nn.functional as F
 from fem_glass_tempering_tpu_torch.ops.cuda_stencil import (
     flat_shifts,
     pitched_tables,
+    stencil_matvec,
+    stencil_matvec_halo,
 )
 from fem_glass_tempering_tpu_torch.ops.heat import HeatOperator
 from fem_glass_tempering_tpu_torch.ops.stencil import StencilMatrix
@@ -61,12 +72,17 @@ class GridHeatOperator:
     with whole-boundary or whole-face flux and no MMS source."""
 
     def __init__(self, op: HeatOperator, flux_marker=None,
-                 allow_const: bool = False):
+                 allow_const: bool = False, pad_axis0: int = 0,
+                 tables: bool = True):
         """`flux_marker(midpoints) -> bool mask` restricts the radiation +
         convection flux to whole box faces; a marker that cuts through a
         face is rejected (use HeatOperator's gather assembly instead).
         `allow_const` takes the constant-row form where the tables allow
-        it (`const_ok`)."""
+        it (`const_ok`; never on a padded grid). `pad_axis0` appends that
+        many ghost node planes along axis 0 (identity rows). `tables`
+        False leaves the whole grid's device tables until a method needs
+        them (`ensure_tables`): the grid-sharded step reads only its
+        slabs'."""
         fs = op.fs
         mesh = fs.mesh
         if mesh.structured is None or fs.family != "CG" or fs.degree != 1:
@@ -79,7 +95,9 @@ class GridHeatOperator:
         self.dtype = op.dtype
         self.device = op.device
         self.st = StencilMatrix(op, make_tables=False)
-        self.grid = self.st.grid
+        self.pad0 = int(pad_axis0)
+        g = self.st.grid
+        self.grid = (g[0] + self.pad0,) + g[1:] if self.pad0 else g
         self.dims = tuple(mesh.structured["dims"])
         self.d = len(self.dims)
         self.n = fs.n_scalar_dofs
@@ -152,13 +170,15 @@ class GridHeatOperator:
 
         self._offsets = self.st.offsets
 
-        # mass row sums M @ 1 (for the constant-source term), in numpy
+        # mass row sums M @ 1 (for the constant-source term), in numpy,
+        # over the padded grid (ghost planes: zero coupling)
         m1 = np.zeros(self.grid)
         xp = np.pad(np.ones(self.grid), 1)
         for o, off in enumerate(self._offsets):
             sl = tuple(slice(int(v), int(v) + g)
                        for v, g in zip(off, self.grid))
-            m1 += self.st.np_mass[o] * xp[sl]
+            m1 += self._np_padded(self.st.np_mass[o]) * xp[sl]
+        self.np_M1g = m1
         self.M1g = f(m1)
 
         # stencil-offset id for a (l, m) corner pair
@@ -172,9 +192,18 @@ class GridHeatOperator:
 
         self.bc_mask = op.bc_mask
         self.bc_values = op.bc_values
-        self.bc_mask_g = op.bc_mask.reshape(self.grid)
-        self.bc_values_g = op.bc_values.reshape(self.grid)
-        self.has_bc = op.has_bc
+        mask_g = op.bc_mask.reshape(self.st.grid)
+        vals_g = op.bc_values.reshape(self.st.grid)
+        if self.pad0:
+            pc = (0, 0) * (self.d - 1) + (0, self.pad0)
+            mask_g = F.pad(mask_g, pc, value=True)
+            vals_g = F.pad(vals_g, pc, value=float(op.params.T_0))
+        self.bc_mask_g = mask_g
+        self.bc_values_g = vals_g
+        self.has_bc = op.has_bc or self.pad0 > 0
+        # the whole grid on axis 0: its cells [0, dims[0]) from row 0
+        self._row0 = 0
+        self._cells0 = (0, self.dims[0])
 
         # the constant-row decomposition: the interior planes' rows are
         # one (n_off, M) row; the two axis-0 boundary planes keep their
@@ -183,7 +212,8 @@ class GridHeatOperator:
         self.const_ok = False
         self.crow_mass = self.crow_stiff = None
         self.crow_dmass = self.crow_dstiff = None
-        if allow_const and self.d >= 2 and self.grid[0] >= 4:
+        if (allow_const and self.pad0 == 0 and self.d >= 2
+                and self.grid[0] >= 4):
             gx = self.grid[0]
             M = self.n // gx
             vm2 = self.st.np_mass.reshape(self.st.n_off, gx, M)
@@ -208,9 +238,41 @@ class GridHeatOperator:
                         fc.np_phi[:, cols]))
             for fc, cols in zip(self.faces, self._face_cols)]
 
-        self.st.ensure_tables()
-        self.vals_mass = self.st.st_mass
-        self.vals_stiff = self.st.st_stiff
+        self.vals_mass = self.vals_stiff = None
+        if tables:
+            self.ensure_tables()
+        self._slabs: dict = {}
+
+    def _np_padded(self, a: np.ndarray) -> np.ndarray:
+        """A numpy array over the physical grid with the ghost planes
+        appended as zeros."""
+        if not self.pad0:
+            return a
+        return np.pad(a, [(0, self.pad0)] + [(0, 0)] * (a.ndim - 1))
+
+    def ensure_tables(self) -> None:
+        """Materialise the whole grid's (n_off, *grid) device tables, the
+        ghost planes' zero (idempotent)."""
+        if self.vals_mass is None:
+            self.st.ensure_tables()
+            self.vals_mass, self.vals_stiff = self.st.st_mass, self.st.st_stiff
+            if self.pad0:
+                pc = (0, 0) * (self.d - 1) + (0, self.pad0)
+                self.vals_mass = F.pad(self.vals_mass, pc)
+                self.vals_stiff = F.pad(self.vals_stiff, pc)
+
+    def _flat_api(self) -> None:
+        if self.pad0:
+            raise ValueError("GridHeatOperator: the flat (n,) API is "
+                             "unavailable on a padded grid; use the "
+                             "grid-shaped methods (*_g)")
+
+    def slab(self, lo: int, hi: int) -> "GridSlab":
+        """The operator restricted to planes [lo, hi) of the grid (one per
+        range: the step and its V-cycle's fine level share it)."""
+        if (lo, hi) not in self._slabs:
+            self._slabs[(lo, hi)] = GridSlab(self, lo, hi)
+        return self._slabs[(lo, hi)]
 
     # ------------------------------------------------------------------
     def _shifted(self, xp, off):
@@ -307,7 +369,13 @@ class GridHeatOperator:
         for i in range(self.d):
             if i == face.axis:
                 base = (0 if face.side == 0 else self.dims[i] - 1) + off[i]
+                if i == 0:
+                    base -= self._row0
                 idx.append(slice(base, base + 1))
+            elif i == 0:
+                c0, c1 = self._cells0
+                idx.append(slice(c0 + off[0] - self._row0,
+                                 c1 + off[0] - self._row0))
             else:
                 idx.append(slice(off[i], off[i] + self.dims[i]))
         return tuple(idx)
@@ -319,6 +387,7 @@ class GridHeatOperator:
     # ------------------------------------------------------------------
     def residual(self, T: torch.Tensor, T_prev: torch.Tensor,
                  dt=None) -> torch.Tensor:
+        self._flat_api()
         return self.residual_g(T.reshape(self.grid),
                                T_prev.reshape(self.grid), dt).reshape(-1)
 
@@ -342,6 +411,7 @@ class GridHeatOperator:
                                          Tg, diff=True)
                   - dt * p.f * self.M1g)
         else:
+            self.ensure_tables()
             rg = (self.matvec_vals(self.vals_mass, Tg - Tpg)
                   + dt * self.matvec_diff(self.vals_stiff, Tg)
                   - dt * p.f * self.M1g)
@@ -359,6 +429,7 @@ class GridHeatOperator:
 
     # ------------------------------------------------------------------
     def jacobian_diag(self, T: torch.Tensor, dt=None) -> torch.Tensor:
+        self._flat_api()
         return self.jacobian_diag_g(T.reshape(self.grid), dt).reshape(-1)
 
     def jacobian_diag_g(self, Tg, dt=None):
@@ -372,6 +443,7 @@ class GridHeatOperator:
             d = torch.cat([br[0:1], row[None, :].expand(gx - 2, -1),
                            br[1:2]], dim=0).reshape(self.grid)
         else:
+            self.ensure_tables()
             d = self.vals_mass[center] + dt * self.vals_stiff[center]
         for fc, cols in zip(self.faces, self._face_cols):
             phi = fc.phi[:, cols]
@@ -389,12 +461,14 @@ class GridHeatOperator:
 
     # ------------------------------------------------------------------
     def stencil_values(self, T: torch.Tensor, dt) -> torch.Tensor:
+        self._flat_api()
         return self.stencil_values_g(T.reshape(self.grid), dt)
 
     def stencil_values_g(self, Tg, dt):
         """J(T) stencil values (n_off, *grid) with the boundary
         linearization added by static-slice writes (no scatter)."""
         p = self.params
+        self.ensure_tables()
         vals = self.vals_mass + dt * self.vals_stiff       # (n_off, *grid)
         for fc, cols in zip(self.faces, self._face_cols):
             phi = fc.phi[:, cols]
@@ -430,6 +504,7 @@ class GridHeatOperator:
             vals, v.reshape(self.grid)).reshape(-1)
 
     def make_matvec(self, T: torch.Tensor, dt, stream_dtype=None):
+        self._flat_api()
         if self.const_ok and stream_dtype is None:
             # constant-row form: no value table; the flux linearisation
             # at the frozen T rides as face-local blocks
@@ -447,6 +522,108 @@ class GridHeatOperator:
             mv = self._mv_flat(vals, stream_dtype=stream_dtype)
         if self.has_bc:
             mask = self.bc_mask
+            return lambda v: torch.where(
+                mask, v, mv(torch.where(mask, torch.zeros_like(v), v)))
+        return mv
+
+    def make_matvec_g(self, Tg, dt):
+        """Grid-shaped Jacobian action: the tables baked at Tg, applied by
+        K2 over the whole (padded) grid; identity on masked rows."""
+        vals2 = self.stencil_values_g(Tg, dt).reshape(
+            self.st.n_off, self.grid[0], -1)
+        mv = lambda v: stencil_matvec(vals2, v.reshape(-1),  # noqa: E731
+                                      self.grid).reshape(self.grid)
+        if self.has_bc:
+            mask = self.bc_mask_g
+            return lambda v: torch.where(
+                mask, v, mv(torch.where(mask, torch.zeros_like(v), v)))
+        return mv
+
+
+class GridSlab(GridHeatOperator):
+    """A GridHeatOperator restricted to planes [lo, hi) of its (padded)
+    grid: one rank's share of the grid-sharded step. It computes on the
+    L + 2 planes [lo - 1, hi + 1) (the whole grid's methods, on that
+    window: tables, masks and M 1 sliced from the whole grid's, zero
+    outside it; the box faces that meet the window; the cells of the
+    window) and keeps the L owned rows, each equal to the whole grid's
+    row. Its inputs carry the halo: `T_ext` (L + 2, *grid[1:]), the
+    neighbours' planes first and last, zeros where there is none
+    (parallel/comm.py halo_exchange)."""
+
+    def __init__(self, op: GridHeatOperator, lo: int, hi: int):
+        self.__dict__.update(op.__dict__)
+        self._slabs = {}
+        G0 = op.grid[0]
+        if not 0 <= lo < hi <= G0:
+            raise ValueError(f"slab [{lo}, {hi}) outside the grid's {G0} "
+                             f"planes")
+        self.L = hi - lo
+        self.slab_grid = (self.L,) + op.grid[1:]
+        e0, E = lo - 1, self.L + 2
+        self.grid = (E,) + op.grid[1:]
+        self._row0 = e0
+        self._cells0 = (max(0, e0), min(self.dims[0], e0 + E - 1))
+        def window(arr: np.ndarray, axis: int = 0) -> np.ndarray:
+            """The window's planes of an array over the grid (or over its
+            physical planes: the ghost planes' tables are zero), zero
+            outside it."""
+            a, b = max(e0, 0), min(e0 + E, arr.shape[axis])
+            sl = [slice(None)] * arr.ndim
+            sl[axis] = slice(a, max(a, b))
+            pads = [(0, 0)] * arr.ndim
+            pads[axis] = (a - e0, e0 + E - max(a, b))
+            return np.pad(arr[tuple(sl)], pads)
+
+        f = lambda x, dt=self.dtype: torch.as_tensor(  # noqa: E731
+            np.ascontiguousarray(x), dtype=dt, device=self.device)
+        self.vals_mass = f(window(op.st.np_mass, 1))
+        self.vals_stiff = f(window(op.st.np_stiff, 1))
+        self.M1g = f(window(op.np_M1g))
+        mask = op.bc_mask_g.cpu().numpy()
+        self.bc_mask_g = f(window(mask), torch.bool)
+        self.bc_values_g = f(window(op.bc_values_g.cpu().numpy()))
+        # the Jacobian action masks where an owned row is masked (each
+        # rank masks its own rows before the halo carries them)
+        self.own_mask = (self.bc_mask_g[1:-1] if bool(mask[lo:hi].any())
+                         else None)
+        # the box faces that meet the window: a face normal to axis 0
+        # where its plane lies in it, the others where it holds a cell
+        keep = [k for k, fc in enumerate(op.faces)
+                if (fc.axis == 0 and 0 <= (0 if fc.side == 0 else
+                                           self.dims[0]) - e0 < E)
+                or (fc.axis != 0 and self._cells0[1] > self._cells0[0])]
+        self.faces = [op.faces[k] for k in keep]
+        self._face_cols = [op._face_cols[k] for k in keep]
+        self._face_phiphi = [op._face_phiphi[k] for k in keep]
+        self.const_ok = False
+
+    def residual_r(self, T_ext, Tp_ext, dt=None):
+        """The owned rows of the residual (L, *grid[1:])."""
+        return self.residual_g(T_ext, Tp_ext, dt)[1:-1]
+
+    def jacobian_diag_r(self, T_ext, dt=None):
+        return self.jacobian_diag_g(T_ext, dt)[1:-1]
+
+    def stencil_values_r(self, T_ext, dt):
+        """The owned rows' tables at T, (n_off, L, M), contiguous."""
+        vals = self.stencil_values_g(T_ext, dt)[:, 1:-1]
+        return vals.reshape(self.st.n_off, self.L, -1).contiguous()
+
+    def make_matvec_r(self, T_ext, dt, halo):
+        """v (L, *grid[1:]) -> J(T) v on the owned rows: the tables baked
+        at T, applied by K2's halo form to v with its halo planes
+        (`halo(v) -> (L + 2, ...)`, a collective: every rank applies
+        together); identity on masked rows."""
+        vals2 = self.stencil_values_r(T_ext, dt)
+        shape = self.slab_grid
+
+        def mv(v):
+            xe = halo(v)
+            return stencil_matvec_halo(vals2, xe.reshape(-1),
+                                       shape).reshape(shape)
+        mask = self.own_mask
+        if mask is not None:
             return lambda v: torch.where(
                 mask, v, mv(torch.where(mask, torch.zeros_like(v), v)))
         return mv

@@ -56,6 +56,8 @@ _SIGNATURES = {
                             ctypes.POINTER(_D), _P],
     "fgt_stencil_matvec": [ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
                            _P, _P, _I64, _I64, _I64, _I64, _P],
+    "fgt_stencil_matvec_halo": [ctypes.c_int, ctypes.c_int, _P, _P, _P,
+                                _I64, _I64, _I64, _P],
     "fgt_dg_cell_residual": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _I64,
                              ctypes.c_int, ctypes.c_int, ctypes.c_int,
                              ctypes.c_int, _D, _D, _D, _D, _P],

@@ -1,8 +1,8 @@
 """Distribution over torch.distributed ranks (counterpart of
 fem_glass_tempering_tpu/parallel): the collectives (comm.py), cell-axis
 sharding of a ThermoViscoProblem (sharding.py), the partition
-(partition.py) and the DG and CG domain decompositions (domain.py,
-domain_cg.py)."""
+(partition.py), the DG and CG domain decompositions (domain.py,
+domain_cg.py) and the grid-sharded step (grid_shard.py)."""
 
 from fem_glass_tempering_tpu_torch.parallel.comm import (  # noqa: F401
     make_device_mesh,
@@ -12,6 +12,9 @@ from fem_glass_tempering_tpu_torch.parallel.domain import (  # noqa: F401
 )
 from fem_glass_tempering_tpu_torch.parallel.domain_cg import (  # noqa: F401
     CGDDProblem,
+)
+from fem_glass_tempering_tpu_torch.parallel.grid_shard import (  # noqa: F401
+    GridShardedProblem,
 )
 from fem_glass_tempering_tpu_torch.parallel.partition import (  # noqa: F401
     build_dd_layout,

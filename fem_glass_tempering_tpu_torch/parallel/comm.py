@@ -15,6 +15,8 @@ a torch.distributed group, and every collective is a sum over the ranks:
   identity of the sum (x + -0.0 == x bit for bit, signed zeros included),
   so the result equals an all-gather exactly. `gather_rows` does the same
   for rows scattered over a global vector.
+- `halo_exchange` gives each rank of a grid split along axis 0 its
+  neighbours' adjacent planes through that all-gather.
 
 The backend follows the device (NCCL for CUDA, gloo for the CPU) unless
 the caller names one: two ranks can share one GPU over gloo, which NCCL
@@ -147,6 +149,28 @@ def gather_rows(values: torch.Tensor, rows: torch.Tensor, n: int,
                      dtype=values.dtype, device=values.device)
     out[rows] = values
     return all_reduce_sum(out, mesh)
+
+
+def halo_exchange(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """x (L, ...), this rank's planes of a tensor split along axis 0 in
+    rank order -> (L + 2, ...): x between the last plane of rank - 1 and
+    the first plane of rank + 1, zeros where there is no such rank. One
+    summed all-gather of every rank's first and last plane (exact, as
+    `all_gather`), counted in `halo_exchange.count`; none at world size 1.
+    Every rank must call it, each with at least one plane and the same
+    trailing shape."""
+    zero = torch.zeros_like(x[:1])
+    if mesh.size == 1:
+        return torch.cat([zero, x, zero])
+    ends = all_gather(torch.stack([x[0], x[-1]]), mesh)   # rank r: 2r, 2r+1
+    p = mesh.rank
+    lower = ends[2 * p - 1:2 * p] if p > 0 else zero
+    upper = ends[2 * p + 2:2 * p + 3] if p < mesh.size - 1 else zero
+    halo_exchange.count += 1
+    return torch.cat([lower, x, upper])
+
+
+halo_exchange.count = 0
 
 
 def _rank_main(fn, rank, world_size, init_method, device, backend, threads,

@@ -1,0 +1,382 @@
+"""The grid-sharded coupled step: every field split along node-grid axis 0.
+
+Counterpart of fem_glass_tempering_tpu/parallel/grid_shard.py
+(GridShardedProblem), the JAX package's flagship distributed path, whose
+collectives are the ones XLA's SPMD partitioner inserts around arrays
+sharded with a NamedSharding. Here each rank is one process of a
+torch.distributed group (parallel/comm.py) and writes them out:
+
+- layout (JAX's): the node grid's axis 0 is padded with `pad = (-gx) % P`
+  ghost planes to a multiple of the ranks, and rank p holds planes
+  [p L, (p + 1) L), L = (gx + pad) / P, of every state field, flat
+  ((L M,) for a T-space field, M = prod(grid[1:]); the sigma space is the
+  same CG-1 space). Ghost planes are identity rows of the heat solve,
+  edge-padded copies in the state; a rank may hold only ghost planes and
+  still joins every collective;
+- the heat operator is the padded GridHeatOperator's slab of the rank's
+  planes (ops/grid.py GridSlab): its residual, diagonal and table bake
+  take one halo plane of each neighbour, and its Jacobian action is K2's
+  halo form over the rank's tables;
+- the halo is `comm.halo_exchange` (the summed all-gather of every
+  rank's first and last plane; none at P = 1), each dot of Newton and CG
+  the rank's partial sum through `comm.all_reduce_sum`, ghost rows
+  included as in JAX's global `vdot` over the padded array;
+- the preconditioner is GridMG's V-cycle in its rank form
+  (solver/grid_mg.py RankGridMG);
+- the material step is pointwise on the rank's rows (the CG-1 / CG-1
+  cross evaluation is the identity), K1 in its T-space chain.
+
+The CG-1 route without mechanics is ported. DG-1 T (`_init_dg`), CG-2 T
+(`_init_q2`), equilibrium mechanics and the sharded writer / checkpoint
+(io/sharded.py) raise NotImplementedError, naming the slice of the port
+that brings them (ROADMAP.md Queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time as _time
+
+import numpy as np
+import torch
+
+from fem_glass_tempering_tpu_torch.config import RunConfig
+from fem_glass_tempering_tpu_torch.device import resolve_dtype
+from fem_glass_tempering_tpu_torch.fem.functionspace import FunctionSpace
+from fem_glass_tempering_tpu_torch.fem.mesh import Mesh
+from fem_glass_tempering_tpu_torch.models.viscoelastic import (
+    TABLEAU_SIZE,
+    ViscoelasticEngine,
+    ViscoState,
+)
+from fem_glass_tempering_tpu_torch.ops.grid import GridHeatOperator
+from fem_glass_tempering_tpu_torch.ops.heat import HeatOperator
+from fem_glass_tempering_tpu_torch.parallel.comm import (
+    DeviceMesh,
+    all_gather,
+    all_reduce_sum,
+    halo_exchange,
+    make_device_mesh,
+)
+from fem_glass_tempering_tpu_torch.solver.grid_mg import GridMG, RankGridMG
+from fem_glass_tempering_tpu_torch.solver.newton import newton_solve
+
+
+def _waits_for(slice_: str, what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"GridShardedProblem: {what} waits for Slice {slice_} of the "
+        f"PyTorch port (ROADMAP.md)")
+
+
+class GridShardedProblem:
+    """Coupled thermo-viscoelastic tempering, this rank's share of a grid
+    split along axis 0 over `device_mesh` (default: a group of one rank on
+    the GPU). Needs a uniform box mesh, CG-1 T and CG-1 sigma. Every rank
+    must call `step` / `run` / `solve` / `gather_state` together."""
+
+    def __init__(self, mesh: Mesh, config: RunConfig,
+                 device_mesh: DeviceMesh | None = None):
+        fe = config.fe
+        if fe.T_family == "DG" and fe.T_degree != 1:
+            raise ValueError("GridShardedProblem supports DG degree 1")
+        if fe.T_family == "CG" and fe.T_degree not in (1, 2):
+            raise ValueError("GridShardedProblem supports CG degree 1-2")
+        if fe.T_family not in ("CG", "DG"):
+            raise ValueError("GridShardedProblem needs a CG or DG T space")
+        if fe.sigma_family != "CG" or fe.sigma_degree != 1:
+            raise ValueError("GridShardedProblem needs a CG-1 sigma space")
+        if mesh.structured is None:
+            raise ValueError("GridShardedProblem needs a structured box mesh")
+        if fe.T_family == "DG":
+            raise _waits_for("7e", "DG-1 temperature (_init_dg)")
+        if fe.T_degree == 2:
+            raise _waits_for("7f", "CG-2 temperature (_init_q2)")
+        if config.mechanics == "equilibrium":
+            raise _waits_for("7d", 'mechanics="equilibrium"')
+        if config.solver.preconditioner == "auto":
+            # structured CG-1: 'auto' is the grid-native multigrid
+            config = dataclasses.replace(config, solver=dataclasses.replace(
+                config.solver, preconditioner="mg"))
+        self.config = config
+        self.mesh = mesh
+        self.comm = (device_mesh if device_mesh is not None
+                     else make_device_mesh())
+        self.device = self.comm.device
+        self.n_devices = self.comm.size
+        self.dtype = resolve_dtype(config.dtype)
+        # f32 products (the dense coarse inverse) at full f32 precision
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.setup_seconds: dict = {}
+        t0 = _time.perf_counter()
+
+        self.fs_T = FunctionSpace(mesh, fe.T_family, fe.T_degree)
+        self.fs_sigma = FunctionSpace(mesh, "CG", 1,
+                                      value_shape=(mesh.tdim, mesh.tdim))
+        self.params = config.params
+        self.dt = config.time.dt
+        self.n_steps = config.time.n_steps
+        self.engine = ViscoelasticEngine(
+            self.fs_T, self.fs_sigma, self.params, self.dt,
+            physics_mode=config.physics_mode,
+            shift_function=config.shift_function,
+            xi_formula=config.xi_formula, dtype=self.dtype,
+            device=self.device)
+        assert self.engine.to_sigma.same_space("T"), \
+            "CG-1/CG-1 must share the scalar dofmap"
+        heat_form = config.heat_form
+        self._mixed = (config.solver.cg_dtype == "float32"
+                       and self.dtype == torch.float64)
+
+        def heat_operator(dtype, fs=self.fs_T):
+            return HeatOperator(fs, self.params, self.dt, dtype=dtype,
+                                device=self.device, form=heat_form)
+
+        # the padded grid: ghost planes up to a multiple of the ranks
+        gx = mesh.structured["dims"][0] + 1
+        P = self.n_devices
+        self.pad0 = (-gx) % P
+        self.heat = heat_operator(self.dtype)
+        self.grid_op = GridHeatOperator(self.heat, pad_axis0=self.pad0,
+                                        tables=False)
+        self.grid = self.grid_op.grid
+        self._ngrid_base = self.grid_op.st.grid
+        L = self.grid[0] // P
+        self.rows = [(r * L, (r + 1) * L) for r in range(P)]
+        self.slab = self.grid_op.slab(*self.rows[self.comm.rank])
+        self.slab_shape = self.slab.slab_grid
+        # mixed precision (f64 Newton / f32 Krylov): the f32 twins
+        self.grid_op32 = self.slab32 = None
+        if self._mixed:
+            self.grid_op32 = GridHeatOperator(
+                heat_operator(torch.float32), pad_axis0=self.pad0,
+                tables=False)
+            self.slab32 = self.grid_op32.slab(*self.rows[self.comm.rank])
+        self.setup_seconds["operator"] = _time.perf_counter() - t0
+        t1 = _time.perf_counter()
+        self.grid_mg = self.rank_mg = None
+        sc = config.solver
+        if sc.preconditioner == "mg":
+            mg_dtype = torch.float32 if self._mixed else self.dtype
+            self.grid_mg = GridMG(
+                self.grid_op32 if self._mixed else self.grid_op,
+                lambda level_mesh: heat_operator(
+                    mg_dtype, FunctionSpace(level_mesh, "CG", 1)),
+                smoother=sc.mg_smoother, nu_pre=sc.mg_nu_pre,
+                nu_post=sc.mg_nu_post,
+                # 'dense' maps to 'auto': GridMG's dense coarse level is
+                # always the auto stopping rule
+                coarse="smooth" if sc.mg_coarse == "smooth" else "auto")
+            self.grid_mg.freeze_rhos(self.dt)
+            self.rank_mg = RankGridMG(self.grid_mg, self.comm, self.rows)
+        self.setup_seconds["mg"] = _time.perf_counter() - t1
+        self.mech = None
+        self._build_step()
+
+    # ---- layout ----------------------------------------------------------
+    def _halo(self, x):
+        return halo_exchange(x, self.comm)
+
+    def _dot(self, a, b):
+        """The global dot: this rank's partial sum, summed over the ranks."""
+        return all_reduce_sum(torch.dot(a.reshape(-1), b.reshape(-1)),
+                              self.comm)
+
+    def shard_state(self, state: ViscoState) -> ViscoState:
+        """A flat global state (any device) -> this rank's rows of the
+        padded grid, the ghost planes edge-padded (JAX's `_to_grid`, then
+        shard p)."""
+        lo, hi = self.rows[self.comm.rank]
+        gx = self._ngrid_base[0]
+
+        def f(name, a):
+            if name == "t" or a is None:
+                return a
+            a = a.to(device=self.device, dtype=self.dtype)
+            g = a.reshape((gx, -1) + tuple(a.shape[1:]))
+            if self.pad0:
+                g = torch.cat([g, g[-1:].expand(
+                    (self.pad0,) + tuple(g.shape[1:]))])
+            return g[lo:hi].reshape((-1,) + tuple(a.shape[1:])).contiguous()
+        return ViscoState(**{k: f(k, getattr(state, k))
+                             for k in ViscoState._fields})
+
+    def init_state(self) -> ViscoState:
+        """This rank's initial state: T = Tf = Tf_partial = T_0, zero
+        stresses (the engine's, on the rank's rows; ghost rows alike)."""
+        p = self.params
+        n, d = int(np.prod(self.slab_shape)), self.mesh.tdim
+        f = lambda shape, v=0.0: torch.full(  # noqa: E731
+            shape, v, dtype=self.dtype, device=self.device)
+        tens = lambda: f((n, d, d))  # noqa: E731
+        tab = lambda: f((n, TABLEAU_SIZE, d, d))  # noqa: E731
+        return ViscoState(
+            t=f(()), T=f((n,), p.T_0), T_prev=f((n,), p.T_0),
+            Tf=f((n,), p.T_0), Tf_prev=f((n,), p.T_0),
+            Tf_partial=f((n, TABLEAU_SIZE), p.T_0), phi=f((n,)), xi=f((n,)),
+            thermal_strain=tens(), total_strain=tens(),
+            deviatoric_strain=tens(), s_tilde=tab(), sigma_tilde=tab(),
+            s_partial=tab(), sigma_partial=tab(), sigma=tens(),
+            du=f((n, d)))
+
+    def gather_state(self, state: ViscoState) -> ViscoState:
+        """The flat global state on the host (CPU tensors, the ghost planes
+        dropped: JAX's `gather_state`), on every rank."""
+        n = self.fs_T.n_scalar_dofs
+
+        def f(name, a):
+            if name == "t" or a is None:
+                return a if a is None else a.cpu()
+            return all_gather(a.contiguous(), self.comm)[:n].cpu()
+        return ViscoState(**{k: f(k, getattr(state, k))
+                             for k in ViscoState._fields})
+
+    # ---- the step ----------------------------------------------------------
+    def _build_step(self) -> None:
+        sc = self.config.solver
+        engine = self.engine
+        shape = self.slab_shape
+        halo = self._halo
+        mixed = self._mixed
+        f32 = torch.float32
+        op_main = self.slab
+        op_fast = self.slab32 if mixed else self.slab
+        rmg = self.rank_mg
+        # f32 residual norms cannot certify tighter than ~1e-6
+        cg_rtol = max(sc.cg_rtol, 1e-6) if mixed else sc.cg_rtol
+        # the residual noise floor is JAX's for a TPU's emulated f64: auto
+        # is off here
+        noise_rel = sc.newton_noise_rel or 0.0
+        inc_forcing = (0.05 if sc.newton_inc_forcing is None
+                       else sc.newton_inc_forcing)
+        cast = (lambda T: T.to(f32)) if mixed else (lambda T: T)
+
+        def ext(T):
+            return halo(T.reshape(shape))
+
+        def build_ops(lin_state, dt):
+            """The operator bundle at the chunk-start state (frozen there
+            with jac_lag="step"; rebuilt per Newton iterate with
+            "newton"); under mixed precision the f32 twins'."""
+            T_lin = lin_state.T
+
+            def matvec_fn(T):
+                mv = op_fast.make_matvec_r(ext(cast(T)), dt, halo)
+                return lambda v: mv(v.reshape(shape)).reshape(-1)
+            precond_fn = diag_fn = None
+            if rmg is not None:
+                def precond_fn(T):
+                    return rmg.preconditioner(rmg.linearization_states(
+                        cast(T).reshape(shape)), dt)
+            else:
+                def diag_fn(T):
+                    return op_fast.jacobian_diag_r(ext(cast(T)),
+                                                   dt).reshape(-1)
+            if sc.jac_lag == "step":
+                _mv = matvec_fn(T_lin)
+                matvec_fn = lambda T, _m=_mv: _m  # noqa: E731
+                if precond_fn is not None:
+                    _pc = precond_fn(T_lin)
+                    precond_fn = lambda T, _p=_pc: _p  # noqa: E731
+                if diag_fn is not None:
+                    _dg = diag_fn(T_lin)
+                    diag_fn = lambda T, _d=_dg: _d  # noqa: E731
+            noise_fn = None
+            if noise_rel:
+                def noise_fn(T):
+                    d = op_main.jacobian_diag_r(ext(T), dt).reshape(-1) * T
+                    return noise_rel * torch.sqrt(self._dot(d, d))
+            inc_diag = None
+            if inc_forcing:
+                # the frozen magnitude scale: the f32 twin's when it
+                # exists, else the production operator's
+                inc_diag = op_fast.jacobian_diag_r(ext(cast(T_lin)),
+                                                   dt).reshape(-1)
+            return dict(precond_fn=precond_fn, matvec_fn=matvec_fn,
+                        diag_fn=diag_fn, noise_fn=noise_fn,
+                        inc_diag=inc_diag)
+
+        def step(state: ViscoState, dt, ops=None):
+            if ops is None:
+                ops = build_ops(state, dt)
+            Tp_ext = ext(state.T)
+            res = newton_solve(
+                lambda T: op_main.residual_r(ext(T), Tp_ext, dt).reshape(-1),
+                state.T, jac_diag_fn=ops["diag_fn"],
+                precond_fn=ops["precond_fn"], matvec_fn=ops["matvec_fn"],
+                noise_fn=ops["noise_fn"], rtol=sc.newton_rtol,
+                atol=sc.newton_atol, max_it=sc.newton_max_it,
+                cg_rtol=cg_rtol, cg_atol=sc.cg_atol, cg_max_it=sc.cg_max_it,
+                cg_cast=f32 if mixed else None, inc_forcing=inc_forcing,
+                inc_diag=ops["inc_diag"], dot=self._dot)
+            # CG-1 / CG-1: the cross-space evaluation is the identity
+            new_state = engine.material_step_with(
+                state, res.x, lambda name, arr: arr, dt)
+            # Newton's test reads global norms (the same on every rank);
+            # finiteness is summed over the ranks
+            bad = (~torch.isfinite(res.x)).any().to(self.dtype)
+            finite = bool(all_reduce_sum(bad, self.comm) == 0)
+            return new_state, res.converged and finite, res.iters, \
+                res.krylov_iters
+
+        jac_every = sc.resolved_jac_every()
+        chunked = jac_every > 1 and sc.jac_lag == "step"
+
+        def multi_step(state: ViscoState, n: int, dt):
+            ok, ni, ki = True, 0, 0
+            if not chunked:
+                for _ in range(n):
+                    state, conv, it, kit = step(state, dt)
+                    ok, ni, ki = ok and conv, ni + it, ki + kit
+                return state, ok, ni, ki
+            for c0 in range(0, n, jac_every):
+                ops = build_ops(state, dt)
+                for _ in range(min(jac_every, n - c0)):
+                    state, conv, it, kit = step(state, dt, ops)
+                    ok, ni, ki = ok and conv, ni + it, ki + kit
+            return state, ok, ni, ki
+
+        self._step_fn = step
+        self._multi_step_fn = multi_step
+
+    # ------------------------------------------------------------------
+    def step(self, state: ViscoState):
+        """One coupled step -> (state, converged, newton, cg)."""
+        return self._step_fn(state, self.dt)
+
+    def run(self, state: ViscoState, n_steps: int | None = None):
+        """n steps (default config.time's), the operators rebuilt every
+        jac_every steps -> (state, all converged, newton, cg)."""
+        n = n_steps if n_steps is not None else self.n_steps
+        return self._multi_step_fn(state, n, self.dt)
+
+    def solve(self, state: ViscoState | None = None, *,
+              n_steps: int | None = None, progress: bool = False):
+        """The time loop (JAX's `solve` without its output): raises where
+        the config asks for the sharded writer or checkpoints."""
+        oc = self.config.output
+        if (oc.write_every and oc.write_every > 0 and oc.formats) \
+                or oc.checkpoint_every:
+            raise _waits_for("7d", "the sharded writer and checkpoints "
+                             "(io/sharded.py)")
+        if state is None:
+            state = self.init_state()
+        n_total = n_steps if n_steps is not None else self.n_steps
+        t0 = _time.perf_counter()
+        state, ok, ni, ki = self.run(state, n_total)
+        if not ok:
+            raise RuntimeError(
+                f"Newton failed to converge in steps 0..{n_total}")
+        if progress:
+            print(f"t={n_total * self.dt:.3f}")
+        self.elapsed_seconds = _time.perf_counter() - t0
+        self.newton_iters = ni
+        self.krylov_iters = ki
+        return state
+
+    def save_checkpoint(self, out_dir: str, state: ViscoState,
+                        extra: dict | None = None) -> None:
+        raise _waits_for("7d", "sharded checkpoints (io/sharded.py)")
+
+    def load_checkpoint(self, out_dir: str) -> ViscoState:
+        raise _waits_for("7d", "sharded checkpoints (io/sharded.py)")

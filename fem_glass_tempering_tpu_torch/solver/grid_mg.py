@@ -1,4 +1,31 @@
-"""Grid-shaped geometric V-cycle for the vector elasticity operator.
+"""Grid-shaped geometric V-cycles: the heat V-cycle of the grid-sharded
+step (GridMG, with its rank form RankGridMG) and the vector elasticity
+V-cycle (GridElastMG).
+
+GridMG is the counterpart of `GridMG` in
+fem_glass_tempering_tpu/solver/grid_mg.py: the hierarchy of
+GeometricMG (solver/multigrid.py) kept grid-shaped end to end, on a fine
+level whose grid may carry ghost planes along axis 0 (GridHeatOperator's
+`pad_axis0`): the cycle smooths on the padded grid, where the ghost rows
+are identity rows, and the lattice transfers act on the physical planes
+alone. Each level's Jacobian action is its tables baked at the level's
+linearisation state and applied by K2; the coarsest level is a frozen
+dense inverse ("auto", at most 4,096 nodes) or `coarse_iters` sweeps
+("smooth").
+
+RankGridMG runs that cycle on one rank of a grid split along axis 0
+(parallel/grid_shard.py). Level 0 keeps the padded layout; a coarser
+level's planes go to the rank that holds fine plane 2j (axis 0 halved) or
+j (not). A level on which every rank holds two planes or more is sharded:
+its slab operator (ops/grid.py GridSlab) smooths with K2's halo form, and
+its transfers read one halo plane (the fine level's odd neighbours to
+restrict, the coarse level's to prolong). From the first level where some
+rank would hold fewer, and at the dense coarse solve, the cycle runs
+replicated on every rank after one all-gather, as JAX replicates its small
+coarse tables; its corrections come back as each rank's own rows. Every
+sum of a sharded level is the whole cycle's, term for term.
+
+GridElastMG, the vector elasticity V-cycle:
 
 Counterpart of `GridElastMG` in fem_glass_tempering_tpu/solver/grid_mg.py,
 the preconditioner of the equilibrium-mechanics solve (models/mechanics.py;
@@ -23,24 +50,361 @@ Everything is plain PyTorch, as it is plain XLA in the JAX package. The
 small-block algebra is written as multiply + reduce and the 3x3 inverse as
 the closed-form adjugate, in the JAX version's order of operations.
 
-The JAX version's `GridMG`, the grid-shaped heat V-cycle, differs from its
-`GeometricMG` only by the ghost-padded fine level of the sharded step
-(`pad0`). The port maps it to `GeometricMG` (solver/multigrid.py): the
-CG-2 path's Q2MG (ops/grid2.py) runs that cycle on the flattened coarse
-residual. The padded cycle waits for Slice 7 of the port.
+The CG-2 path's Q2MG (ops/grid2.py) runs GeometricMG, the flat form of
+GridMG's cycle, on its flattened coarse residual.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from fem_glass_tempering_tpu_torch.ops.grid import GridHeatOperator
 from fem_glass_tempering_tpu_torch.solver.multigrid import (
     GeometricMG,
     _build_level_mesh,
     _next_dims,
     _sl,
 )
+
+
+class GridMG:
+    """Usage: mg = GridMG(fine_grid_op, make_heat_operator);
+    mg.freeze_rhos(dt); apply = mg.preconditioner_g(
+    mg.linearization_states_g(Tg), dt)  # r_grid -> ~A^{-1} r_grid"""
+
+    def __init__(self, fine: GridHeatOperator, make_heat_operator, *,
+                 nu_pre: int = 2, nu_post: int = 2,
+                 smoother: str = "chebyshev", coarse_iters: int = 24,
+                 min_level_nodes: int = 27, coarse: str = "auto"):
+        mesh = fine.op.fs.mesh
+        if mesh.structured is None:
+            raise ValueError("GridMG needs a structured box mesh")
+        if smoother not in ("jacobi", "chebyshev"):
+            raise ValueError(smoother)
+        if coarse not in ("auto", "smooth"):
+            raise ValueError(coarse)
+        self.nu_pre, self.nu_post = nu_pre, nu_post
+        self.smoother = smoother
+        self.coarse_iters = coarse_iters
+        self.pad0 = fine.pad0
+        self.phys0 = fine.st.grid[0]      # physical node planes, axis 0
+        meta = mesh.structured
+        dims = tuple(meta["dims"])
+        lengths = tuple(meta["lengths"])
+        # 'auto': stop at the first level small enough for the frozen
+        # dense direct solve (GeometricMG's rule)
+        dense_stop = 4096 if coarse == "auto" else 0
+        n_nodes = lambda dd: int(np.prod(tuple(n + 1 for n in dd)))  # noqa
+        # level i: its operator, and the axes halved toward level i + 1
+        self.ops: list[GridHeatOperator] = [fine]
+        self.axes: list[tuple | None] = []
+        while True:
+            cdims = _next_dims(dims, lengths)
+            if dense_stop and n_nodes(dims) <= dense_stop:
+                cdims = None
+            if cdims is None or n_nodes(cdims) < min_level_nodes:
+                self.axes.append(None)
+                break
+            self.axes.append(tuple(a for a in range(len(dims))
+                                   if cdims[a] != dims[a]))
+            dims = cdims
+            # the level's device tables are made where a whole-level
+            # method first needs them (a sharded level reads its slab's)
+            self.ops.append(GridHeatOperator(
+                make_heat_operator(_build_level_mesh(meta, dims)),
+                tables=False))
+        self._frozen_rhos: list[float] | None = None
+        # frozen dense inverse of the coarsest level's Jacobian at (T_0,
+        # the level operator's dt), assembled and inverted on the host
+        self.coarse_inv = None
+        if dense_stop and n_nodes(dims) <= dense_stop:
+            cop = self.ops[-1]
+            A = cop.st.np_dense(cop.op.params.T_0, cop.op.dt)
+            self.coarse_inv = torch.as_tensor(
+                np.linalg.inv(A), dtype=cop.dtype, device=cop.device)
+
+    def freeze_rhos(self, dt: float) -> None:
+        """Per-level Gershgorin bound on rho(D^{-1}A) from the numpy row
+        statistics of each level's StencilMatrix (boundary linearisation
+        at T_0)."""
+        vals = []
+        for op in self.ops:
+            g = op.st.gersh
+            num = g["mass_abs"] + dt * (g["stiff_abs"] + g["b_abs"])
+            den = g["mass_diag"] + dt * (g["stiff_diag"] + g["b_diag"])
+            vals.append(float(np.max(num / den)))
+        self._frozen_rhos = vals
+
+    # ---- lattice transfers (whole grids; physical planes only) --------
+    def _restrict(self, i: int, rg):
+        if i == 0 and self.pad0:
+            rg = rg[:self.phys0]
+        for a in self.axes[i]:
+            rg = GeometricMG._restrict_axis(rg, a)
+        return rg
+
+    def _prolong(self, i: int, xc):
+        for a in self.axes[i]:
+            xc = GeometricMG._prolong_axis(xc, a)
+        if i == 0 and self.pad0:
+            # zero correction on the ghost planes
+            xc = F.pad(xc, (0, 0) * (xc.dim() - 1) + (0, self.pad0))
+        return xc
+
+    def _inject(self, i: int, xf):
+        if i == 0 and self.pad0:
+            xf = xf[:self.phys0]
+        for a in self.axes[i]:
+            xf = xf[_sl(a, slice(0, None, 2))]
+        return xf
+
+    def linearization_states_g(self, Tg):
+        """Per-level temperature grids (even-node injection), at which
+        each level's boundary linearisation is frozen."""
+        states = [Tg]
+        for i in range(len(self.ops) - 1):
+            states.append(self._inject(i, states[-1]))
+        return states
+
+    # ---- apply ---------------------------------------------------------
+    def preconditioner_g(self, T_levels, dt):
+        """The V-cycle apply r_grid -> ~A^{-1} r_grid for the Jacobians
+        frozen at the per-level states T_levels."""
+        mv, dg = [], []
+        for op, T in zip(self.ops, T_levels):
+            mv.append(op.make_matvec_g(T, dt))
+            dg.append(op.jacobian_diag_g(T, dt))
+        down = [lambda r, i=i: self._restrict(i, r)
+                for i in range(len(self.ops) - 1)]
+        up = [lambda xc, i=i: self._prolong(i, xc)
+              for i in range(len(self.ops) - 1)]
+        return self._vcycle(mv, dg, down, up)
+
+    def _vcycle(self, mv, dg, down, up):
+        """The cycle over per-level Jacobian actions `mv`, diagonals `dg`
+        and transfers `down[i]` (level i -> i + 1) / `up[i]` (level i + 1
+        -> its correction on level i), in whatever layout each level's
+        vectors take (whole grids, or a rank's rows)."""
+        assert self._frozen_rhos is not None, "call freeze_rhos(dt) first"
+        rhos = self._frozen_rhos
+
+        def smooth_jacobi(i, x, b, nu):
+            omega = 4.0 / (3.0 * rhos[i])
+            for _ in range(nu):
+                x = x + omega * (b - mv[i](x)) / dg[i]
+            return x
+
+        def smooth_cheb(i, x, b, nu):
+            # Chebyshev over D^{-1}A on [rho/4, rho]
+            lmax = rhos[i]
+            lmin = lmax / 4.0
+            theta = 0.5 * (lmax + lmin)
+            delta = 0.5 * (lmax - lmin)
+            sigma = theta / delta
+            rho_k = 1.0 / sigma
+            r = b - mv[i](x)
+            p = (r / dg[i]) / theta
+            x = x + p
+            for _ in range(max(nu - 1, 0)):
+                r = b - mv[i](x)
+                z = r / dg[i]
+                rho_next = 1.0 / (2.0 * sigma - rho_k)
+                p = rho_next * rho_k * p + (2.0 * rho_next / delta) * z
+                x = x + p
+                rho_k = rho_next
+            return x
+
+        smooth = smooth_jacobi if self.smoother == "jacobi" else smooth_cheb
+        inv = self.coarse_inv
+
+        def coarse(i, b):
+            if inv is None:
+                return smooth(i, torch.zeros_like(b), b, self.coarse_iters)
+            if i == 0 and self.pad0:
+                # a one-level padded hierarchy: the physical planes solved
+                # exactly, the ghost rows kept (x = b there)
+                bp = b[:self.phys0]
+                x = (inv @ bp.reshape(-1)).reshape(bp.shape)
+                return torch.cat([x, b[self.phys0:]])
+            return (inv @ b.reshape(-1)).reshape(b.shape)
+
+        def apply(b):
+            # down the levels and back up in a loop (a recursive closure
+            # would hold itself, and each build's tables with it)
+            bs, xs = [], []
+            i = 0
+            while self.axes[i] is not None:
+                x = smooth(i, torch.zeros_like(b), b, self.nu_pre)
+                r = b - mv[i](x)
+                bs.append(b)
+                xs.append(x)
+                b = down[i](r)
+                i += 1
+            xc = coarse(i, b)
+            for i in reversed(range(len(xs))):
+                xc = smooth(i, xs[i] + up[i](xc), bs[i], self.nu_post)
+            return xc
+
+        return apply
+
+
+class RankGridMG:
+    """GridMG's V-cycle on one rank of a grid split along axis 0 (module
+    docstring), from `rows0`, the level-0 planes [lo, hi) of every rank in
+    rank order. `rows[i]` holds every rank's planes of level i,
+    `sharded[i]` whether level i runs on the ranks' slabs. Every rank must
+    apply it together."""
+
+    def __init__(self, mg: GridMG, device_mesh, rows0):
+        # imported here: the parallel package imports this module
+        from fem_glass_tempering_tpu_torch.parallel import comm
+        self._collectives = comm
+        self.mg = mg
+        self.comm = device_mesh
+        self.rank = device_mesh.rank
+        rows = [list(rows0)]
+        for i, axes in enumerate(mg.axes[:-1]):
+            phys = mg.phys0 if i == 0 else mg.ops[i].grid[0]
+            nxt = []
+            for lo, hi in rows[-1]:
+                a, b = min(lo, phys), min(hi, phys)
+                if 0 in axes:
+                    a, b = (a + 1) // 2, (b + 1) // 2
+                nxt.append((a, b))
+            rows.append(nxt)
+        self.rows = rows
+        self.sharded = []
+        on = True
+        for i, rr in enumerate(rows):
+            dense = mg.axes[i] is None and mg.coarse_inv is not None
+            on = on and not dense and all(hi - lo >= 2 for lo, hi in rr)
+            self.sharded.append(on)
+        self.slabs = []
+        for i, op in enumerate(mg.ops):
+            if self.sharded[i]:
+                self.slabs.append(op.slab(*rows[i][self.rank]))
+            else:
+                op.ensure_tables()
+                self.slabs.append(None)
+
+    def _halo(self, x):
+        return self._collectives.halo_exchange(x, self.comm)
+
+    def _gather(self, i, x):
+        """A sharded level's rows -> the whole level on every rank."""
+        lo, hi = self.rows[i][self.rank]
+        n = self.mg.ops[i].grid[0]
+        return self._collectives.gather_rows(x, slice(lo, hi), n, self.comm)
+
+    def _own(self, i, x):
+        lo, hi = self.rows[i][self.rank]
+        return x[lo:hi]
+
+    def _phys(self, i):
+        return self.mg.phys0 if i == 0 else self.mg.ops[i].grid[0]
+
+    # ---- transfers between two sharded levels ---------------------------
+    def _restrict_r(self, i, r):
+        lo, hi = self.rows[i][self.rank]
+        clo, chi = self.rows[i + 1][self.rank]
+        axes = self.mg.axes[i]
+        if 0 in axes:
+            re = self._halo(r)                       # planes lo-1 .. hi
+            ghost = self._phys(i) - (lo - 1)
+            if ghost < re.shape[0]:
+                re[max(ghost, 0):] = 0.0             # ghost planes: absent
+            s, k = 2 * clo - (lo - 1), chi - clo
+            rc = re[s:s + 2 * k:2] + 0.5 * (re[s + 1:s + 1 + 2 * k:2]
+                                            + re[s - 1:s - 1 + 2 * k:2])
+        else:
+            rc = r[clo - lo:chi - lo]
+        for a in axes:
+            if a != 0:
+                rc = GeometricMG._restrict_axis(rc, a)
+        return rc
+
+    def _prolong_r(self, i, xc):
+        lo, hi = self.rows[i][self.rank]
+        clo, _ = self.rows[i + 1][self.rank]
+        b = min(hi, self._phys(i))
+        axes = self.mg.axes[i]
+        if 0 in axes:
+            f = GeometricMG._prolong_axis(self._halo(xc), 0)
+            x = f[lo - 2 * (clo - 1):b - 2 * (clo - 1)]
+        else:
+            x = xc
+        for a in axes:
+            if a != 0:
+                x = GeometricMG._prolong_axis(x, a)
+        if hi > b:
+            x = F.pad(x, (0, 0) * (x.dim() - 1) + (0, hi - b))
+        return x
+
+    def _inject_r(self, i, x):
+        lo, _ = self.rows[i][self.rank]
+        clo, chi = self.rows[i + 1][self.rank]
+        axes = self.mg.axes[i]
+        if 0 in axes:
+            x = x[2 * clo - lo:2 * chi - lo:2]
+        else:
+            x = x[clo - lo:chi - lo]
+        for a in axes:
+            if a != 0:
+                x = x[_sl(a, slice(0, None, 2))]
+        return x
+
+    # ---- states and apply ---------------------------------------------
+    def linearization_states(self, T0):
+        """Per-level states from this rank's level-0 rows T0 (L, ...): a
+        sharded level's as this rank's rows, a replicated level's whole."""
+        mg = self.mg
+        cur = T0 if self.sharded[0] else self._gather(0, T0)
+        states = [cur]
+        for i in range(len(mg.ops) - 1):
+            if self.sharded[i + 1]:
+                cur = self._inject_r(i, cur)
+            elif self.sharded[i]:
+                cur = mg._inject(i, self._gather(i, cur))
+            else:
+                cur = mg._inject(i, cur)
+            states.append(cur)
+        return states
+
+    def preconditioner(self, T_levels, dt):
+        """The apply r -> ~A^{-1} r on this rank's level-0 rows (any shape
+        of L x prod(grid[1:]) values), for the Jacobians frozen at the
+        states of `linearization_states`."""
+        mg = self.mg
+        mv, dg = [], []
+        for i, T in enumerate(T_levels):
+            slab = self.slabs[i]
+            if slab is not None:
+                Te = self._halo(T)
+                mv.append(slab.make_matvec_r(Te, dt, self._halo))
+                dg.append(slab.jacobian_diag_r(Te, dt))
+            else:
+                mv.append(mg.ops[i].make_matvec_g(T, dt))
+                dg.append(mg.ops[i].jacobian_diag_g(T, dt))
+        down, up = [], []
+        for i in range(len(mg.ops) - 1):
+            if self.sharded[i + 1]:
+                down.append(lambda r, i=i: self._restrict_r(i, r))
+                up.append(lambda xc, i=i: self._prolong_r(i, xc))
+            elif self.sharded[i]:
+                down.append(lambda r, i=i: mg._restrict(i, self._gather(i, r)))
+                up.append(lambda xc, i=i: self._own(i, mg._prolong(i, xc)))
+            else:
+                down.append(lambda r, i=i: mg._restrict(i, r))
+                up.append(lambda xc, i=i: mg._prolong(i, xc))
+        cycle = mg._vcycle(mv, dg, down, up)
+        lo, hi = self.rows[0][self.rank]
+        shape = (hi - lo,) + mg.ops[0].grid[1:]
+        if self.sharded[0]:
+            return lambda r: cycle(r.reshape(shape)).reshape(r.shape)
+        return lambda r: self._own(0, cycle(self._gather(
+            0, r.reshape(shape)))).reshape(r.shape)
 
 
 class GridElastMG:

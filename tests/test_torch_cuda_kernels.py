@@ -16,7 +16,9 @@ heat operator's own tables and on random ones, where both calls take the
 element form (the baked element matrices), uniform and per cell, on cell
 counts that fill no whole block. K2's bf16 kernel takes tables pitched
 to 16 bytes (`pitched_tables`) and equals its twin bit for bit on odd
-grids, the 161x161x41 fine level among them. The grouped scatter-adds of the gather path
+grids, the 161x161x41 fine level among them; K2's halo form (a rank's
+planes of a split grid) equals its twin and the full-grid kernel's rows
+bit for bit. The grouped scatter-adds of the gather path
 (ops/scatter.py) must repeat their bits on the card, and equal the CPU's.
 """
 
@@ -91,6 +93,45 @@ def test_stencil_matvec_kernel(cuda, grid, dtype):
     y_ref = stencil_matvec_reference(vals, x, grid)
     torch.cuda.synchronize()
     assert torch.equal(y, y_ref)
+
+
+@pytest.mark.parametrize("grid,rows", [
+    ((13, 7, 5), ((0, 4), (4, 7), (7, 10), (10, 13))),
+    ((161, 161, 41), ((0, 81), (81, 161))),
+    ((10, 8), ((0, 1), (1, 6), (6, 10))),
+    ((41, 21, 6), ((0, 41),))], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_stencil_matvec_halo_kernel(cuda, grid, rows, dtype):
+    """K2's halo form on each rank's planes (those with the grid's first
+    and last among them; one rank holding the whole grid), its halo cut
+    from the whole vector (zeros past the ends): bit-equal to its plain
+    twin and to the full-grid kernel's rows."""
+    from fem_glass_tempering_tpu_torch.ops.cuda_stencil import (
+        stencil_matvec,
+        stencil_matvec_halo,
+        stencil_matvec_halo_reference,
+    )
+
+    rng = np.random.default_rng(5)
+    d = len(grid)
+    gx, M = grid[0], int(np.prod(grid[1:]))
+    vals = torch.tensor(rng.standard_normal((3 ** d, gx, M)), dtype=dtype,
+                        device=cuda)
+    x = torch.tensor(rng.standard_normal((gx, M)), dtype=dtype, device=cuda)
+    full = stencil_matvec(vals, x.reshape(-1), grid).reshape(gx, M)
+    z = torch.zeros_like(x[:1])
+    for lo, hi in rows:
+        xe = torch.cat([z if lo == 0 else x[lo - 1:lo], x[lo:hi],
+                        z if hi == gx else x[hi:hi + 1]]).reshape(-1)
+        v = vals[:, lo:hi].contiguous()
+        shape = (hi - lo,) + tuple(grid[1:])
+        before = stencil_matvec_halo.launches
+        y = stencil_matvec_halo(v, xe, shape)
+        assert stencil_matvec_halo.launches == before + 1
+        twin = stencil_matvec_halo_reference(v, xe, shape)
+        torch.cuda.synchronize()
+        assert torch.equal(y, twin)
+        assert torch.equal(y.reshape(hi - lo, M), full[lo:hi])
 
 
 @pytest.mark.parametrize("grid", [(9, 7, 5), (10, 8), (41, 21, 6),
@@ -604,3 +645,39 @@ def test_dd_two_gloo_ranks_on_one_card(cuda):
         np.testing.assert_allclose(res[0]["gathered"][f],
                                    ref["at_gather"][f], rtol=1e-9,
                                    atol=1e-11, err_msg=f)
+
+
+def test_grid_shard_two_gloo_ranks_on_one_card(cuda):
+    """GridShardedProblem over two gloo ranks on one card: the 12x6x4
+    plate of tests/test_grid_mg.py (3 steps) held to the unsharded
+    ThermoViscoProblem on the card (T, Tf rtol 1e-10, sigma 1e-6 of its
+    max), the ranks in lockstep; GridMG's 'smooth' rank form, every level
+    sharded, bit-equal to the unsharded cycle on the card, its matvecs all
+    K2's halo form."""
+    import torch_grid_shard_ranks as R
+    from fem_glass_tempering_tpu_torch.models.problem import (
+        ThermoViscoProblem,
+    )
+    from fem_glass_tempering_tpu_torch.parallel.comm import run_ranks
+
+    res = run_ranks(R.card_body, 2, "cuda:0", backend="gloo", timeout=600)
+    dims, cfg, _ = R.CASES["grid_mg"]
+    prob = ThermoViscoProblem(mesh=R.plate(dims), config=cfg(), device=cuda)
+    prob.setup()
+    st = prob.solve()
+    ref = {f: getattr(st, f).cpu().numpy() for f in R.STEP_FIELDS}
+    for r in res:
+        got = r["grid_mg"]
+        assert got["ok"] and got["newton"] == prob.diagnostics.newton_iters
+        for f in R.STEP_FIELDS:
+            assert np.array_equal(got[f], res[0]["grid_mg"][f])
+        for f in ("T", "Tf"):
+            np.testing.assert_allclose(got[f], ref[f], rtol=1e-10, atol=0)
+        scale = np.abs(ref["sigma"]).max()
+        np.testing.assert_allclose(got["sigma"] / scale,
+                                   ref["sigma"] / scale, atol=1e-6)
+    x = R.mg_apply("smooth", res[0]["mg_smooth"]["pad0"], device=cuda)
+    for r in res:
+        assert all(r["mg_smooth"]["sharded"])
+        assert np.array_equal(r["mg_smooth"]["x"], x)
+        assert r["k2"]["full"] == 0 and r["k2"]["halo"] > 0

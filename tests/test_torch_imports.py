@@ -27,7 +27,7 @@ def _port_files():
             "utils/profiling.py", "ops/forms.py", "solver/direct.py",
             "utils/native.py", "parallel/comm.py", "parallel/partition.py",
             "parallel/sharding.py", "parallel/domain_cg.py",
-            "parallel/domain.py"} <= names
+            "parallel/domain.py", "parallel/grid_shard.py"} <= names
     return files
 
 
