@@ -38,8 +38,16 @@ solve_scan, the native runtime), with each part's seconds.
 `phase13` runs phase 13 alone (shard_problem and CGDDProblem: the
 unsharded and one-NCCL-rank runs in this process, then two gloo ranks
 on the card), with its seconds; `phase13d` phase 13d alone (the
-grid-sharded CG-1 step: the small cases and the 1M-dof plate over one
-NCCL rank and two gloo ranks, K2's halo form checked and timed).
+grid-sharded CG-1 step: the small cases, the 1M-dof plate and the
+coupled mechanics plate over one NCCL rank and two gloo ranks, K2's halo
+form checked and timed), after phase 8b, whose state 13d(c) is held to,
+then side phase 13d64 (the dry run's mechanics config in f64).
+`dryrunmech` runs phase 13d's dry-run mechanics config (12x6x4, 2 steps)
+over one rank and over two gloo ranks, in f32 and in f64, on the CPU and
+on the card, with every elasticity CG logged (the copy of solver/krylov.py
+pcg in `_logged_pcg`, capped at DRYRUN_MECH_CAP iterations): its count,
+its relative residual by iteration, its true residual at exit and how
+often p'Ap came out <= 0, with |sigma| max of the last state.
 `kernels` times K1 (material_tspace, n = 1,062,761, f32 and f64), K3
 (dg_cell_residual, 65,536 hex cells, f64, uniform and per-cell tables; the
 direct call, and the prepared call where the tree has one; and the
@@ -62,6 +70,7 @@ import json
 import os
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -214,6 +223,84 @@ def measure_dg_parity(cs, dev) -> dict:
     return out
 
 
+DRYRUN_MECH_CAP = 300
+
+
+def _logged_pcg(log, cap):
+    """solver/krylov.py pcg (no stall window, no residual replacement),
+    capped at `cap` iterations, appending each solve's record to `log`."""
+    import torch
+
+    def pcg(matvec, b, *, x0=None, diag=None, rtol=1e-12, atol=0.0,
+            max_it=1000, dot=None, precond=None, rtol_r0=0.0, **_):
+        def norm(v):
+            return torch.sqrt(dot(v, v))
+        x = torch.zeros_like(b) if x0 is None else x0
+        r = b - matvec(x)
+        z = precond(r)
+        p, rz = z, dot(r, z)
+        bn, rn = norm(b), norm(r)
+        tol = torch.clamp(rtol * bn, min=atol)
+        if rtol_r0:
+            tol = torch.maximum(tol, torch.where(
+                rn < 0.3 * bn, rtol_r0 * rn, torch.zeros_like(rn)))
+        hist, bad, k = [float(rn / bn)], 0, 0
+        while k < min(max_it, cap) and bool(rn > tol):
+            Ap = matvec(p)
+            pAp = dot(p, Ap)
+            bad += int(bool(pAp <= 0))
+            alpha = rz / pAp
+            x, r = x + alpha * p, r - alpha * Ap
+            z = precond(r)
+            rz_new = dot(r, z)
+            p, rz = z + rz_new / rz * p, rz_new
+            rn = norm(r)
+            k += 1
+            hist.append(float(rn / bn))
+        log.append(dict(iters=k, converged=bool(rn <= tol),
+                        tol_rel=float(tol / bn),
+                        true_rel=float(norm(b - matvec(x)) / bn),
+                        nonpositive_pAp=bad, rel_residual_first=hist[:13],
+                        rel_residual_last=hist[-3:]))
+        return SimpleNamespace(x=x, iters=k, converged=bool(rn <= tol),
+                               residual_norm=rn)
+    return pcg
+
+
+def _dryrun_mech_body(mesh_dev, dtype) -> dict:
+    """One rank of the dry-run mechanics config at `dtype`, its
+    elasticity CG logged (`_logged_pcg`)."""
+    import dataclasses
+
+    import chip_smoke as cs
+    import fem_glass_tempering_tpu_torch.models.mechanics as mech
+    from fem_glass_tempering_tpu_torch.parallel.grid_shard import (
+        GridShardedProblem,
+    )
+    make_mesh, cfg, _ = cs.gs_cases()["dryrun_mech"]
+    log = []
+    mech.pcg = _logged_pcg(log, DRYRUN_MECH_CAP)
+    gs = GridShardedProblem(make_mesh(), dataclasses.replace(cfg, dtype=dtype),
+                            mesh_dev)
+    st, ok, ni, ki = gs.run(gs.init_state(), cs.GS_DRYRUN_STEPS)
+    sigma = gs.gather_state(st).sigma
+    return dict(newton=ni, cg=ki, elast=log,
+                sigma_abs_max=float(sigma.abs().max()))
+
+
+def measure_dryrun_mech(dev) -> dict:
+    from fem_glass_tempering_tpu_torch.parallel.comm import run_ranks
+    out = {}
+    for where in ("cpu", str(dev)):
+        for P in (1, 2):
+            for dtype in ("float32", "float64"):
+                res = run_ranks(_dryrun_mech_body, P, where, dtype,
+                                backend="gloo" if P > 1 else None,
+                                threads=2, timeout=400)
+                out[f"{where}_P{P}_{dtype}"] = res[0]
+    return out
+
+
 def _on_cpu(fn):
     """fn computed from CPU copies of its tensor arguments, the result
     moved back to the first tensor argument's device."""
@@ -299,7 +386,8 @@ def main() -> int:
     ap.add_argument("what", choices=("kernels", "phase5", "phase6",
                                      "phase8b", "phase9", "phase10",
                                      "phase11", "phase12", "phase13",
-                                     "phase13d", "dgparity"))
+                                     "phase13d", "dgparity",
+                                     "dryrunmech"))
     ap.add_argument("--source-flags", default="", metavar="SRC:FLAG[,FLAG]",
                     help="replace one source's nvcc flags (empty FLAG: none)")
     ap.add_argument("--plain-cell-term", action="store_true",
@@ -349,6 +437,8 @@ def main() -> int:
     elif args.what == "dgparity":
         res = measure_dg_parity(cs, dev)
         res["k3_launches"] = cuda_dg_cell.dg_cell_residual.launches
+    elif args.what == "dryrunmech":
+        res = measure_dryrun_mech(dev)
     elif args.what == "phase9":
         parity = cs.cg2_parity_phase(dev, port)
         cs.drop_garbage("phase 9b")
@@ -393,11 +483,17 @@ def main() -> int:
         res = cs.distributed_phase(dev, port)
         res["phase13_s"] = time.perf_counter() - t0
     elif args.what == "phase13d":
+        # 13d(c) is held to phase 8b's state: 8b first
         t0 = time.perf_counter()
-        res = cs.grid_shard_phase(dev, port)
+        mech_ref = cs.mechanics_plate_phase(dev, port).pop("reference")
+        res = dict(phase8b_s=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        res.update(cs.grid_shard_phase(dev, port, mech_ref))
         res["phase13d_s"] = time.perf_counter() - t0
+        res["13d64"] = cs.dryrun64_phase(dev, port)
     elif args.what == "phase8b":
         full = cs.mechanics_plate_phase(dev, port)
+        full.pop("reference")
         res = {k: full[k] for k in (
             "ms_per_step", "newton_per_step", "cg_per_step",
             "elast_cg_per_step", "setup_s", "layers_ms",

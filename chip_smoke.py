@@ -169,7 +169,26 @@ Phases (each raises on failure; the exit code is then nonzero):
      form (exact: no full-grid K2 on the sharded levels), halo exchanges
      an iteration; K2's halo form bit-equal to its twin and to the
      full-grid kernel's rows on the two-rank slabs of the plate's fine
-     level, timed on the first (81 x 6,601 points).
+     level, timed on the first (81 x 6,601 points). With equilibrium
+     mechanics (the elasticity CG on each rank's slab of the vector
+     operator, GridElastMG's rank form; every elasticity CG must meet
+     its tolerance): (a) also the dry run's "gspmd-mechanics" config in
+     f32 (JAX's) over the one NCCL rank at JAX's Newton / CG, T held to
+     the unsharded run on the card, and (side phase 13d64) its f64 twin
+     over two gloo ranks held to one NCCL rank and that to the unsharded
+     run (T, sigma and the elasticity CG count: GS_DRYRUN64_BANDS; in f32
+     that plate's stiffness is below f32's resolution,
+     GS_DRYRUN_MECH_JAX_SIGMA); (c) phase 8b's coupled plate (1 + 2
+     steps, flux through the z faces) over one NCCL rank, held to 8b's
+     unsharded state (Newton equal, heat CG within max(2, 10%),
+     elasticity CG within 2%, T max-rel 1e-5, sigma within 1e-4 of its
+     max on the centre column and 5e-3 in the relative 2-norm:
+     GS_MECH_BANDS), and over the two gloo ranks, held to the one rank
+     (heat counts equal, elasticity CG within 2%, T max-rel 1e-6, sigma
+     1e-4 on the centre column and 1e-3 in the 2-norm): ms a step,
+     counts, collectives an elasticity-CG iteration, setup seconds by
+     part, peak memory per rank, K2's halo launches exact and K1 none
+     (the trapezoid xi).
 Phase 2 also holds K3 at every degree-2 cell shape (nloc 3, 6, 9, 10, 27)
 on the port's HeatOperator tables, f64 and f32, all in the element form,
 and times nloc 27 (uniform f32 and f64, 65,536 cells) and nloc 10
@@ -178,8 +197,8 @@ given the prepared tables, and the quadrature form's) and against one
 PyTorch call on the baked matrices (torch.addmm / torch.baddbmm), with
 the bake's seconds and bytes.
 Every main path (4, 5, 6, 7b f64, 7b mixed, 8b, 9b, 10b, 10c, 11a, 11b,
-12a's two arms, 12b, 12d's two runs, each run of 13 and 13d on every
-rank) runs
+12a's two arms, 12b, 12d's two runs, each run of 13, 13d and 13d64 on
+every rank) runs
 with the launch counters set to 0 just before it and read just after; K2
 also counts its launches per table dtype (an instantiation each), and its
 halo form its own (`stencil_matvec_halo.launches`). A line
@@ -190,8 +209,8 @@ and last {"ok": true, "device": {...}}.
 
 Phases whose times feed no kernel's `ms` (dispatch-bound runs on tiny
 meshes, the GPU-against-CPU runs, the command line, the native runtime,
-phase 13) run in SIDE_GROUPS: three processes of their own on the same
-card, started after phase 4, beside this process's plates of phases 6,
+phases 13 and 13d64) run in SIDE_GROUPS: three processes of their own
+on the same card, started after phase 4, beside this process's plates of phases 6,
 7b, 8b, 10b and 10c, and joined before phase 9b. Their lines carry a
 "[side ...]" prefix, their launch counters are their own, and their
 checks fail the script as any other's do; the main process stops them
@@ -1939,12 +1958,32 @@ def mechanics_parity_phase(dev, port) -> dict:
     return out
 
 
+def coupled_plate_mesh():
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+    return box_mesh_3d(*N_MECH, 50.0, 50.0, 10.0)
+
+
+def coupled_plate_config(tc):
+    """Phase 8b's coupled plate (and 13d(c)'s): f32, trapezoid xi, T_0 =
+    900 K, MECH_TIMED_STEPS steps; the flux through the z faces alone is
+    the problem's `flux_marker=z_faces`."""
+    return mech_plate_config(
+        tc, MECH_TIMED_STEPS, dtype="float32", xi_formula="trapezoid",
+        params=dataclasses.replace(tc.ModelParams(), T_0=900.0),
+        solver=dict(newton_rtol=1e-5, newton_atol=1e-6, cg_rtol=1e-5,
+                    cg_max_it=2000, preconditioner="mg",
+                    mg_smoother="chebyshev", linear_operator="stencil",
+                    jac_every="auto"))
+
+
 def mechanics_plate_phase(dev, port) -> dict:
     """Phase 8b: the 128x128x32 coupled plate of the JAX package
     (examples/mechanics_3d_tpu.py:63-80, BENCH.md "First >=500k coupled
-    row"), f32, 1 warm-up step and MECH_TIMED_STEPS timed steps."""
+    row"), f32, 1 warm-up step and MECH_TIMED_STEPS timed steps. The
+    timed window's final T and sigma and its counts ride in
+    out["reference"] (numpy; phase 13d(c) is held to them), which the
+    caller pops before logging the rest."""
     from fem_glass_tempering_tpu_torch import config as tc
-    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
     from fem_glass_tempering_tpu_torch.models.mechanics import (
         GridMechanicsCoupling,
     )
@@ -1953,16 +1992,8 @@ def mechanics_plate_phase(dev, port) -> dict:
 
     tag = "mechanics plate"
     t0 = time.perf_counter()
-    prob = ThermoViscoProblem(
-        mesh=box_mesh_3d(*N_MECH, 50.0, 50.0, 10.0),
-        config=mech_plate_config(
-            tc, MECH_TIMED_STEPS, dtype="float32", xi_formula="trapezoid",
-            params=dataclasses.replace(tc.ModelParams(), T_0=900.0),
-            solver=dict(newton_rtol=1e-5, newton_atol=1e-6, cg_rtol=1e-5,
-                        cg_max_it=2000, preconditioner="mg",
-                        mg_smoother="chebyshev", linear_operator="stencil",
-                        jac_every="auto")),
-        device=dev)
+    prob = ThermoViscoProblem(mesh=coupled_plate_mesh(),
+                              config=coupled_plate_config(tc), device=dev)
     prob.setup(flux_marker=z_faces)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -2087,6 +2118,8 @@ def mechanics_plate_phase(dev, port) -> dict:
         torch.cuda.max_memory_allocated(dev) - base
     out["elast_table_bytes"] = tbl.numel() * tbl.element_size()
     log(tag + " " + json.dumps(out))
+    out["reference"] = dict(T=T_np, sigma=st.sigma.cpu().numpy(), newton=ni,
+                            cg=ki, mech=mi)
     return out
 
 
@@ -4031,8 +4064,38 @@ GS_SMALL = (12, 6, 4, 1.0, 1.0, 0.01)
 GS_SMALL_STEPS = 3
 GS_DRYRUN_STEPS = 2
 # the dry run's "gspmd-grid" counts (Newton, CG): JAX's at P = 4, which
-# tests/test_torch_grid_shard.py holds the port's equal to on the CPU
+# tests/test_torch_grid_shard.py holds the port's equal to on the CPU; its
+# "gspmd-mechanics" strategy takes the same (the heat solve's)
 GS_DRYRUN_COUNTS = (14, 14)
+# the dry run's "gspmd-mechanics" |sigma| max on 8 TPU chips
+# (MULTICHIP_r05.json): printed beside the port's, not held. f32 rounding
+# sets it: the plate's stiffness has lambda_max / lambda_min ~ 8e9, so an
+# f32 action rounds by ~1e3 times its smallest eigenvalue and the f32
+# solve stops ~1e-4 from the f64 one (whose |sigma| max is ~10x smaller);
+# whether its CG keeps p'Ap > 0 there is the rounding's luck
+# (tests/test_torch_grid_shard_mech_dryrun.py, chip_ab.py dryrunmech).
+# Its f64 twin ("dryrun_mech64") is what the two gloo ranks are held on
+GS_DRYRUN_MECH_JAX_SIGMA = 4.390e-03
+# dryrun_mech64's bands (T max-rel, |sigma - ref| over max|ref|, the
+# elasticity CG's summed count within max(n, frac)): the two gloo ranks
+# against the one NCCL rank (T bit-equal, sigma 1.0e-5 apart in my CPU
+# run: each CG stops inside rtol 1e-8 of a system this ill-conditioned, a
+# dot summed in another order apart; counts 105 / 104), the one rank
+# against the unsharded run, whose heat V-cycle is GeometricMG (T 6.7e-8
+# apart, sigma 1.4e-5, counts 104 / 103 in my CPU run, PR 16)
+GS_DRYRUN64_BANDS = {"one": (1e-10, 1e-4, (2, 0.02)),
+                     "unsharded": (1e-6, 1e-4, (3, 0.05))}
+# 13d(c)'s bands (T max-rel; |sigma - ref| over max|ref| on the centre
+# column; the relative 2-norm of sigma - ref: mech_plate_against): the one rank
+# against 8b's unsharded state, whose heat V-cycle is GeometricMG where
+# GridShardedProblem's is JAX's GridMG (two iterates inside the heat rtol
+# 1e-5: T 6.8e-7 apart, f64 sigma 4.9e-6, on the card), and whose f32
+# sigma is f32 rounding at the free corners (f32 against f64 1.7x the
+# field's max there, two f32 runs 6% apart; off the side faces ~2e-4); the
+# two ranks against the one, the elasticity CG's dots summed in another
+# order (my chip runs, PR 16). The 2-norm limits sit 5x and 14x above the
+# largest sound readings (8b 9.6e-4, one 7.1e-5; my chip run, PR 16)
+GS_MECH_BANDS = {"8b": (1e-5, 1e-4, 5e-3), "one": (1e-6, 1e-4, 1e-3)}
 GS_PLATE_STEPS = 2              # timed, after one warm-up step
 GS_RANKS = 2
 
@@ -4063,13 +4126,22 @@ def gs_dryrun_config(tc):
 
 
 def gs_cases():
+    """name -> (mesh maker, config, GridShardedProblem keywords)."""
     from fem_glass_tempering_tpu_torch import config as tc
     from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+    small = lambda: box_mesh_3d(*GS_SMALL)  # noqa: E731
     return dict(
-        small=(lambda: box_mesh_3d(*GS_SMALL), gs_small_config(tc)),
-        dryrun=(lambda: box_mesh_3d(*GS_SMALL), gs_dryrun_config(tc)),
+        small=(small, gs_small_config(tc), {}),
+        dryrun=(small, gs_dryrun_config(tc), {}),
+        dryrun_mech=(small, dataclasses.replace(
+            gs_dryrun_config(tc), mechanics="equilibrium"), {}),
+        dryrun_mech64=(small, dataclasses.replace(
+            gs_dryrun_config(tc), mechanics="equilibrium",
+            dtype="float64"), {}),
         plate=(lambda: box_mesh_3d(*N_FULL, 1.0, 1.0, 0.01),
-               plate_config(tc, GS_PLATE_STEPS, True)))
+               plate_config(tc, GS_PLATE_STEPS, True), {}),
+        mech_plate=(coupled_plate_mesh, coupled_plate_config(tc),
+                    dict(flux_marker=z_faces)))
 
 
 def k2_forms_per_apply(gs) -> dict:
@@ -4095,14 +4167,15 @@ def grid_shard_run(dev, port, mesh_dev, name, steps, warmup=0,
     steps from the initial state, then `steps` counted and timed from a
     fresh one (`before()` / `after()` called just outside the window);
     the state gathered to the global layout."""
+    from fem_glass_tempering_tpu_torch.parallel import comm
     from fem_glass_tempering_tpu_torch.parallel.comm import halo_exchange
     from fem_glass_tempering_tpu_torch.parallel.grid_shard import (
         GridShardedProblem,
     )
-    make_mesh, cfg = gs_cases()[name]
+    make_mesh, cfg, kw = gs_cases()[name]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    gs = GridShardedProblem(make_mesh(), cfg, mesh_dev)
+    gs = GridShardedProblem(make_mesh(), cfg, mesh_dev, **kw)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     if warmup:
@@ -4116,25 +4189,48 @@ def grid_shard_run(dev, port, mesh_dev, name, steps, warmup=0,
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts(port)
     h0 = halo_exchange.count
+    c0 = comm.all_reduce_sum.count + comm.all_reduce_max.count
     t0 = time.perf_counter()
     st, ok, ni, ki = gs.run(state0, steps)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
+    collectives = comm.all_reduce_sum.count + comm.all_reduce_max.count - c0
     if after is not None:
         after()
     launches = dict(read_counts(port),
                     stencil_matvec_halo=port["stencil_matvec_halo"].launches)
     exchanges = halo_exchange.count - h0
+    log(f"13d {name} rank {mesh_dev.rank} of {mesh_dev.size}: setup "
+        f"{setup_s:.1f} s, {steps} steps in {elapsed:.1f} s")
     peak = torch.cuda.max_memory_allocated(dev)
     if not ok:
         fail(f"13d {name}: did not converge")
     per = k2_forms_per_apply(gs)
-    expect = dict(material_tspace=steps, dg_cell_residual=0,
+    # K1 computes the reference xi's chain (eq. 5 shift): the trapezoid
+    # xi's is plain PyTorch, as in phase 8b; the elasticity solve has no
+    # kernel
+    k1 = steps if (cfg.xi_formula == "reference"
+                   and cfg.shift_function == "eq5") else 0
+    expect = dict(material_tspace=k1, dg_cell_residual=0,
                   stencil_matvec=per["full"] * (ni + ki),
                   stencil_matvec_halo=per["halo"] * (ni + ki))
-    if launches != expect or launches["stencil_matvec_halo"] == 0:
+    if launches != expect or launches["stencil_matvec_halo"] == 0 or (
+            name in ("plate", "mech_plate") and per["full"]):
         fail(f"13d {name} rank {mesh_dev.rank}: launches {launches}, "
-             f"expected {expect}")
+             f"expected {expect} (K2 an iteration {per})")
+    mech = {}
+    if gs.mech is not None:
+        mi, mc = list(gs.last_mech_iters), list(gs.last_mech_collectives)
+        if len(mi) != steps or not all(gs.last_mech_converged):
+            fail(f"13d {name} rank {mesh_dev.rank}: elasticity CG per step "
+                 f"{mi}, converged {gs.last_mech_converged} (at most "
+                 f"{gs.mech.cg_max_it})")
+        mech = dict(elast_cg_each_step=mi, elast_cg_per_step=sum(mi) / steps,
+                    elast_collectives_each_step=mc,
+                    collectives_per_elast_iteration=sum(mc) / max(sum(mi), 1),
+                    elast_sharded_levels=list(gs.mech.mg.sharded),
+                    elast_levels=[op.dims for op in gs.mech.mg.mg.ops],
+                    elast_smoothers=list(gs.mech.mg.mg._smoothers))
     flat = gs.gather_state(st)
     out = dict(newton=ni, cg=ki, newton_per_step=ni / steps,
                cg_per_step=ki / steps, ms_per_step=elapsed / steps * 1e3,
@@ -4142,9 +4238,10 @@ def grid_shard_run(dev, port, mesh_dev, name, steps, warmup=0,
                launches=launches, k2_per_apply=per,
                halo_exchanges=exchanges,
                halo_exchanges_per_iteration=exchanges / max(ni + ki, 1),
+               collectives=collectives,
                max_memory_allocated_bytes=peak,
                sharded_levels=list(gs.rank_mg.sharded), rows=gs.rows,
-               **{f: getattr(flat, f) for f in ("T", "Tf", "sigma")})
+               **mech, **{f: getattr(flat, f) for f in ("T", "Tf", "sigma")})
     if keep:
         out["problem"], out["state"] = gs, st
     return out
@@ -4154,48 +4251,81 @@ GS_FIELDS = ("T", "Tf", "sigma")
 
 
 def grid_shard_rank(mesh_dev, go) -> dict:
-    """Phase 13d on one of the two gloo ranks: (a) the 12x6x4 plate and
-    the dry-run config, (b) the 160x160x40 plate; rank 0 creates the file
-    `go` when the plate's timed window is over."""
+    """Phase 13d on one of the two gloo ranks: (a) the 12x6x4 plate and the
+    dry-run config, (b) the 160x160x40 plate, (c) the coupled plate; rank
+    0 creates the file `go`/<case> when a plate's timed window is over."""
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, port = mesh_dev.device, rank_port()
     t0 = time.perf_counter()
-    out = {"small": to_host(grid_shard_run(dev, port, mesh_dev, "small",
-                                           GS_SMALL_STEPS)),
-           "dryrun": to_host(grid_shard_run(dev, port, mesh_dev, "dryrun",
-                                            GS_DRYRUN_STEPS))}
+    out = {name: to_host(grid_shard_run(dev, port, mesh_dev, name, steps))
+           for name, steps in (("small", GS_SMALL_STEPS),
+                               ("dryrun", GS_DRYRUN_STEPS))}
     out["a_s"] = time.perf_counter() - t0
-    gc.collect()
-    torch.cuda.empty_cache()
 
-    def done():
+    def done(name):
         if mesh_dev.rank == 0:
-            open(go, "w").close()
-    out["plate"] = to_host(grid_shard_run(dev, port, mesh_dev, "plate",
-                                          GS_PLATE_STEPS, warmup=1,
-                                          after=done))
+            open(os.path.join(go, name), "w").close()
+    for name, steps, ready in (("plate", GS_PLATE_STEPS, None),
+                               ("mech_plate", MECH_TIMED_STEPS,
+                                "mech_plate_ready")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        out[name] = to_host(grid_shard_run(
+            dev, port, mesh_dev, name, steps, warmup=1,
+            before=None if ready is None else lambda r=ready: wait_for(
+                go, r, "the one rank's set-up"),
+            after=lambda name=name: done(name)))
+        out[f"{name}_s"] = time.perf_counter() - t1
     out["s"] = time.perf_counter() - t0
     return out
 
 
 def grid_shard_one(mesh_dev, go) -> dict:
-    """Phase 13d(b) over one NCCL rank, in a process of its own that sets
-    up while the two gloo ranks do; its timed window waits for theirs to
-    end (the file `go`), so the two never share the card. Then K2's halo
-    form on the plate's tables."""
+    """Phase 13d over one NCCL rank, in a process of its own that sets up
+    while the two gloo ranks do: (a) the dry run's mechanics config in f32
+    (JAX's; its f64 twin, which the two gloo ranks run, is phase 13d64:
+    the f32 elasticity solve is not certifiable on this plate,
+    GS_DRYRUN_MECH_JAX_SIGMA), then (b) and (c), each timed window after theirs (the file
+    `go`/<case>), so the two never share the card; in (c) the two ranks
+    also wait to time until this rank is set up and warm (the file
+    `go`/mech_plate_ready, written however this process ends). After (b),
+    K2's halo form on the plate's tables."""
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, port = mesh_dev.device, rank_port()
+    ready = os.path.join(go, "mech_plate_ready")
+    try:
+        dryrun_mech = to_host(grid_shard_run(
+            dev, port, mesh_dev, "dryrun_mech", GS_DRYRUN_STEPS))
+        wait = lambda name: wait_for(  # noqa: E731
+            go, name, "the two ranks' timed window")
+        one = grid_shard_run(dev, port, mesh_dev, "plate", GS_PLATE_STEPS,
+                             warmup=1, keep=True,
+                             before=lambda: wait("plate"))
+        k2h = k2_halo_check(one.pop("problem"), one.pop("state"), port)
+        out = dict(plate=to_host(one), k2_halo=k2h, dryrun_mech=dryrun_mech)
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    def wait():
-        t0 = time.perf_counter()
-        while not os.path.exists(go):
-            if time.perf_counter() - t0 > 500:
-                fail("13d: the two ranks' timed window never ended")
-            time.sleep(0.05)
-    one = grid_shard_run(dev, port, mesh_dev, "plate", GS_PLATE_STEPS,
-                         warmup=1, keep=True, before=wait)
-    k2h = k2_halo_check(one.pop("problem"), one.pop("state"), port)
-    return dict(plate=to_host(one), k2_halo=k2h)
+        def before():
+            open(ready, "w").close()
+            wait("mech_plate")
+        out["mech_plate"] = to_host(grid_shard_run(
+            dev, port, mesh_dev, "mech_plate", MECH_TIMED_STEPS, warmup=1,
+            before=before))
+    finally:
+        open(ready, "a").close()
+    return out
+
+
+def wait_for(go, name, what) -> None:
+    """Wait until the file `go`/`name` exists (at most 500 s)."""
+    t0 = time.perf_counter()
+    while not os.path.exists(os.path.join(go, name)):
+        if time.perf_counter() - t0 > 500:
+            fail(f"13d {name}: {what} never ended")
+        time.sleep(0.05)
 
 
 def k2_halo_check(gs, st, port) -> dict:
@@ -4252,37 +4382,48 @@ def k2_halo_check(gs, st, port) -> dict:
     return out
 
 
-def grid_shard_phase(dev, port) -> dict:
+def grid_shard_phase(dev, port, mech_ref) -> dict:
     """Phase 13d: GridShardedProblem on the card. Three processes start at
-    once: the 160x160x40 plate over one NCCL rank, and both sizes over two
-    gloo ranks; they set up together, and the one rank's timed window
-    follows the two ranks'. Meanwhile this process runs the 12x6x4 plate
-    unsharded (the ranks' reference)."""
+    once: the 160x160x40 plate and then the coupled plate over one NCCL
+    rank, and every case over two gloo ranks; they set up together, and
+    each of the one rank's timed windows follows the two ranks'.
+    Meanwhile this process runs the 12x6x4 plate and the dry-run
+    mechanics config unsharded (the ranks' references). `mech_ref`: phase
+    8b's reference (its out["reference"]), which 13d(c)'s one rank is
+    held to."""
     from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
     from fem_glass_tempering_tpu_torch.parallel.comm import run_ranks
     t_phase = time.perf_counter()
-    go_dir = tempfile.mkdtemp(prefix="fgt_13d_")
-    go = os.path.join(go_dir, "two_ranks_timed")
+    go = tempfile.mkdtemp(prefix="fgt_13d_")
     with ThreadPoolExecutor(2) as ex:
         job_two = ex.submit(run_ranks, grid_shard_rank, GS_RANKS, dev, go,
                             backend="gloo", timeout=600)
         job_one = ex.submit(run_ranks, grid_shard_one, 1, dev, go,
                             backend="nccl", timeout=600)
-        make_mesh, cfg = gs_cases()["small"]
-        prob = ThermoViscoProblem(mesh=make_mesh(), config=cfg, device=dev)
-        prob.setup()
-        st = prob.solve()
-        ref = {f: getattr(st, f).cpu().numpy() for f in GS_FIELDS}
-        ref_counts = (prob.diagnostics.newton_iters,
-                      prob.diagnostics.krylov_iters)
-        del prob, st
+        unsharded = {}
+        for name, steps in (("small", GS_SMALL_STEPS),
+                            ("dryrun_mech", GS_DRYRUN_STEPS)):
+            make_mesh, cfg, _ = gs_cases()[name]
+            prob = ThermoViscoProblem(mesh=make_mesh(), config=cfg,
+                                      device=dev)
+            prob.setup()
+            st, ok, ni, ki = prob.multi_step(prob.state, steps)
+            if not ok:
+                fail(f"13d {name}: the unsharded run did not converge")
+            unsharded[name] = dict(
+                newton=ni, cg=ki, mech=list(prob.last_mech_iters),
+                **{f: getattr(st, f).cpu().numpy() for f in GS_FIELDS})
+            del prob, st
+        ref = unsharded["small"]
+        ref_counts = (ref["newton"], ref["cg"])
         try:
             ranks = job_two.result()
         finally:
             # a failed pair must not leave the one rank waiting
-            open(go, "a").close()
+            for name in ("plate", "mech_plate"):
+                open(os.path.join(go, name), "a").close()
         res_one = job_one.result()[0]
-    shutil.rmtree(go_dir, ignore_errors=True)
+    shutil.rmtree(go, ignore_errors=True)
     one, k2h = res_one["plate"], res_one["k2_halo"]
     processes_s = time.perf_counter() - t_phase
 
@@ -4308,7 +4449,25 @@ def grid_shard_phase(dev, port) -> dict:
                 not np.isfinite(dr["T"]).all():
             fail(f"13d dryrun rank {r}: {dr['newton']} / {dr['cg']}, "
                  f"JAX's {GS_DRYRUN_COUNTS}")
-    for name in ("small", "dryrun", "plate"):
+    # the dry run's mechanics config over the one NCCL rank, f32 (JAX's)
+    # and f64: JAX's counts, its elasticity CG converged (grid_shard_run),
+    # T as the unsharded run's on the card (whose matrix-free heat solve
+    # under GeometricMG takes other counts), sigma finite (in f32 its size
+    # is rounding: GS_DRYRUN_MECH_JAX_SIGMA, and so is its elasticity CG
+    # count, reported beside the unsharded run's: 42 / 57 on the CPU, 52 /
+    # 57 on the card)
+    dm, um = res_one["dryrun_mech"], unsharded["dryrun_mech"]
+    if (dm["newton"], dm["cg"]) != GS_DRYRUN_COUNTS or \
+            not np.isfinite(dm["sigma"]).all() or \
+            not all(max_rel(dm[f], um[f]) <= 1e-6 for f in ("T", "Tf")):
+        fail(f"13d dryrun_mech: {dm['newton']} / {dm['cg']} (unsharded "
+             f"{um['newton']} / {um['cg']}, JAX's {GS_DRYRUN_COUNTS}), T "
+             f"max-rel {max_rel(dm['T'], um['T']):.3e}")
+    sigma_max = dict(world_size_1=float(np.abs(dm["sigma"]).max()),
+                     unsharded=float(np.abs(um["sigma"]).max()),
+                     jax_8_tpu_chips=GS_DRYRUN_MECH_JAX_SIGMA)
+    log("13d(a) gspmd-mechanics |sigma| max " + json.dumps(sigma_max))
+    for name in ("small", "dryrun", "plate", "mech_plate"):
         a, b = ranks[0][name], ranks[1][name]
         if (a["newton"], a["cg"]) != (b["newton"], b["cg"]) or not all(
                 np.array_equal(a[f], b[f]) for f in GS_FIELDS):
@@ -4326,28 +4485,177 @@ def grid_shard_phase(dev, port) -> dict:
             and T1.max() < mp.T_0 + 1):
         fail(f"13d plate: T out of [T_ambient, T_0]: {T1.min()} .. "
              f"{T1.max()}")
+    # ---- (c) the coupled plate: one NCCL rank against 8b's unsharded
+    # state, two gloo ranks against the one ----
+    one_c, two_c = res_one["mech_plate"], ranks[0]["mech_plate"]
+    against_8b = mech_plate_against(one_c, mech_ref)
+    e1, e8 = (sum(one_c["elast_cg_each_step"]), sum(mech_ref["mech"]))
+    if one_c["newton"] != mech_ref["newton"] or \
+            abs(one_c["cg"] - mech_ref["cg"]) > max(2, 0.1 * mech_ref["cg"]) \
+            or abs(e1 - e8) > 0.02 * e8 or \
+            not against_8b["T_max_rel"] <= GS_MECH_BANDS["8b"][0] or \
+            not against_8b["sigma_centre"] <= GS_MECH_BANDS["8b"][1] or \
+            not against_8b["sigma_l2"] <= GS_MECH_BANDS["8b"][2]:
+        fail(f"13d mech_plate, one rank against 8b: "
+             f"{json.dumps(against_8b)}")
+    against_one = mech_plate_against(two_c, one_c)
+    e2 = sum(two_c["elast_cg_each_step"])
+    if (two_c["newton"], two_c["cg"]) != (one_c["newton"], one_c["cg"]) or \
+            abs(e2 - e1) > 0.02 * e1 or \
+            not against_one["T_max_rel"] <= GS_MECH_BANDS["one"][0] or \
+            not against_one["sigma_centre"] <= GS_MECH_BANDS["one"][1] or \
+            not against_one["sigma_l2"] <= GS_MECH_BANDS["one"][2]:
+        fail(f"13d mech_plate, two ranks against one: "
+             f"{json.dumps(against_one)}")
     out = dict(
         a=dict(unsharded_newton_cg=list(ref_counts),
+               unsharded_dryrun_mech_newton_cg=[
+                   unsharded["dryrun_mech"]["newton"],
+                   unsharded["dryrun_mech"]["cg"]],
+               unsharded_dryrun_mech_elast_cg=unsharded["dryrun_mech"][
+                   "mech"],
                ranks=[dict(small=summary(r["small"]),
                            dryrun=summary(r["dryrun"])) for r in ranks],
-               T_max_rel=max_rel(ranks[0]["small"]["T"], ref["T"])),
+               T_max_rel=max_rel(ranks[0]["small"]["T"], ref["T"]),
+               dryrun_mech_world_size_1=summary(dm),
+               dryrun_mech_T_max_rel=max_rel(dm["T"], um["T"]),
+               dryrun_mech_sigma_max=sigma_max),
         b=dict(world_size_1=summary(one),
                ranks=[summary(r["plate"]) for r in ranks], T_max_rel=rel),
+        c=dict(world_size_1=summary(one_c),
+               ranks=[summary(r["mech_plate"]) for r in ranks],
+               against_8b=against_8b, two_against_one=against_one),
         k2_halo=k2h, processes_s=processes_s,
         ranks_body_s=[r["s"] for r in ranks],
-        ranks_a_s=[r["a_s"] for r in ranks])
+        ranks_a_s=[r["a_s"] for r in ranks],
+        ranks_b_s=[r["plate_s"] for r in ranks],
+        ranks_c_s=[r["mech_plate_s"] for r in ranks])
     out["s"] = time.perf_counter() - t_phase
     log("grid sharded " + json.dumps(out))
     return out
 
 
-def grid_shard_launches(gs: dict, name: str) -> dict:
-    """A kernel's launches in phase 13d's counted windows, per rank."""
+def dryrun64_rank(mesh_dev) -> dict:
+    """Phase 13d64 on one rank: the dry run's mechanics config in f64."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return to_host(grid_shard_run(mesh_dev.device, rank_port(), mesh_dev,
+                                  "dryrun_mech64", GS_DRYRUN_STEPS))
+
+
+def dryrun64_phase(dev, port) -> dict:
+    """Phase 13d64, 13d(a)'s f64 twin of the dry run's mechanics config
+    (a side phase: it times nothing). Over two gloo ranks and one NCCL
+    rank, each in processes of its own started together, while this
+    process runs it unsharded; the two ranks held to the one and the one
+    to the unsharded run (dryrun64_against, GS_DRYRUN64_BANDS), the two
+    ranks in lockstep."""
+    from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
+    from fem_glass_tempering_tpu_torch.parallel.comm import run_ranks
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as ex:
+        job_two = ex.submit(run_ranks, dryrun64_rank, GS_RANKS, dev,
+                            backend="gloo", timeout=300)
+        job_one = ex.submit(run_ranks, dryrun64_rank, 1, dev,
+                            backend="nccl", timeout=300)
+        make_mesh, cfg, _ = gs_cases()["dryrun_mech64"]
+        prob = ThermoViscoProblem(mesh=make_mesh(), config=cfg, device=dev)
+        prob.setup()
+        st, ok, ni, ki = prob.multi_step(prob.state, GS_DRYRUN_STEPS)
+        if not ok:
+            fail("13d64: the unsharded run did not converge")
+        unsharded = dict(newton=ni, cg=ki, mech=list(prob.last_mech_iters),
+                         **{f: getattr(st, f).cpu().numpy()
+                            for f in GS_FIELDS})
+        del prob, st
+        ranks, one = job_two.result(), job_one.result()[0]
+    if not all(np.array_equal(ranks[0][f], ranks[1][f])
+               for f in GS_FIELDS):
+        fail("13d64: the ranks disagree")
+    checks = dict(one_against_unsharded=dryrun64_against(
+        one, unsharded, GS_DRYRUN64_BANDS["unsharded"], "unsharded"))
+    for r, rk in enumerate(ranks):
+        checks[f"rank{r}_against_one"] = dryrun64_against(
+            rk, one, GS_DRYRUN64_BANDS["one"], f"rank {r} against one")
+
+    def summary(res):
+        return {k: v for k, v in res.items() if k not in GS_FIELDS}
+    out = dict(unsharded=dict(newton=ni, cg=ki, mech=unsharded["mech"]),
+               world_size_1=summary(one),
+               ranks=[summary(r) for r in ranks], checks=checks,
+               sigma_max=dict(world_size_1=float(np.abs(one["sigma"]).max()),
+                              two_ranks=float(np.abs(
+                                  ranks[0]["sigma"]).max()),
+                              unsharded=float(np.abs(
+                                  unsharded["sigma"]).max())),
+               s=time.perf_counter() - t0)
+    log("dryrun mechanics f64 " + json.dumps(out))
+    return out
+
+
+def dryrun64_against(got: dict, ref: dict, band, who) -> dict:
+    """13d(a)'s f64 mechanics twin against a reference run of it: JAX's
+    heat counts, T and sigma within `band`'s fractions of their max, the
+    summed elasticity CG count within max(n, frac) of the reference's;
+    fails outside them."""
+    t_band, s_band, (n, frac) = band
+    e, e_ref = (sum(x.get("elast_cg_each_step", x.get("mech")))
+                for x in (got, ref))
+    out = dict(newton_cg=(got["newton"], got["cg"]),
+               elast_cg=(e, e_ref), T_max_rel=max_rel(got["T"], ref["T"]),
+               sigma_max_rel=max_rel(got["sigma"], ref["sigma"]))
+    if (got["newton"], got["cg"]) != GS_DRYRUN_COUNTS or \
+            abs(e - e_ref) > max(n, frac * e_ref) or \
+            not out["T_max_rel"] <= t_band or \
+            not out["sigma_max_rel"] <= s_band:
+        fail(f"13d64, {who}: {json.dumps(out)}")
+    return out
+
+
+def mech_plate_against(got: dict, ref: dict) -> dict:
+    """13d(c)'s run against a reference run of the coupled plate: counts
+    side by side, T max-rel, |sigma - ref| over max|ref| on the centre
+    column (x = y = 25: 8b's membrane profile), off the four insulated
+    side faces ("inner") and everywhere, and the field's relative 2-norm
+    difference. Held: the centre column and the 2-norm (GS_MECH_BANDS);
+    the max-norms are reported: in f32 the elasticity solve leaves its
+    largest error at the free edges, where two f32 runs part by up to 6%
+    of the field's max (f64 runs by 4.9e-6; my chip runs, PR 16)."""
+    g = tuple(n + 1 for n in N_MECH)
+    a, b = (x["sigma"].reshape(g + (3, 3)) for x in (got, ref))
+    c0, c1 = g[0] // 2, g[1] // 2
+
+    def off(sl):
+        return float(np.abs(a[sl] - b[sl]).max()
+                     / max(float(np.abs(b[sl]).max()), 1e-30))
+    return dict(
+        newton=(got["newton"], ref["newton"]), cg=(got["cg"], ref["cg"]),
+        elast_cg=(got.get("elast_cg_each_step", got.get("mech")),
+                  ref.get("elast_cg_each_step", ref.get("mech"))),
+        T_max_rel=max_rel(got["T"], ref["T"]),
+        sigma_centre=off((c0, c1)), sigma_inner=off(np.s_[1:-1, 1:-1]),
+        sigma_all=off(np.s_[:]),
+        sigma_l2=float(np.linalg.norm(a - b) / np.linalg.norm(b)),
+        T_bit_equal=bool(np.array_equal(got["T"], ref["T"])),
+        sigma_bit_equal=bool(np.array_equal(got["sigma"], ref["sigma"])))
+
+
+def grid_shard_launches(gs: dict, dry64: dict, name: str) -> dict:
+    """A kernel's launches in phase 13d's and 13d64's counted windows, per
+    rank."""
     out = {f"{case}_ranks": [r[case]["launches"][name]
                              for r in gs["a"]["ranks"]]
            for case in ("small", "dryrun")}
-    out["plate_world_size_1"] = gs["b"]["world_size_1"]["launches"][name]
-    out["plate_ranks"] = [r["launches"][name] for r in gs["b"]["ranks"]]
+    out["dryrun_mech_world_size_1"] = gs["a"]["dryrun_mech_world_size_1"][
+        "launches"][name]
+    out["dryrun_mech64_world_size_1"] = dry64["world_size_1"]["launches"][
+        name]
+    out["dryrun_mech64_ranks"] = [r["launches"][name]
+                                  for r in dry64["ranks"]]
+    for part, case in (("b", "plate"), ("c", "mech_plate")):
+        out[f"{case}_world_size_1"] = gs[part]["world_size_1"]["launches"][
+            name]
+        out[f"{case}_ranks"] = [r["launches"][name]
+                                for r in gs[part]["ranks"]]
     return out
 
 
@@ -4461,8 +4769,10 @@ def setup_device() -> torch.device:
 # The side processes' phases, a group a process (see the docstring): each
 # group's card work is small beside the main process's plates, and each
 # group takes about as long as what the main process runs meanwhile
-# (6a: phase 6's 8x8x4 parity runs; 7a: phase 7's).
-SIDE_GROUPS = (("5", "12b", "12c", "12d", "12e"), ("6a", "7a", "8a"),
+# (6a: phase 6's 8x8x4 parity runs; 7a: phase 7's; 13d64 fills the
+# first group's slack).
+SIDE_GROUPS = (("5", "12b", "12c", "12d", "12e", "13d64"),
+               ("6a", "7a", "8a"),
                ("13", "11", "9a", "10a"))
 
 
@@ -4493,6 +4803,7 @@ def side_phases(names, t0_epoch, scratch_dir, warmup, k2_per_apply) -> dict:
         "12d": lambda: solve_scan_phase(dev, port),
         "12e": lambda: native_phase(dev, scratch_dir),
         "13": lambda: distributed_phase(dev, port),
+        "13d64": lambda: dryrun64_phase(dev, port),
     }
     out, ends = {}, {}
     for name in names:
@@ -4668,6 +4979,7 @@ def main() -> int:
         # ---- phase 8b: equilibrium mechanics at full width ----
         drop_garbage("phase 8b")
         mech = mechanics_plate_phase(dev, port)
+        mech_ref = mech.pop("reference")
         phase_end("8b")
 
         # ---- phase 10b, 10c: the gather path, the mixed twins ----
@@ -4691,7 +5003,7 @@ def main() -> int:
     mech_parity, cg2_parity = side["8a"], side["9a"]
     d2_parity, cli, dist = side["10a"], side["11"], side["13"]
     bf16_parity, forms, scan = side["12b"], side["12c"], side["12d"]
-    native_rt = side["12e"]
+    native_rt, dry64 = side["12e"], side["13d64"]
 
     # ---- phase 9b: the CG-2 plate on the lattice path ----
     drop_garbage("phase 9b")
@@ -4705,7 +5017,7 @@ def main() -> int:
 
     # ---- phase 13d: the grid-sharded CG-1 step ----
     drop_garbage("phase 13d")
-    gshard = grid_shard_phase(dev, port)
+    gshard = grid_shard_phase(dev, port, mech_ref)
     phase_end("13d")
 
     k1_32 = k1["float32"]
@@ -4738,7 +5050,7 @@ def main() -> int:
              launches_distributed=distributed_launches(
                  dist, "material_tspace"),
              launches_grid_sharded=grid_shard_launches(
-                 gshard, "material_tspace")),
+                 gshard, dry64, "material_tspace")),
         dict(name="stencil_matvec", route="cuda",
              source="fem_glass_tempering_tpu_torch/csrc/stencil_matvec.cu",
              replaces="fem_glass_tempering_tpu/ops/pallas_stencil.py:54",
@@ -4761,7 +5073,7 @@ def main() -> int:
              launches_distributed=distributed_launches(
                  dist, "stencil_matvec"),
              launches_grid_sharded=grid_shard_launches(
-                 gshard, "stencil_matvec")),
+                 gshard, dry64, "stencil_matvec")),
         # K2's halo form (a rank's planes of the grid-sharded step, f32 /
         # f64 tables): launches of phase 13d's plate over one NCCL rank,
         # timed on the two-rank layout's first slab of its fine level
@@ -4779,7 +5091,7 @@ def main() -> int:
              device_ms=gshard["k2_halo"]["device_ms"],
              slab=gshard["k2_halo"]["slab"],
              launches_grid_sharded=grid_shard_launches(
-                 gshard, "stencil_matvec_halo")),
+                 gshard, dry64, "stencil_matvec_halo")),
         # the bf16-table instantiation of K2 (f32 vector: the mixed
         # V-cycle's), timed on the fine level's tables of the 1M-dof plate
         dict(name="stencil_matvec_bf16_tables", route="cuda",

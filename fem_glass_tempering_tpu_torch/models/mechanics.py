@@ -17,7 +17,9 @@ each step:
 With du = 0 this is the reference's semantics. A coupling is called as
 `mech(state, xi, scalar_th)` by ViscoelasticEngine.material_step and
 returns (eps(du) at the sigma-space points, du); `last_cg_iters` holds
-the count of its last elasticity CG solve.
+the count of its last elasticity CG solve. RankMechanicsCoupling is the
+grid coupling on one rank of the grid-sharded step
+(parallel/grid_shard.py).
 """
 
 from __future__ import annotations
@@ -31,7 +33,10 @@ from fem_glass_tempering_tpu_torch.ops.elasticity import ElasticityOperator
 from fem_glass_tempering_tpu_torch.ops.grid_elasticity import (
     GridElasticityOperator,
 )
-from fem_glass_tempering_tpu_torch.solver.grid_mg import GridElastMG
+from fem_glass_tempering_tpu_torch.solver.grid_mg import (
+    GridElastMG,
+    RankGridElastMG,
+)
 from fem_glass_tempering_tpu_torch.solver.krylov import pcg
 
 
@@ -47,13 +52,14 @@ def _effective_moduli(eng, xi_q):
 
 def _history_stress(eng, state, xi_S):
     """The decayed accumulated stress at the sigma-space points xi_S
-    ((nS,) or grid-shaped) -> xi_S.shape + (d, d): the engine's eq. 16a/b
-    decay of the mode's source fields."""
+    ((nS,) or grid-shaped; the source fields flat or shaped alike) ->
+    xi_S.shape + (d, d): the engine's eq. 16a/b decay of the mode's
+    source fields."""
     ref = eng.mode == "reference"
     s_src = state.s_tilde if ref else state.s_partial
     sig_src = state.sigma_tilde if ref else state.sigma_partial
-    s_src = s_src.reshape(xi_S.shape + s_src.shape[1:])
-    sig_src = sig_src.reshape(xi_S.shape + sig_src.shape[1:])
+    s_src = s_src.reshape(xi_S.shape + s_src.shape[-3:])
+    sig_src = sig_src.reshape(xi_S.shape + sig_src.shape[-3:])
     texp_g = eng._decay(xi_S[..., None] / eng.lambda_g_n)[..., None, None]
     texp_k = eng._decay(xi_S[..., None] / eng.lambda_k_n)[..., None, None]
     return torch.sum(s_src * texp_g + sig_src * texp_k, dim=-3)
@@ -144,19 +150,18 @@ class GridMechanicsCoupling:
     """Gather-free equilibrium mechanics on uniform box meshes
     (ops/grid_elasticity.py): the coupling of MechanicsCoupling on
     grid-shaped fields, with the vector V-cycle of solver/grid_mg.py as the
-    CG preconditioner. The flat (n, ...) ViscoState layout is reshaped at
-    the boundary. `grid_shaped=True` (the sharded step) waits for
-    Slice 7."""
+    CG preconditioner ("mg"; any other `preconditioner` is Jacobi-CG).
+    `pad_axis0` appends ghost node planes along axis 0 (the sharded
+    step's layout); `grid_shaped=True` takes and returns (*grid, ...)
+    fields, False the flat (n, ...) ViscoState layout, reshaped at the
+    boundary. `rank_form` runs it on one rank's rows of a grid split along
+    axis 0 (RankMechanicsCoupling; with the block tables only)."""
 
     def __init__(self, fs_sigma, engine, dtype=torch.float32,
                  cg_rtol: float = 1e-10, cg_max_it: int = 2000,
                  pad_axis0: int = 0, grid_shaped: bool = False,
-                 inc_rtol: float = 0.0, use_tables: bool = True):
-        if grid_shaped:
-            raise NotImplementedError(
-                "GridMechanicsCoupling(grid_shaped=True), the sharded "
-                "step's layout, waits for Slice 7 of the PyTorch port "
-                "(ROADMAP.md)")
+                 preconditioner: str = "mg", inc_rtol: float = 0.0,
+                 use_tables: bool = True):
         self.engine = engine
         dev = engine.device
         self.el = GridElasticityOperator(fs_sigma, dtype=dtype,
@@ -168,10 +173,15 @@ class GridMechanicsCoupling:
         # materialized block-stencil tables for the CG / V-cycle matvecs,
         # or the cell recompute
         self.use_tables = use_tables
+        self.grid_shaped = grid_shaped
         self.I = torch.eye(self.d, dtype=dtype, device=dev)
         self.last_cg_iters = None
         # the vector geometric MG preconditions the CG: Jacobi-CG stalls
         # on thin plates
+        self.mg = None
+        if preconditioner != "mg":
+            return
+
         def make_level_op(level_mesh):
             fsl = FunctionSpace(level_mesh, "CG", 1,
                                 value_shape=(self.d, self.d))
@@ -195,11 +205,18 @@ class GridMechanicsCoupling:
         return _effective_moduli(self.engine,
                                  self.el.cell_avg_from_nodes(xi_g))
 
+    def rank_form(self, device_mesh, rows) -> "RankMechanicsCoupling":
+        """This coupling on rank `device_mesh.rank` of a grid split along
+        axis 0, `rows` every rank's planes [lo, hi) of the (padded) grid."""
+        return RankMechanicsCoupling(self, device_mesh, rows)
+
     def build_precond(self, state):
         """The elasticity V-cycle frozen at `state` (a jac_every chunk's
         start): per-level tables, smoother factors and spectrum bounds.
         The CG system itself stays exact, rebuilt in every call; only the
-        preconditioner is reused."""
+        preconditioner is reused. None without the V-cycle."""
+        if self.mg is None:
+            return None
         G_eff, K_eff = self._moduli_at(state.xi.reshape(self.el.grid))
         return self.mg.preconditioner_g(G_eff, K_eff)
 
@@ -226,7 +243,7 @@ class GridMechanicsCoupling:
             tbl = None
             mv = el.make_matvec_g(G_eff, K_eff)
         diag = el.jacobian_diag_g(G_eff, K_eff)
-        if precond is None:
+        if precond is None and self.mg is not None:
             precond = self.mg.preconditioner_g(G_eff, K_eff,
                                                fine_table=tbl)
         # warm start from the previous step's displacement: the test stays
@@ -239,4 +256,100 @@ class GridMechanicsCoupling:
                   rtol_r0=self.inc_rtol)
         self.last_cg_iters = res.iters
         eps = el.strain_at_nodes(res.x)                   # (*grid, d, d)
+        if self.grid_shaped:
+            return eps, res.x
+        return eps.reshape(-1, d, d), res.x.reshape(-1, d)
+
+
+class RankMechanicsCoupling:
+    """GridMechanicsCoupling on one rank of a grid split along axis 0
+    (parallel/grid_shard.py): its fields are the rank's rows of the padded
+    grid, flat ((L M, ...)). Each call exchanges the halo planes of xi,
+    the thermal-strain scalar and the decayed history stress (summed over
+    the Prony terms: 2 + d^2 values a node) once, computes the cell terms
+    of the slab's window (ops/grid_elasticity.py GridElasticitySlab), and
+    solves on the owned rows: the CG's action is the slab's table over
+    the halo of its vector, every dot summed over the ranks, the V-cycle
+    GridElastMG's rank form (solver/grid_mg.py RankGridElastMG). The
+    strain at the nodes takes the displacement's halo (a node's owner
+    cell reads the next plane). `last_collectives` counts the collectives
+    of its last call (halo exchanges included; parallel/comm.py), and
+    `last_converged` says whether its CG met its tolerance (the same on
+    every rank: its norms are global). Every rank must call it
+    together."""
+
+    def __init__(self, coupling: GridMechanicsCoupling, device_mesh, rows):
+        # imported here: the parallel package imports this module
+        from fem_glass_tempering_tpu_torch.parallel import comm
+        self._collectives = comm
+        self.coupling = coupling
+        self.engine = coupling.engine
+        if not coupling.use_tables:
+            raise ValueError("the rank form needs the block tables "
+                             "(use_tables=True)")
+        self.comm = device_mesh
+        self.d = coupling.d
+        self.cg_rtol, self.cg_max_it = coupling.cg_rtol, coupling.cg_max_it
+        self.inc_rtol = coupling.inc_rtol
+        self.slab = coupling.el.slab(*rows[device_mesh.rank])
+        self.mg = (RankGridElastMG(coupling.mg, device_mesh, rows)
+                   if coupling.mg is not None else None)
+        self.last_cg_iters = self.last_collectives = None
+        self.last_converged = None
+
+    def _halo(self, x):
+        return self._collectives.halo_exchange(x, self.comm)
+
+    def _count(self) -> int:
+        c = self._collectives
+        return c.all_reduce_sum.count + c.all_reduce_max.count
+
+    def _dot(self, u, v):
+        return self._collectives.all_reduce_sum(
+            torch.dot(u.reshape(-1), v.reshape(-1)), self.comm)
+
+    def _moduli(self, xi_ext):
+        return _effective_moduli(self.engine,
+                                 self.slab.cell_avg_from_nodes(xi_ext))
+
+    def build_precond(self, state):
+        """The V-cycle frozen at `state` (GridMechanicsCoupling's), None
+        without it."""
+        if self.mg is None:
+            return None
+        xi_ext = self._halo(state.xi.reshape(self.slab.slab_grid))
+        return self.mg.preconditioner(*self._moduli(xi_ext))
+
+    def __call__(self, state, xi, scalar_th, precond=None):
+        """(eps(du) (L M, d, d), du (L M, d)) on this rank's rows."""
+        count0 = self._count()
+        slab, d = self.slab, self.d
+        shape = slab.slab_grid
+        xi_g = xi.reshape(shape)
+        hist = _history_stress(self.engine, state, xi_g)  # (*shape, d, d)
+        ext = self._halo(torch.cat([
+            xi_g[..., None], scalar_th.reshape(shape)[..., None],
+            hist.reshape(shape + (d * d,))], dim=-1))
+        xi_e, th_e = ext[..., 0], ext[..., 1]
+        hist_e = ext[..., 2:].reshape(ext.shape[:-1] + (d, d))
+        G_eff, K_eff = self._moduli(xi_e)
+        th_q = slab.cell_avg_from_nodes(th_e)
+        eps0_q = th_q[..., None, None] * self.coupling.I
+        sigma_hist_q = slab.tensor_at_q(hist_e)
+        zero = torch.zeros(slab.grid + (d,), dtype=G_eff.dtype,
+                           device=G_eff.device)
+        b = -slab.residual_r(zero, sigma_hist_q, eps0_q, G_eff, K_eff)
+        tbl = slab.stencil_table_r(G_eff, K_eff)
+        mv = lambda v: slab.matvec_table_r(tbl, self._halo(v))  # noqa: E731
+        diag = slab.jacobian_diag_r(G_eff, K_eff)
+        if precond is None and self.mg is not None:
+            precond = self.mg.preconditioner(G_eff, K_eff, fine_table=tbl)
+        x0 = (None if state.du is None
+              else state.du.reshape(shape + (d,)).to(b.dtype))
+        res = pcg(mv, b, x0=x0, diag=diag, precond=precond,
+                  rtol=self.cg_rtol, max_it=self.cg_max_it,
+                  rtol_r0=self.inc_rtol, dot=self._dot)
+        self.last_cg_iters, self.last_converged = res.iters, res.converged
+        eps = slab.strain_at_nodes_r(self._halo(res.x))
+        self.last_collectives = self._count() - count0
         return eps.reshape(-1, d, d), res.x.reshape(-1, d)

@@ -18,7 +18,12 @@ the node grid instead of through a dofmap gather:
 the CG and the V-cycle (solver/grid_mg.py) apply it. Both stay plain
 PyTorch here, as they are plain XLA in the JAX package.
 
-The ghost-padded grid (`pad_axis0`) is the sharded path of Slice 7.
+`pad_axis0` appends ghost node planes along axis 0 (pinned: identity
+rows; zero strain), the layout of the grid-sharded step
+(parallel/grid_shard.py). `slab(lo, hi)` restricts the operator to one
+rank's planes of it (GridElasticitySlab): the whole grid's methods on the
+planes [lo - 1, hi + 1) and the cells between them, the owned rows kept,
+each equal to the whole grid's row.
 """
 
 from __future__ import annotations
@@ -33,17 +38,25 @@ from fem_glass_tempering_tpu_torch.ops.assembly import build_cell_geometry
 from fem_glass_tempering_tpu_torch.ops.elasticity import _rigid_body_pins
 
 
+def slab_cells(lo: int, hi: int, ncell: int) -> tuple:
+    """The cells along axis 0 of the node planes [lo, hi) of a grid with
+    `ncell` cells there -> ((c0, c1), (a, b)): [c0, c1) the cells between
+    the planes [lo - 1, hi + 1) (a slab's window), [a, b) those whose low
+    plane lies in [lo, hi) (the rank's own: every cell has one owner)."""
+    c0 = min(max(0, lo - 1), ncell)
+    c1 = max(c0, min(ncell, hi))
+    a = min(lo, ncell)
+    return (c0, c1), (a, max(a, min(hi, ncell)))
+
+
 class GridElasticityOperator:
     """Vector CG-1 equilibrium operator on a uniform box mesh, applied to
-    grid-shaped displacement fields (*grid, d)."""
+    grid-shaped displacement fields (*grid, d). `pad_axis0` appends that
+    many ghost node planes along axis 0, pinned (identity rows), as
+    GridHeatOperator does."""
 
     def __init__(self, fs_sigma: FunctionSpace, dtype=torch.float32,
                  pad_axis0: int = 0, device=None):
-        if pad_axis0:
-            raise NotImplementedError(
-                "GridElasticityOperator(pad_axis0 != 0), the ghost-padded "
-                "grid of the sharded step, waits for Slice 7 of the "
-                "PyTorch port (ROADMAP.md)")
         mesh = fs_sigma.mesh
         if mesh.structured is None:
             raise ValueError("GridElasticityOperator needs a structured box")
@@ -54,8 +67,13 @@ class GridElasticityOperator:
         self.d = mesh.tdim
         self.dtype = dtype
         self.dims = tuple(mesh.structured["dims"])
-        self.grid = tuple(n + 1 for n in self.dims)
+        self.base_grid = tuple(n + 1 for n in self.dims)
+        self.pad0 = int(pad_axis0)
+        self.grid = (self.base_grid[0] + self.pad0,) + self.base_grid[1:]
         self.n = self.fs.n_scalar_dofs
+        # the whole grid on axis 0: its cells [0, dims[0]) from node row 0
+        self._row0 = 0
+        self._cells0 = (0, self.dims[0])
 
         cg = build_cell_geometry(mesh, self.fs)
         qw = np.asarray(cg.qweights)
@@ -76,12 +94,17 @@ class GridElasticityOperator:
 
         # rigid-body pins, the flat operator's choice on the node grid
         pins = _rigid_body_pins(self.fs)
-        mask = np.zeros(self.grid + (self.d,))
+        mask = np.zeros(self.base_grid + (self.d,))
         for dof, comp in pins:
-            idx = np.unravel_index(int(dof), self.grid)
+            idx = np.unravel_index(int(dof), self.base_grid)
             mask[idx + (int(comp),)] = 1.0
+        if self.pad0:
+            # the ghost planes pinned: identity rows
+            mask = np.pad(mask, [(0, self.pad0)] + [(0, 0)] * self.d,
+                          constant_values=1.0)
         self.np_pin_mask = mask              # numpy source (dense coarse)
         self.pin_mask_g = torch.as_tensor(mask > 0, device=self.device)
+        self._slabs: dict = {}
 
         # host copies for the smoother bounds of solver/grid_mg.py
         self.np_qw1 = qw[0]
@@ -110,13 +133,23 @@ class GridElasticityOperator:
                               for off in self._offsets}
         self._k_order = [self._offset_index[off] for off in self._offsets]
 
+    def slab(self, lo: int, hi: int) -> "GridElasticitySlab":
+        """The operator restricted to planes [lo, hi) of the grid (one per
+        range: the coupling's CG and its V-cycle's fine level share it)."""
+        if (lo, hi) not in self._slabs:
+            self._slabs[(lo, hi)] = GridElasticitySlab(self, lo, hi)
+        return self._slabs[(lo, hi)]
+
     # ------------------------------------------------------------------
     def _corner_slice(self, l: int) -> tuple:
-        """Static slices addressing corner l of every cell: a (dims)-shaped
-        window of the node grid."""
+        """Static slices addressing corner l of every cell: a window of the
+        node grid shaped as the cells (axis 0: the cells [c0, c1) of
+        `_cells0`, from node row `_row0`)."""
         off = self.loffs[l]
-        return tuple(slice(off[i], off[i] + self.dims[i])
-                     for i in range(self.d))
+        c0, c1 = self._cells0
+        b = c0 - self._row0 + off[0]
+        return (slice(b, b + c1 - c0),) + tuple(
+            slice(off[i], off[i] + self.dims[i]) for i in range(1, self.d))
 
     def _corners(self, ug: torch.Tensor) -> torch.Tensor:
         """(*grid, d) -> (*dims, l, d) cell-corner values."""
@@ -197,19 +230,25 @@ class GridElasticityOperator:
         view of the padded grid, multiplied and reduced in one pass each;
         the 3^d terms are then summed one by one in the offsets' order, as
         the JAX version sums them."""
+        vp = F.pad(self._mask(vg), (0, 0) + (1, 1) * self.d)
+        r = self._apply_table(B, vp, self.grid)
+        return torch.where(self.pin_mask_g, vg, r)
+
+    def _apply_table(self, B, vp, rows_grid) -> torch.Tensor:
+        """The table's rows `rows_grid` applied to `vp`, the masked vector
+        with one more plane (zero or halo) on each side of every axis."""
         d = self.d
-        vp = F.pad(self._mask(vg), (0, 0) + (1, 1) * d)
         for i in range(d):
-            vp = vp.unfold(i, 3, 1)          # (*grid, d, o_0, ..., o_i)
-        # (*grid, o_{d-1}, ..., o_0, d) -> (*grid, 3^d, d): k = sum o_i 3^i
+            vp = vp.unfold(i, 3, 1)          # (*rows, d, o_0, ..., o_i)
+        # (*rows, o_{d-1}, ..., o_0, d) -> (*rows, 3^d, d): k = sum o_i 3^i
         perm = (tuple(range(d)) + tuple(d + 1 + i for i in reversed(range(d)))
                 + (d,))
-        V = vp.permute(perm).reshape(self.grid + (3 ** d, d))
-        S = (B * V[..., None, :]).sum(-1)                  # (*grid, 3^d, d)
+        V = vp.permute(perm).reshape(tuple(rows_grid) + (3 ** d, d))
+        S = (B * V[..., None, :]).sum(-1)                  # (*rows, 3^d, d)
         r = S[..., self._k_order[0], :]
         for k in self._k_order[1:]:
             r = r + S[..., k, :]
-        return torch.where(self.pin_mask_g, vg, r)
+        return r
 
     def jacobian_diag_g(self, G_q, K_q) -> torch.Tensor:
         """Exact diagonal of the elastic stiffness, (*grid, d), from the
@@ -241,9 +280,14 @@ class GridElasticityOperator:
     def strain_at_nodes(self, ug: torch.Tensor) -> torch.Tensor:
         """eps(u) at the grid nodes, each from its owner cell (the highest
         cell index wins, fem/functionspace.py): node i along an axis is
-        corner 0 of cell i, the last node corner 1 of the last cell.
-        Returns (*grid, d, d)."""
+        corner 0 of cell i, the last node corner 1 of the last cell; zero
+        on the ghost planes. Returns (*grid, d, d)."""
         d = self.d
+        c0, c1 = self._cells0
+        zeros = lambda n: torch.zeros(  # noqa: E731
+            (n,) + self.grid[1:] + (d, d), dtype=ug.dtype, device=ug.device)
+        if c1 == c0:
+            return zeros(self.grid[0])
         # grad phi at the vertices of the uniform cell: invJ = diag(1/h)
         ipts = self.fs.element.interpolation_points()
         dphi_ip = np.asarray(self.fs.element.tabulate_grad(ipts))  # (p,l,t)
@@ -261,8 +305,75 @@ class GridElasticityOperator:
                 p = sum(bits[i] << i for i in range(d))
                 return eps_c[..., p, :, :]
             low = build(axis + 1, bits + (0,))
+            if axis == 0 and c1 < self.dims[0]:
+                return low               # the last cell lies past the window
             high = build(axis + 1, bits + (1,))
-            last = high.narrow(axis, self.dims[axis] - 1, 1)
+            last = high.narrow(axis, low.shape[axis] - 1, 1)
             return torch.cat([low, last], dim=axis)
 
-        return build(0, ())
+        # the nodes [c0, c0 + n) of axis 0; the other rows hold no owner
+        # cell of the window (ghost planes, a slab's edges)
+        out = build(0, ())
+        before = c0 - self._row0
+        after = self.grid[0] - before - out.shape[0]
+        if before or after:
+            out = torch.cat([zeros(before), out, zeros(after)])
+        return out
+
+
+class GridElasticitySlab(GridElasticityOperator):
+    """A GridElasticityOperator restricted to planes [lo, hi) of its
+    (padded) grid: one rank's share of the grid-sharded step. It computes
+    on the L + 2 planes [lo - 1, hi + 1) and the cells between them (the
+    whole grid's methods on that window; the pin mask sliced from the
+    whole grid's, pinned outside it) and keeps the L owned rows, each
+    equal to the whole grid's row. Its node inputs carry the halo: (L +
+    2, *grid[1:], ...), the neighbours' planes first and last, zeros where
+    there is none (parallel/comm.py halo_exchange); its cell inputs
+    (G_q, K_q, ...) are over `cell_grid`, the window's cells."""
+
+    def __init__(self, op: GridElasticityOperator, lo: int, hi: int):
+        self.__dict__.update(op.__dict__)
+        self._slabs = {}
+        G0 = op.grid[0]
+        if not 0 <= lo < hi <= G0:
+            raise ValueError(f"slab [{lo}, {hi}) outside the grid's {G0} "
+                             f"planes")
+        self.L = hi - lo
+        self.slab_grid = (self.L,) + op.grid[1:]
+        e0, E = lo - 1, self.L + 2
+        self.grid = (E,) + op.grid[1:]
+        self._row0 = e0
+        self._cells0, self.own_cells = slab_cells(lo, hi, op.dims[0])
+        self.cell_grid = ((self._cells0[1] - self._cells0[0],)
+                          + op.dims[1:])
+        a, b = max(e0, 0), min(e0 + E, G0)
+        mask = np.pad(op.np_pin_mask[a:b],
+                      [(a - e0, e0 + E - b)] + [(0, 0)] * self.d,
+                      constant_values=1.0)
+        self.np_pin_mask = mask
+        self.pin_mask_g = torch.as_tensor(mask > 0, device=self.device)
+        self.own_pin = self.pin_mask_g[1:-1]
+
+    def residual_r(self, u_ext, sigma_hist_q, eps0_q, G_q, K_q):
+        """The owned rows of the residual, (L, *grid[1:], d)."""
+        return self.residual_g(u_ext, sigma_hist_q, eps0_q, G_q, K_q)[1:-1]
+
+    def jacobian_diag_r(self, G_q, K_q):
+        return self.jacobian_diag_g(G_q, K_q)[1:-1]
+
+    def stencil_table_r(self, G_q, K_q):
+        """The owned rows' block table (L, *grid[1:], 3^d, d, d)."""
+        return self.stencil_table_g(G_q, K_q)[1:-1]
+
+    def matvec_table_r(self, B_r, v_ext):
+        """v -> K v on the owned rows from their table and v with its halo
+        planes (L + 2, *grid[1:], d)."""
+        vp = F.pad(self._mask(v_ext), (0, 0) + (1, 1) * (self.d - 1)
+                   + (0, 0))
+        r = self._apply_table(B_r, vp, self.slab_grid)
+        return torch.where(self.own_pin, v_ext[1:-1], r)
+
+    def strain_at_nodes_r(self, u_ext):
+        """eps(u) at the owned nodes (L, *grid[1:], d, d)."""
+        return self.strain_at_nodes(u_ext)[1:-1]

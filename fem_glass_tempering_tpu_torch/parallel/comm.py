@@ -17,6 +17,11 @@ a torch.distributed group, and every collective is a sum over the ranks:
   for rows scattered over a global vector.
 - `halo_exchange` gives each rank of a grid split along axis 0 its
   neighbours' adjacent planes through that all-gather.
+- `all_reduce_max` is the one collective that is not a sum (a bound taken
+  over the ranks); a max is exact in any order.
+
+`all_reduce_sum.count` and `all_reduce_max.count` count the collectives
+a process has made (a halo exchange or an all-gather is one sum).
 
 The backend follows the device (NCCL for CUDA, gloo for the CPU) unless
 the caller names one: two ranks can share one GPU over gloo, which NCCL
@@ -127,7 +132,23 @@ class _AllReduceSum(torch.autograd.Function):
 def all_reduce_sum(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
     """The sum of `x` over the ranks, on every rank; differentiable in
     forward mode (torch.func.jvp)."""
+    all_reduce_sum.count += 1
     return _AllReduceSum.apply(x, mesh.group)
+
+
+all_reduce_sum.count = 0
+
+
+def all_reduce_max(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """The elementwise max of `x` over the ranks, on every rank (exact: a
+    max does not depend on the order it is taken in)."""
+    all_reduce_max.count += 1
+    y = x.contiguous().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=mesh.group)
+    return y
+
+
+all_reduce_max.count = 0
 
 
 def all_gather(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:

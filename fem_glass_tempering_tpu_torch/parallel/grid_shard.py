@@ -24,10 +24,15 @@ torch.distributed group (parallel/comm.py) and writes them out:
 - the preconditioner is GridMG's V-cycle in its rank form
   (solver/grid_mg.py RankGridMG);
 - the material step is pointwise on the rank's rows (the CG-1 / CG-1
-  cross evaluation is the identity), K1 in its T-space chain.
+  cross evaluation is the identity), K1 in its T-space chain;
+- equilibrium mechanics (`mechanics="equilibrium"`) is JAX's grid
+  coupling over the padded grid in its rank form (models/mechanics.py
+  RankMechanicsCoupling): the elasticity CG on the rank's slab of the
+  vector operator, its dots summed over the ranks, preconditioned by
+  GridElastMG's rank form; `du` rides in the state on the rank's rows.
 
-The CG-1 route without mechanics is ported. DG-1 T (`_init_dg`), CG-2 T
-(`_init_q2`), equilibrium mechanics and the sharded writer / checkpoint
+The CG-1 route is ported, with and without mechanics. DG-1 T
+(`_init_dg`), CG-2 T (`_init_q2`) and the sharded writer / checkpoint
 (io/sharded.py) raise NotImplementedError, naming the slice of the port
 that brings them (ROADMAP.md Queue 1).
 """
@@ -44,6 +49,9 @@ from fem_glass_tempering_tpu_torch.config import RunConfig
 from fem_glass_tempering_tpu_torch.device import resolve_dtype
 from fem_glass_tempering_tpu_torch.fem.functionspace import FunctionSpace
 from fem_glass_tempering_tpu_torch.fem.mesh import Mesh
+from fem_glass_tempering_tpu_torch.models.mechanics import (
+    GridMechanicsCoupling,
+)
 from fem_glass_tempering_tpu_torch.models.viscoelastic import (
     TABLEAU_SIZE,
     ViscoelasticEngine,
@@ -71,11 +79,23 @@ def _waits_for(slice_: str, what: str) -> NotImplementedError:
 class GridShardedProblem:
     """Coupled thermo-viscoelastic tempering, this rank's share of a grid
     split along axis 0 over `device_mesh` (default: a group of one rank on
-    the GPU). Needs a uniform box mesh, CG-1 T and CG-1 sigma. Every rank
-    must call `step` / `run` / `solve` / `gather_state` together."""
+    the GPU). Needs a uniform box mesh, CG-1 T and CG-1 sigma.
+    `flux_marker(midpoints) -> bool mask` restricts the radiation +
+    convection flux to whole box faces, as `ThermoViscoProblem.setup`'s
+    does (the V-cycle's coarse levels keep the whole boundary's, as
+    there); JAX's class has no such option: it is here so that a sharded
+    run can be held to an unsharded one with that flux (chip_smoke.py
+    13d(c), phase 8b's plate). Every rank must call `step` / `run` / `solve` /
+    `gather_state` together. With mechanics, `last_mech_iters` holds the
+    elasticity CG count of each step of the last `step` / `run`,
+    `last_mech_converged` whether each met its tolerance (a step's
+    `converged` is its heat solve's, as in JAX), and
+    `last_mech_collectives` the collectives of each step's elasticity
+    solve."""
 
     def __init__(self, mesh: Mesh, config: RunConfig,
-                 device_mesh: DeviceMesh | None = None):
+                 device_mesh: DeviceMesh | None = None, *,
+                 flux_marker=None):
         fe = config.fe
         if fe.T_family == "DG" and fe.T_degree != 1:
             raise ValueError("GridShardedProblem supports DG degree 1")
@@ -91,8 +111,6 @@ class GridShardedProblem:
             raise _waits_for("7e", "DG-1 temperature (_init_dg)")
         if fe.T_degree == 2:
             raise _waits_for("7f", "CG-2 temperature (_init_q2)")
-        if config.mechanics == "equilibrium":
-            raise _waits_for("7d", 'mechanics="equilibrium"')
         if config.solver.preconditioner == "auto":
             # structured CG-1: 'auto' is the grid-native multigrid
             config = dataclasses.replace(config, solver=dataclasses.replace(
@@ -128,17 +146,18 @@ class GridShardedProblem:
         self._mixed = (config.solver.cg_dtype == "float32"
                        and self.dtype == torch.float64)
 
-        def heat_operator(dtype, fs=self.fs_T):
+        def heat_operator(dtype, fs=self.fs_T, marker=None):
             return HeatOperator(fs, self.params, self.dt, dtype=dtype,
-                                device=self.device, form=heat_form)
+                                device=self.device, form=heat_form,
+                                flux_marker=marker)
 
         # the padded grid: ghost planes up to a multiple of the ranks
         gx = mesh.structured["dims"][0] + 1
         P = self.n_devices
         self.pad0 = (-gx) % P
-        self.heat = heat_operator(self.dtype)
-        self.grid_op = GridHeatOperator(self.heat, pad_axis0=self.pad0,
-                                        tables=False)
+        self.heat = heat_operator(self.dtype, marker=flux_marker)
+        self.grid_op = GridHeatOperator(self.heat, flux_marker=flux_marker,
+                                        pad_axis0=self.pad0, tables=False)
         self.grid = self.grid_op.grid
         self._ngrid_base = self.grid_op.st.grid
         L = self.grid[0] // P
@@ -149,8 +168,8 @@ class GridShardedProblem:
         self.grid_op32 = self.slab32 = None
         if self._mixed:
             self.grid_op32 = GridHeatOperator(
-                heat_operator(torch.float32), pad_axis0=self.pad0,
-                tables=False)
+                heat_operator(torch.float32, marker=flux_marker),
+                flux_marker=flux_marker, pad_axis0=self.pad0, tables=False)
             self.slab32 = self.grid_op32.slab(*self.rows[self.comm.rank])
         self.setup_seconds["operator"] = _time.perf_counter() - t0
         t1 = _time.perf_counter()
@@ -170,7 +189,25 @@ class GridShardedProblem:
             self.grid_mg.freeze_rhos(self.dt)
             self.rank_mg = RankGridMG(self.grid_mg, self.comm, self.rows)
         self.setup_seconds["mg"] = _time.perf_counter() - t1
+        # equilibrium mechanics: JAX's tolerances (models/problem.py's):
+        # the elasticity CG to min(cg_rtol, 1e-8), at least 2e-6 in f32,
+        # where its residual norms bottom out; mech_inc_rtol None -> 1e-2
         self.mech = None
+        self.last_mech_iters: list[int] = []
+        self.last_mech_converged: list[bool] = []
+        self.last_mech_collectives: list[int] = []
+        if config.mechanics == "equilibrium":
+            t2 = _time.perf_counter()
+            mech_rtol = min(sc.cg_rtol, 1e-8)
+            if self.dtype == torch.float32:
+                mech_rtol = max(mech_rtol, 2e-6)
+            mech_inc = (1e-2 if sc.mech_inc_rtol is None
+                        else sc.mech_inc_rtol)
+            self.mech = GridMechanicsCoupling(
+                self.fs_sigma, self.engine, dtype=self.dtype,
+                cg_rtol=mech_rtol, inc_rtol=mech_inc, pad_axis0=self.pad0,
+                grid_shaped=True).rank_form(self.comm, self.rows)
+            self.setup_seconds["mechanics"] = _time.perf_counter() - t2
         self._build_step()
 
     # ---- layout ----------------------------------------------------------
@@ -242,6 +279,7 @@ class GridShardedProblem:
         op_main = self.slab
         op_fast = self.slab32 if mixed else self.slab
         rmg = self.rank_mg
+        mech_fn = self.mech
         # f32 residual norms cannot certify tighter than ~1e-6
         cg_rtol = max(sc.cg_rtol, 1e-6) if mixed else sc.cg_rtol
         # the residual noise floor is JAX's for a TPU's emulated f64: auto
@@ -254,10 +292,12 @@ class GridShardedProblem:
         def ext(T):
             return halo(T.reshape(shape))
 
-        def build_ops(lin_state, dt):
+        def build_ops(lin_state, dt, lag_mech=False):
             """The operator bundle at the chunk-start state (frozen there
             with jac_lag="step"; rebuilt per Newton iterate with
-            "newton"); under mixed precision the f32 twins'."""
+            "newton"); under mixed precision the f32 twins'. `lag_mech`
+            also freezes the elasticity V-cycle for a chunk of several
+            steps (the CG system stays each step's own)."""
             T_lin = lin_state.T
 
             def matvec_fn(T):
@@ -292,9 +332,11 @@ class GridShardedProblem:
                 # exists, else the production operator's
                 inc_diag = op_fast.jacobian_diag_r(ext(cast(T_lin)),
                                                    dt).reshape(-1)
+            mech_pre = (mech_fn.build_precond(lin_state)
+                        if (lag_mech and mech_fn is not None) else None)
             return dict(precond_fn=precond_fn, matvec_fn=matvec_fn,
                         diag_fn=diag_fn, noise_fn=noise_fn,
-                        inc_diag=inc_diag)
+                        inc_diag=inc_diag, mech_pre=mech_pre)
 
         def step(state: ViscoState, dt, ops=None):
             if ops is None:
@@ -309,9 +351,17 @@ class GridShardedProblem:
                 cg_rtol=cg_rtol, cg_atol=sc.cg_atol, cg_max_it=sc.cg_max_it,
                 cg_cast=f32 if mixed else None, inc_forcing=inc_forcing,
                 inc_diag=ops["inc_diag"], dot=self._dot)
+            mech_call = mech_fn
+            if ops["mech_pre"] is not None:
+                mech_call = (lambda st, xi, th, _p=ops["mech_pre"]:
+                             mech_fn(st, xi, th, precond=_p))
             # CG-1 / CG-1: the cross-space evaluation is the identity
             new_state = engine.material_step_with(
-                state, res.x, lambda name, arr: arr, dt)
+                state, res.x, lambda name, arr: arr, dt, mech=mech_call)
+            if mech_fn is not None:
+                self.last_mech_iters.append(int(mech_fn.last_cg_iters))
+                self.last_mech_converged.append(mech_fn.last_converged)
+                self.last_mech_collectives.append(mech_fn.last_collectives)
             # Newton's test reads global norms (the same on every rank);
             # finiteness is summed over the ranks
             bad = (~torch.isfinite(res.x)).any().to(self.dtype)
@@ -330,7 +380,7 @@ class GridShardedProblem:
                     ok, ni, ki = ok and conv, ni + it, ki + kit
                 return state, ok, ni, ki
             for c0 in range(0, n, jac_every):
-                ops = build_ops(state, dt)
+                ops = build_ops(state, dt, lag_mech=True)
                 for _ in range(min(jac_every, n - c0)):
                     state, conv, it, kit = step(state, dt, ops)
                     ok, ni, ki = ok and conv, ni + it, ki + kit
@@ -342,13 +392,19 @@ class GridShardedProblem:
     # ------------------------------------------------------------------
     def step(self, state: ViscoState):
         """One coupled step -> (state, converged, newton, cg)."""
+        self._clear_mech_counts()
         return self._step_fn(state, self.dt)
 
     def run(self, state: ViscoState, n_steps: int | None = None):
         """n steps (default config.time's), the operators rebuilt every
         jac_every steps -> (state, all converged, newton, cg)."""
         n = n_steps if n_steps is not None else self.n_steps
+        self._clear_mech_counts()
         return self._multi_step_fn(state, n, self.dt)
+
+    def _clear_mech_counts(self) -> None:
+        self.last_mech_iters, self.last_mech_converged = [], []
+        self.last_mech_collectives = []
 
     def solve(self, state: ViscoState | None = None, *,
               n_steps: int | None = None, progress: bool = False):
@@ -357,8 +413,8 @@ class GridShardedProblem:
         oc = self.config.output
         if (oc.write_every and oc.write_every > 0 and oc.formats) \
                 or oc.checkpoint_every:
-            raise _waits_for("7d", "the sharded writer and checkpoints "
-                             "(io/sharded.py)")
+            raise _waits_for("7d(ii)", "the sharded writer and "
+                             "checkpoints (io/sharded.py)")
         if state is None:
             state = self.init_state()
         n_total = n_steps if n_steps is not None else self.n_steps
@@ -376,7 +432,7 @@ class GridShardedProblem:
 
     def save_checkpoint(self, out_dir: str, state: ViscoState,
                         extra: dict | None = None) -> None:
-        raise _waits_for("7d", "sharded checkpoints (io/sharded.py)")
+        raise _waits_for("7d(ii)", "sharded checkpoints (io/sharded.py)")
 
     def load_checkpoint(self, out_dir: str) -> ViscoState:
-        raise _waits_for("7d", "sharded checkpoints (io/sharded.py)")
+        raise _waits_for("7d(ii)", "sharded checkpoints (io/sharded.py)")

@@ -1,6 +1,6 @@
 """Grid-shaped geometric V-cycles: the heat V-cycle of the grid-sharded
 step (GridMG, with its rank form RankGridMG) and the vector elasticity
-V-cycle (GridElastMG).
+V-cycle (GridElastMG, with its rank form RankGridElastMG).
 
 GridMG is the counterpart of `GridMG` in
 fem_glass_tempering_tpu/solver/grid_mg.py: the hierarchy of
@@ -44,7 +44,21 @@ displacement grid-shaped (*grid, d) end to end:
     diagonal, over [rho/4, rho] with rho a power-iteration estimate
     (lines) or a Gershgorin bound (points) computed at every build;
   - the transfers are the strided-slice lattice ops of GeometricMG with
-    the vector component riding along.
+    the vector component riding along;
+  - a fine grid with ghost planes along axis 0 (GridElasticityOperator's
+    `pad_axis0`) is smoothed whole, the ghosts pinned; the transfers drop
+    them (restriction) and give them a zero correction (prolongation),
+    and a padded coarsest level smooths, where an unpadded one would be
+    solved densely (JAX's rule).
+
+RankGridElastMG runs that cycle on one rank of the grid-sharded step, in
+RankGridMG's layout (the shared part is _RankLevels): a level's slab
+(ops/grid_elasticity.py GridElasticitySlab) gives its owned rows of the
+table, diagonal and line factors; its Gershgorin bound is a max over the
+ranks (exact), its power iteration sums each norm's squares over the
+ranks (the one place its bits part from the unsharded cycle's). A line
+smoother along axis 0 would cross the ranks: such a level runs
+replicated.
 
 Everything is plain PyTorch, as it is plain XLA in the JAX package. The
 small-block algebra is written as multiply + reduce and the 3x3 inverse as
@@ -250,14 +264,14 @@ class GridMG:
         return apply
 
 
-class RankGridMG:
-    """GridMG's V-cycle on one rank of a grid split along axis 0 (module
-    docstring), from `rows0`, the level-0 planes [lo, hi) of every rank in
-    rank order. `rows[i]` holds every rank's planes of level i,
-    `sharded[i]` whether level i runs on the ranks' slabs. Every rank must
-    apply it together."""
+class _RankLevels:
+    """The layout of a grid-shaped V-cycle's levels over the ranks of a
+    grid split along axis 0, and the transfers between two sharded levels
+    (module docstring). `rows[i]` holds every rank's planes of level i,
+    `sharded[i]` whether level i runs on the ranks' slabs; `mg` provides
+    `ops` (each with `.grid`), `axes`, `coarse_inv` and `phys0`."""
 
-    def __init__(self, mg: GridMG, device_mesh, rows0):
+    def __init__(self, mg, device_mesh, rows0):
         # imported here: the parallel package imports this module
         from fem_glass_tempering_tpu_torch.parallel import comm
         self._collectives = comm
@@ -279,15 +293,12 @@ class RankGridMG:
         on = True
         for i, rr in enumerate(rows):
             dense = mg.axes[i] is None and mg.coarse_inv is not None
-            on = on and not dense and all(hi - lo >= 2 for lo, hi in rr)
+            on = (on and not dense and self._shardable(i)
+                  and all(hi - lo >= 2 for lo, hi in rr))
             self.sharded.append(on)
-        self.slabs = []
-        for i, op in enumerate(mg.ops):
-            if self.sharded[i]:
-                self.slabs.append(op.slab(*rows[i][self.rank]))
-            else:
-                op.ensure_tables()
-                self.slabs.append(None)
+
+    def _shardable(self, i) -> bool:
+        return True
 
     def _halo(self, x):
         return self._collectives.halo_exchange(x, self.comm)
@@ -342,6 +353,48 @@ class RankGridMG:
             x = F.pad(x, (0, 0) * (x.dim() - 1) + (0, hi - b))
         return x
 
+    def _transfers(self):
+        """Per level i: down[i] (level i -> i + 1) and up[i] (level i + 1
+        -> its correction on level i) in the levels' layouts: a sharded
+        level's rows, a replicated level whole."""
+        mg = self.mg
+        down, up = [], []
+        for i in range(len(mg.ops) - 1):
+            if self.sharded[i + 1]:
+                down.append(lambda r, i=i: self._restrict_r(i, r))
+                up.append(lambda xc, i=i: self._prolong_r(i, xc))
+            elif self.sharded[i]:
+                down.append(lambda r, i=i: mg._restrict(i, self._gather(i, r)))
+                up.append(lambda xc, i=i: self._own(i, mg._prolong(i, xc)))
+            else:
+                down.append(lambda r, i=i: mg._restrict(i, r))
+                up.append(lambda xc, i=i: mg._prolong(i, xc))
+        return down, up
+
+    def _on_rows(self, cycle, shape):
+        """The cycle as an apply on this rank's level-0 rows (any shape of
+        `shape`'s values)."""
+        if self.sharded[0]:
+            return lambda r: cycle(r.reshape(shape)).reshape(r.shape)
+        return lambda r: self._own(0, cycle(self._gather(
+            0, r.reshape(shape)))).reshape(r.shape)
+
+
+class RankGridMG(_RankLevels):
+    """GridMG's V-cycle on one rank of a grid split along axis 0 (module
+    docstring), from `rows0`, the level-0 planes [lo, hi) of every rank in
+    rank order. Every rank must apply it together."""
+
+    def __init__(self, mg: GridMG, device_mesh, rows0):
+        super().__init__(mg, device_mesh, rows0)
+        self.slabs = []
+        for i, op in enumerate(mg.ops):
+            if self.sharded[i]:
+                self.slabs.append(op.slab(*self.rows[i][self.rank]))
+            else:
+                op.ensure_tables()
+                self.slabs.append(None)
+
     def _inject_r(self, i, x):
         lo, _ = self.rows[i][self.rank]
         clo, chi = self.rows[i + 1][self.rank]
@@ -387,24 +440,9 @@ class RankGridMG:
             else:
                 mv.append(mg.ops[i].make_matvec_g(T, dt))
                 dg.append(mg.ops[i].jacobian_diag_g(T, dt))
-        down, up = [], []
-        for i in range(len(mg.ops) - 1):
-            if self.sharded[i + 1]:
-                down.append(lambda r, i=i: self._restrict_r(i, r))
-                up.append(lambda xc, i=i: self._prolong_r(i, xc))
-            elif self.sharded[i]:
-                down.append(lambda r, i=i: mg._restrict(i, self._gather(i, r)))
-                up.append(lambda xc, i=i: self._own(i, mg._prolong(i, xc)))
-            else:
-                down.append(lambda r, i=i: mg._restrict(i, r))
-                up.append(lambda xc, i=i: mg._prolong(i, xc))
-        cycle = mg._vcycle(mv, dg, down, up)
+        cycle = mg._vcycle(mv, dg, *self._transfers())
         lo, hi = self.rows[0][self.rank]
-        shape = (hi - lo,) + mg.ops[0].grid[1:]
-        if self.sharded[0]:
-            return lambda r: cycle(r.reshape(shape)).reshape(r.shape)
-        return lambda r: self._own(0, cycle(self._gather(
-            0, r.reshape(shape)))).reshape(r.shape)
+        return self._on_rows(cycle, (hi - lo,) + mg.ops[0].grid[1:])
 
 
 class GridElastMG:
@@ -424,6 +462,10 @@ class GridElastMG:
         lengths = tuple(meta["lengths"])
         self.nu_pre, self.nu_post = nu_pre, nu_post
         self.coarse_iters = coarse_iters
+        # a padded fine grid (GridElasticityOperator's pad_axis0): the
+        # cycle smooths on it, the transfers act on the physical planes
+        self.pad0 = fine.pad0
+        self.phys0 = fine.base_grid[0]
         self.ops = [fine]
         self.axes: list[tuple | None] = []
         # with frozen moduli: stop at the first level whose component
@@ -447,7 +489,10 @@ class GridElastMG:
                                    if cdims[a] != dims[a]))
             dims = cdims
             self.ops.append(make_level_op(_build_level_mesh(meta, dims)))
-        self._dense_coarse = bool(dense_stop and n_comp(dims) <= dense_stop)
+        # no dense solve over a padded level (a one-level hierarchy of the
+        # sharded step's grid): it smooths there
+        self._dense_coarse = bool(dense_stop and n_comp(dims) <= dense_stop
+                                  and self.ops[-1].pad0 == 0)
         self._frozen_moduli = frozen_moduli
         # constant element tables per level (uniform cells):
         #   A[(l,a),(m,b)] = G*EG + K*EK with
@@ -507,7 +552,7 @@ class GridElastMG:
         op = self.ops[-1]
         EG, EK = self._np_EGK[-1]
         E = G0 * EG + K0 * EK                 # (l, a, m, b)
-        base = op.grid
+        base = op.base_grid
         d = op.d
         nn = int(np.prod(base))
         A = np.zeros((nn * d, nn * d))
@@ -531,8 +576,10 @@ class GridElastMG:
         A[pin, pin] = 1.0
         return A
 
-    # ---- transfers (vector trailing dim) ------------------------------
+    # ---- transfers (vector trailing dim; physical planes only) ---------
     def _restrict(self, i, rg):
+        if i == 0 and self.pad0:
+            rg = rg[:self.phys0]
         for a in self.axes[i]:
             rg = GeometricMG._restrict_axis(rg, a)
         return rg
@@ -540,6 +587,9 @@ class GridElastMG:
     def _prolong(self, i, xc):
         for a in self.axes[i]:
             xc = GeometricMG._prolong_axis(xc, a)
+        if i == 0 and self.pad0:
+            # zero correction on the ghost planes
+            xc = F.pad(xc, (0, 0) * (xc.dim() - 1) + (0, self.pad0))
         return xc
 
     @staticmethod
@@ -554,25 +604,30 @@ class GridElastMG:
 
     def _rho_bound(self, op, tbl, Gc, Kc):
         """Gershgorin bound on rho(D^{-1}A) from per-cell scalar
-        coefficients (the max over q): scattered abs-row-sums over the
-        scattered diagonal."""
+        coefficients (the max over q)."""
+        return torch.max(self._rho_ratio(op, tbl, Gc, Kc)) * 1.01
+
+    @staticmethod
+    def _rho_ratio(op, tbl, Gc, Kc):
+        """The Gershgorin row ratios (*grid, d): scattered abs-row-sums
+        over the scattered diagonal, 1 at the pinned components."""
         SG, SK, DG, DK = tbl
         num_cell = Gc[..., None, None] * SG + Kc[..., None, None] * SK
         den_cell = Gc[..., None, None] * DG + Kc[..., None, None] * DK
         num = op._scatter(num_cell, op.grid + (op.d,), Gc.dtype)
         den = op._scatter(den_cell, op.grid + (op.d,), Gc.dtype)
-        ratio = torch.where(
+        return torch.where(
             op.pin_mask_g, torch.ones_like(num),
             num / torch.where(den == 0, torch.ones_like(den), den))
-        return torch.max(ratio) * 1.01
 
     # ---- block-tridiagonal column smoother ---------------------------
-    def _column_blocks(self, i, Gc, Kc):
+    def _column_blocks(self, i, Gc, Kc, op=None):
         """The line matrix along the strongly coupled axis: Dg (*grid, d, d)
         nodal diagonal blocks and Ug (*grid, d, d), Ug[n] coupling node n
         to n + e_ax (zero at the last plane), from per-cell scalar
-        coefficients. Pinned components: identity rows, couplings cut."""
-        op = self.ops[i]
+        coefficients. Pinned components: identity rows, couplings cut.
+        `op`: level i's operator or a slab of it (default the level's)."""
+        op = self.ops[i] if op is None else op
         EG, EK = self._EGK[i]
         ax = self._col_axis[i]
         d = op.d
@@ -644,11 +699,11 @@ class GridElastMG:
 
     def _column_solver(self, i, Dg, Ug):
         """Batched block-Thomas factorisation of every line along the
-        level's column axis -> zsolve(r) over (*grid, d) tensors."""
-        op = self.ops[i]
+        level's column axis -> zsolve(r) over (*grid, d) tensors (the grid
+        of Dg: the level's, or a rank's rows of it)."""
         ax = self._col_axis[i]
-        d = op.d
-        grid = op.grid
+        d = Dg.shape[-1]
+        grid = tuple(Dg.shape[:-2])
         nsp = len(grid)
         nzc = grid[ax]
         ncol = int(np.prod(grid)) // nzc
@@ -686,17 +741,23 @@ class GridElastMG:
         return zsolve
 
     @staticmethod
-    def _power_rho(mv, zsolve, shape, dtype, device, iters=8):
+    def _power_rho(mv, zsolve, shape, dtype, device, iters=8, first=0,
+                   norm=None):
         """Power-iteration estimate of rho(Z^{-1}A) from the fixed start
-        sin(0.7 k) + 0.01 (no random generator), times 1.1."""
+        sin(0.7 k) + 0.01 (no random generator), times 1.1. `first`: the
+        flat index of the vector's first entry in the level's (a rank's
+        rows start past 0); `norm` the 2-norm (a rank's: its sum of
+        squares summed over the ranks)."""
+        if norm is None:
+            norm = lambda w: torch.linalg.norm(w.reshape(-1))  # noqa: E731
         n = int(np.prod(shape))
-        v = (torch.sin(torch.arange(n, dtype=dtype, device=device) * 0.7)
-             + 0.01).reshape(shape)
+        k = torch.arange(first, first + n, dtype=dtype, device=device)
+        v = (torch.sin(k * 0.7) + 0.01).reshape(shape)
         rho = torch.ones((), dtype=dtype, device=device)
         for _ in range(iters):
             w = zsolve(mv(v))
-            nw = torch.linalg.norm(w.reshape(-1))
-            rho = nw / torch.linalg.norm(v.reshape(-1))
+            nw = norm(w)
+            rho = nw / norm(v)
             v = w / nw
         return rho * 1.1
 
@@ -743,6 +804,17 @@ class GridElastMG:
                 Gq = Gc[..., None].expand(Gc.shape + (q,))
                 Kq = Kc[..., None].expand(Kc.shape + (q,))
 
+        down = [lambda r, i=i: self._restrict(i, r)
+                for i in range(n_levels - 1)]
+        up = [lambda xc, i=i: self._prolong(i, xc)
+              for i in range(n_levels - 1)]
+        return self._cycle(matvecs, zsolves, diags, rhos, down, up)
+
+    def _cycle(self, matvecs, zsolves, diags, rhos, down, up):
+        """The V-cycle apply over per-level actions, smoother data and
+        transfers `down[i]` (level i -> i + 1) / `up[i]` (level i + 1 -> its
+        correction on level i), in whatever layout each level's vectors
+        take (whole grids, or a rank's rows)."""
         def smooth(i, x, b, nu):
             # Chebyshev acceleration of the level smoother Z^{-1} (line
             # solve or point diagonal) over [rho/4, rho]. x None is the
@@ -785,12 +857,149 @@ class GridElastMG:
                 r = b - matvecs[i](x)
                 bs.append(b)
                 xs.append(x)
-                b = self._restrict(i, r)
+                b = down[i](r)
                 i += 1
             xc = coarse_solve(i, b)
             for i in reversed(range(len(xs))):
-                x = xs[i] + self._prolong(i, xc)
+                x = xs[i] + up[i](xc)
                 xc = smooth(i, x, bs[i], self.nu_post)
             return xc
 
         return cycle
+
+
+class RankGridElastMG(_RankLevels):
+    """GridElastMG's V-cycle on one rank of a grid split along axis 0, from
+    `rows0`, the fine level's planes [lo, hi) of every rank in rank order
+    (the layout of RankGridMG). A level where every rank holds two planes
+    or more runs on the ranks' slabs (ops/grid_elasticity.py
+    GridElasticitySlab): its table, diagonal and line factors are the
+    whole level's rows, its Gershgorin bound a max over the ranks, and its
+    power iteration the whole level's start vector with each norm's sum of
+    squares summed over the ranks. A level whose line smoother runs along
+    axis 0, the levels below it and the dense solve run replicated, as in
+    RankGridMG. The cell coefficients of the coarser levels are averaged
+    down the whole hierarchy on every rank from the fine level's cell
+    means, gathered once a build (one value a cell and modulus). Every
+    level's action is its block table (the cycle's `use_tables`; the cell
+    recompute has no rank form). Every rank must build and apply it
+    together."""
+
+    def __init__(self, mg: GridElastMG, device_mesh, rows0):
+        if not mg.use_tables:
+            raise ValueError("the rank form needs the block tables "
+                             "(use_tables=True)")
+        super().__init__(mg, device_mesh, rows0)
+        self.slabs = [op.slab(*self.rows[i][self.rank]) if self.sharded[i]
+                      else None for i, op in enumerate(mg.ops)]
+
+    def _shardable(self, i) -> bool:
+        # a line solve along axis 0 would run across the ranks
+        return self.mg._col_axis[i] != 0
+
+    def _cells(self, i):
+        """Level i's cells along axis 0 on this rank: (window, owned), as
+        ops/grid_elasticity.py slab_cells."""
+        from fem_glass_tempering_tpu_torch.ops.grid_elasticity import (
+            slab_cells,
+        )
+        lo, hi = self.rows[i][self.rank]
+        return slab_cells(lo, hi, self.mg.ops[i].dims[0])
+
+    def _gather_cells(self, i, x_window):
+        """A cell field over this rank's window cells of level i -> the
+        whole level's, on every rank (each cell from its one owner)."""
+        (c0, _), (a, b) = self._cells(i)
+        return self._collectives.gather_rows(
+            x_window[a - c0:b - c0], slice(a, b), self.mg.ops[i].dims[0],
+            self.comm)
+
+    def _dot(self, u, v):
+        return self._collectives.all_reduce_sum(
+            torch.dot(u.reshape(-1), v.reshape(-1)), self.comm)
+
+    def preconditioner(self, G_q, K_q, fine_table=None):
+        """The apply r -> ~A^{-1} r on this rank's fine rows ((L, *grid[1:],
+        d) values, any shape) at the coefficient fields G_q / K_q over the
+        fine slab's window cells ((c1 - c0, *dims[1:], q), from the halo).
+        `fine_table` shares the fine slab's table of the owned rows."""
+        mg, comm = self.mg, self._collectives
+        n_levels = len(mg.ops)
+        # the whole fine level's cell coefficients: the means for the
+        # hierarchy below, the quadrature values where it is replicated
+        if self.sharded[0]:
+            Gcw, Kcw = torch.mean(G_q, dim=-1), torch.mean(K_q, dim=-1)
+            Gq = Kq = None
+            if n_levels > 1:
+                Gcell, Kcell = (self._gather_cells(0, Gcw),
+                                self._gather_cells(0, Kcw))
+        else:
+            Gq, Kq = self._gather_cells(0, G_q), self._gather_cells(0, K_q)
+            Gcell, Kcell = torch.mean(Gq, dim=-1), torch.mean(Kq, dim=-1)
+        matvecs, diags, rhos, zsolves = [], [], [], []
+        for i, op in enumerate(mg.ops):
+            slab = self.slabs[i]
+            dense = i == n_levels - 1 and mg.coarse_inv is not None
+            if slab is None:
+                # replicated: the unsharded cycle's level
+                tbl = op.stencil_table_g(Gq, Kq)
+                mv = (lambda op, tbl: lambda v: op.matvec_table_g(
+                    tbl, v))(op, tbl)
+                zs = dg = rho = None
+                if dense:
+                    pass
+                elif mg._smoothers[i] == "column":
+                    Dg, Ug = mg._column_blocks(i, Gcell, Kcell)
+                    zs = mg._column_solver(i, Dg, Ug)
+                    rho = mg._power_rho(mv, zs, op.grid + (op.d,),
+                                        Gcell.dtype, Gcell.device)
+                else:
+                    dg = op.jacobian_diag_g(Gq, Kq)
+                    rho = mg._rho_bound(op, mg._tables[i],
+                                        torch.amax(Gq, dim=-1),
+                                        torch.amax(Kq, dim=-1))
+            else:
+                (c0, c1), _ = self._cells(i)
+                if i == 0:
+                    Gw, Kw, Gcs, Kcs = G_q, K_q, Gcw, Kcw
+                else:
+                    Gw, Kw = Gq[c0:c1], Kq[c0:c1]
+                    Gcs, Kcs = Gcell[c0:c1], Kcell[c0:c1]
+                tbl = (fine_table if i == 0 and fine_table is not None
+                       else slab.stencil_table_r(Gw, Kw))
+                mv = (lambda slab, tbl: lambda v: slab.matvec_table_r(
+                    tbl, self._halo(v)))(slab, tbl)
+                zs = dg = rho = None
+                if dense:
+                    pass
+                elif mg._smoothers[i] == "column":
+                    Dg, Ug = mg._column_blocks(i, Gcs, Kcs, op=slab)
+                    zs = mg._column_solver(i, Dg[1:-1], Ug[1:-1])
+                    shape = slab.slab_grid + (op.d,)
+                    lo = self.rows[i][self.rank][0]
+                    rho = mg._power_rho(
+                        mv, zs, shape, Gcs.dtype, Gcs.device,
+                        first=lo * int(np.prod(shape[1:])),
+                        norm=lambda w: torch.sqrt(self._dot(w, w)))
+                else:
+                    dg = slab.jacobian_diag_r(Gw, Kw)
+                    ratio = mg._rho_ratio(slab, mg._tables[i],
+                                          torch.amax(Gw, dim=-1),
+                                          torch.amax(Kw, dim=-1))
+                    rho = comm.all_reduce_max(
+                        torch.max(ratio[1:-1]), self.comm) * 1.01
+            matvecs.append(mv)
+            zsolves.append(zs)
+            diags.append(dg)
+            rhos.append(rho)
+            if mg.axes[i] is not None:
+                Gc = mg._coarsen_cells(Gcell, mg.axes[i])
+                Kc = mg._coarsen_cells(Kcell, mg.axes[i])
+                q = mg.ops[i + 1].qw1.shape[0]
+                Gq = Gc[..., None].expand(Gc.shape + (q,))
+                Kq = Kc[..., None].expand(Kc.shape + (q,))
+                Gcell, Kcell = torch.mean(Gq, dim=-1), torch.mean(Kq, dim=-1)
+        cycle = mg._cycle(matvecs, zsolves, diags, rhos, *self._transfers())
+        lo, hi = self.rows[0][self.rank]
+        return self._on_rows(cycle, (hi - lo,) + mg.ops[0].grid[1:]
+                             + (mg.ops[0].d,))

@@ -647,6 +647,40 @@ def test_dd_two_gloo_ranks_on_one_card(cuda):
                                    atol=1e-11, err_msg=f)
 
 
+def test_grid_shard_mechanics_two_gloo_ranks_on_one_card(cuda):
+    """GridShardedProblem with equilibrium mechanics over two gloo ranks
+    on one card: the 8x6x4 plate of tests/test_grid_elasticity.py:75-111
+    (2 steps) held to the unsharded ThermoViscoProblem on the card (T, Tf
+    rtol 1e-10; sigma, total strain and du within 1e-6 of their max; heat
+    counts equal), the ranks in lockstep; GridElastMG's rank form with
+    the point smoother bit-equal to the unsharded cycle on the card."""
+    import torch_grid_shard_mech_ranks as M
+    from fem_glass_tempering_tpu_torch.models.problem import (
+        ThermoViscoProblem,
+    )
+    from fem_glass_tempering_tpu_torch.parallel.comm import run_ranks
+
+    res = run_ranks(M.card_body, 2, "cuda:0", backend="gloo", timeout=600)
+    dims, cfg, _ = M.CASES["plate"]
+    prob = ThermoViscoProblem(mesh=M.R.plate(dims), config=cfg(),
+                              device=cuda)
+    prob.setup()
+    st = prob.solve()
+    for r in res:
+        got = r["plate"]
+        assert got["ok"] and (got["newton"], got["cg"]) == (
+            prob.diagnostics.newton_iters, prob.diagnostics.krylov_iters)
+        for f in M.STEP_FIELDS:
+            assert np.array_equal(got[f], res[0]["plate"][f])
+            ref = getattr(st, f).cpu().numpy()
+            if f in ("T", "Tf"):
+                np.testing.assert_allclose(got[f], ref, rtol=1e-10, atol=0)
+            else:
+                assert np.abs(got[f] - ref).max() <= 1e-6 * np.abs(ref).max()
+        assert np.array_equal(r["mg_point"]["x"],
+                              res[0]["mg_point"]["unsharded"])
+
+
 def test_grid_shard_two_gloo_ranks_on_one_card(cuda):
     """GridShardedProblem over two gloo ranks on one card: the 12x6x4
     plate of tests/test_grid_mg.py (3 steps) held to the unsharded

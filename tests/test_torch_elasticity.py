@@ -280,12 +280,6 @@ def test_patch_linear_displacement():
     np.testing.assert_allclose(eps, np.broadcast_to(e, eps.shape), atol=1e-8)
 
 
-def test_padded_grid_waits_for_slice7():
-    ts, _, _ = _spaces("plate3d")
-    with pytest.raises(NotImplementedError, match="Slice 7"):
-        GridElasticityOperator(ts, dtype=F64, pad_axis0=2, device="cpu")
-
-
 def test_grid_operator_refuses_what_it_cannot_take():
     mesh = tmesh.box_mesh_3d(2, 2, 2)
     with pytest.raises(ValueError, match="CG-1"):

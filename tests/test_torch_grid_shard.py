@@ -373,9 +373,8 @@ def test_dryrun_gspmd_grid_counts_equal_jax(main, jax_side):
 # ---- what the slice leaves to later ones ---------------------------------
 @pytest.mark.parametrize("fe,mechanics,slice_", [
     (dict(T_family="DG", T_degree=1), "none", "7e"),
-    (dict(T_family="CG", T_degree=2), "none", "7f"),
-    (dict(T_family="CG", T_degree=1), "equilibrium", "7d")],
-    ids=["dg1", "cg2", "mechanics"])
+    (dict(T_family="CG", T_degree=2), "none", "7f")],
+    ids=["dg1", "cg2"])
 def test_unported_routes_raise(fe, mechanics, slice_):
     cfg = RunConfig(fe=FEConfig(**fe), mechanics=mechanics)
     with pytest.raises(NotImplementedError, match=f"Slice {slice_}"):

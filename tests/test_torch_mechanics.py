@@ -260,12 +260,6 @@ def test_increment_tolerance_cuts_iterations_bounded_error():
     assert err <= 1e-2 * float(eps_t.abs().max())
 
 
-def test_sharded_layout_waits_for_slice7():
-    eng, fs_S, _ = _coupling_inputs()
-    with pytest.raises(NotImplementedError, match="Slice 7"):
-        GridMechanicsCoupling(fs_S, eng, dtype=F64, grid_shaped=True)
-
-
 def test_mechanics_tolerances_follow_the_jax_rules():
     """mech_rtol = min(cg_rtol, 1e-8), at least 2e-6 in f32;
     mech_inc_rtol None -> 1e-2; at least 2000 iterations."""
