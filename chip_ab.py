@@ -41,7 +41,9 @@ on the card), with its seconds; `phase13d` phase 13d alone (the
 grid-sharded CG-1 step: the small cases, the 1M-dof plate and the
 coupled mechanics plate over one NCCL rank and two gloo ranks, K2's halo
 form checked and timed), after phase 8b, whose state 13d(c) is held to,
-then side phase 13d64 (the dry run's mechanics config in f64).
+then side phase 13d64 (the dry run's mechanics config in f64);
+`phase13e` side phase 13e alone (the multi-process entry under torchrun,
+two gloo ranks on the card, against the unsharded run).
 `dryrunmech` runs phase 13d's dry-run mechanics config (12x6x4, 2 steps)
 over one rank and over two gloo ranks, in f32 and in f64, on the CPU and
 on the card, with every elasticity CG logged (the copy of solver/krylov.py
@@ -386,7 +388,7 @@ def main() -> int:
     ap.add_argument("what", choices=("kernels", "phase5", "phase6",
                                      "phase8b", "phase9", "phase10",
                                      "phase11", "phase12", "phase13",
-                                     "phase13d", "dgparity",
+                                     "phase13d", "phase13e", "dgparity",
                                      "dryrunmech"))
     ap.add_argument("--source-flags", default="", metavar="SRC:FLAG[,FLAG]",
                     help="replace one source's nvcc flags (empty FLAG: none)")
@@ -491,6 +493,8 @@ def main() -> int:
         res.update(cs.grid_shard_phase(dev, port, mech_ref))
         res["phase13d_s"] = time.perf_counter() - t0
         res["13d64"] = cs.dryrun64_phase(dev, port)
+    elif args.what == "phase13e":
+        res = cs.multihost_phase(dev)
     elif args.what == "phase8b":
         full = cs.mechanics_plate_phase(dev, port)
         full.pop("reference")

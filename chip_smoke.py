@@ -169,7 +169,12 @@ Phases (each raises on failure; the exit code is then nonzero):
      form (exact: no full-grid K2 on the sharded levels), halo exchanges
      an iteration; K2's halo form bit-equal to its twin and to the
      full-grid kernel's rows on the two-rank slabs of the plate's fine
-     level, timed on the first (81 x 6,601 points). With equilibrium
+     level, timed on the first (81 x 6,601 points); after the plate's
+     timed window, on each rank, its output (grid_shard_io): solve() of
+     2 steps with a snapshot a step and a checkpoint at step 2, the
+     series' last snapshot equal to gather_state and save ->
+     load_checkpoint -> run(1) equal to run(1) from the state, bit for
+     bit, K1 and K2's launches held, s and MB a rank. With equilibrium
      mechanics (the elasticity CG on each rank's slab of the vector
      operator, GridElastMG's rank form; every elasticity CG must meet
      its tolerance): (a) also the dry run's "gspmd-mechanics" config in
@@ -188,7 +193,12 @@ Phases (each raises on failure; the exit code is then nonzero):
      1e-4 on the centre column and 1e-3 in the 2-norm): ms a step,
      counts, collectives an elasticity-CG iteration, setup seconds by
      part, peak memory per rank, K2's halo launches exact and K1 none
-     (the trapezoid xi).
+     (the trapezoid xi); (e, a side phase) the multi-process entry:
+     `python -m torch.distributed.run --standalone --nproc-per-node 2
+     chip_smoke.py --multihost-rank OUT`, two gloo ranks on cuda:0
+     through multihost.initialize, JAX's tests/test_multihost.py plate
+     (12x6x3, f64, 2 steps) within 1e-11 of the unsharded run on the
+     card, K1 and K2's launches held on rank 0.
 Phase 2 also holds K3 at every degree-2 cell shape (nloc 3, 6, 9, 10, 27)
 on the port's HeatOperator tables, f64 and f32, all in the element form,
 and times nloc 27 (uniform f32 and f64, 65,536 cells) and nloc 10
@@ -197,8 +207,8 @@ given the prepared tables, and the quadrature form's) and against one
 PyTorch call on the baked matrices (torch.addmm / torch.baddbmm), with
 the bake's seconds and bytes.
 Every main path (4, 5, 6, 7b f64, 7b mixed, 8b, 9b, 10b, 10c, 11a, 11b,
-12a's two arms, 12b, 12d's two runs, each run of 13, 13d and 13d64 on
-every rank) runs
+12a's two arms, 12b, 12d's two runs, each run of 13, 13d (13d(b)'s
+output included) and 13d64 on every rank, 13e's on rank 0) runs
 with the launch counters set to 0 just before it and read just after; K2
 also counts its launches per table dtype (an instantiation each), and its
 halo form its own (`stencil_matvec_halo.launches`). A line
@@ -209,7 +219,7 @@ and last {"ok": true, "device": {...}}.
 
 Phases whose times feed no kernel's `ms` (dispatch-bound runs on tiny
 meshes, the GPU-against-CPU runs, the command line, the native runtime,
-phases 13 and 13d64) run in SIDE_GROUPS: three processes of their own
+phases 13, 13d64 and 13e) run in SIDE_GROUPS: three processes of their own
 on the same card, started after phase 4, beside this process's plates of phases 6,
 7b, 8b, 10b and 10c, and joined before phase 9b. Their lines carry a
 "[side ...]" prefix, their launch counters are their own, and their
@@ -4098,6 +4108,8 @@ GS_DRYRUN64_BANDS = {"one": (1e-10, 1e-4, (2, 0.02)),
 GS_MECH_BANDS = {"8b": (1e-5, 1e-4, 5e-3), "one": (1e-6, 1e-4, 1e-3)}
 GS_PLATE_STEPS = 2              # timed, after one warm-up step
 GS_RANKS = 2
+# 13d(b)'s output: solve() of 2 steps, a snapshot each, a checkpoint at 2
+GS_IO_STEPS = 2
 
 
 def gs_small_config(tc):
@@ -4250,10 +4262,12 @@ def grid_shard_run(dev, port, mesh_dev, name, steps, warmup=0,
 GS_FIELDS = ("T", "Tf", "sigma")
 
 
-def grid_shard_rank(mesh_dev, go) -> dict:
+def grid_shard_rank(mesh_dev, go, io_root) -> dict:
     """Phase 13d on one of the two gloo ranks: (a) the 12x6x4 plate and the
-    dry-run config, (b) the 160x160x40 plate, (c) the coupled plate; rank
-    0 creates the file `go`/<case> when a plate's timed window is over."""
+    dry-run config, (b) the 160x160x40 plate and its output
+    (grid_shard_io, in `io_root`/two), (c) the coupled plate; rank 0
+    creates the file `go`/<case> when a plate's timed window (and (b)'s
+    output) is over."""
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, port = mesh_dev.device, rank_port()
     t0 = time.perf_counter()
@@ -4271,17 +4285,25 @@ def grid_shard_rank(mesh_dev, go) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
-        out[name] = to_host(grid_shard_run(
-            dev, port, mesh_dev, name, steps, warmup=1,
+        res = grid_shard_run(
+            dev, port, mesh_dev, name, steps, warmup=1, keep=True,
             before=None if ready is None else lambda r=ready: wait_for(
                 go, r, "the one rank's set-up"),
-            after=lambda name=name: done(name)))
+            after=None if name == "plate" else lambda n=name: done(n))
+        gs, st = res.pop("problem"), res.pop("state")
+        if name == "plate":
+            # the output before the one rank's timed window
+            res["io"] = grid_shard_io(gs, st, port,
+                                      os.path.join(io_root, "two"))
+            done(name)
+        del gs, st
+        out[name] = to_host(res)
         out[f"{name}_s"] = time.perf_counter() - t1
     out["s"] = time.perf_counter() - t0
     return out
 
 
-def grid_shard_one(mesh_dev, go) -> dict:
+def grid_shard_one(mesh_dev, go, io_root) -> dict:
     """Phase 13d over one NCCL rank, in a process of its own that sets up
     while the two gloo ranks do: (a) the dry run's mechanics config in f32
     (JAX's; its f64 twin, which the two gloo ranks run, is phase 13d64:
@@ -4290,7 +4312,8 @@ def grid_shard_one(mesh_dev, go) -> dict:
     `go`/<case>), so the two never share the card; in (c) the two ranks
     also wait to time until this rank is set up and warm (the file
     `go`/mech_plate_ready, written however this process ends). After (b),
-    K2's halo form on the plate's tables."""
+    K2's halo form on the plate's tables and the plate's output
+    (grid_shard_io, in `io_root`/one)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, port = mesh_dev.device, rank_port()
     ready = os.path.join(go, "mech_plate_ready")
@@ -4302,9 +4325,11 @@ def grid_shard_one(mesh_dev, go) -> dict:
         one = grid_shard_run(dev, port, mesh_dev, "plate", GS_PLATE_STEPS,
                              warmup=1, keep=True,
                              before=lambda: wait("plate"))
-        k2h = k2_halo_check(one.pop("problem"), one.pop("state"), port)
+        gs, st = one.pop("problem"), one.pop("state")
+        k2h = k2_halo_check(gs, st, port)
+        one["io"] = grid_shard_io(gs, st, port, os.path.join(io_root, "one"))
         out = dict(plate=to_host(one), k2_halo=k2h, dryrun_mech=dryrun_mech)
-        del one
+        del one, gs, st
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -4326,6 +4351,116 @@ def wait_for(go, name, what) -> None:
         if time.perf_counter() - t0 > 500:
             fail(f"13d {name}: {what} never ended")
         time.sleep(0.05)
+
+
+def dir_mb(path: str, suffix: str = "") -> float:
+    """MB (1e6 bytes) of the files in `path` whose names end with
+    `suffix`."""
+    return sum(os.path.getsize(os.path.join(path, n))
+               for n in os.listdir(path) if n.endswith(suffix)) / 1e6
+
+
+def grid_shard_io(gs, st, port, work) -> dict:
+    """13d(b)'s output on this rank's planes of the plate, after the timed
+    window: solve() of GS_IO_STEPS steps from the initial state with a
+    snapshot (npz_fields' default) every step and a checkpoint every 2
+    steps into `work`, whose last snapshot must equal gather_state bit for
+    bit; then save_checkpoint -> load_checkpoint -> run(1) must equal
+    run(1) from the in-memory state, every field bit for bit. K1 and K2's
+    launches are counted and held (one K1 a step; K2's halo form 31 a
+    Newton or CG iteration) over the solve and over each run(1). Seconds
+    and MB a rank of one more snapshot, of the save and of the load;
+    `work` removed at the end (every rank's files: rank 0, after a
+    sync)."""
+    from fem_glass_tempering_tpu_torch.config import OutputConfig
+    from fem_glass_tempering_tpu_torch.io.sharded import (
+        ShardedSeriesWriter,
+        read_sharded_series,
+    )
+    from fem_glass_tempering_tpu_torch.models.viscoelastic import ViscoState
+    rank, tag = gs.comm.rank, f"13d(b) output, rank {gs.comm.rank}"
+    per = k2_forms_per_apply(gs)
+    oc = OutputConfig(output_dir=work, write_every=1, formats=("npz",),
+                      checkpoint_every=2)
+    gs.config = dataclasses.replace(gs.config, output=oc)
+
+    def counted(fn, steps):
+        torch.cuda.synchronize()
+        reset_counts(port)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        got = dict(material_tspace=port["material_tspace"].launches,
+                   stencil_matvec_halo=port["stencil_matvec_halo"].launches)
+        ni, ki = ((gs.newton_iters, gs.krylov_iters)
+                  if isinstance(res, ViscoState) else res[2:])
+        want = dict(material_tspace=steps,
+                    stencil_matvec_halo=per["halo"] * (ni + ki))
+        if got != want or port["stencil_matvec"].launches:
+            fail(f"{tag}: launches {got}, expected {want}")
+        return res, s, got
+    st_solve, solve_s, solve_launches = counted(
+        lambda: gs.solve(gs.init_state(), n_steps=GS_IO_STEPS), GS_IO_STEPS)
+    series = read_sharded_series(os.path.join(work, "sharded_series"))
+    flat = gs.gather_state(st_solve)
+    fields = [f for f in oc.npz_fields if f in ViscoState._fields]
+    if series["T"].shape[0] != GS_IO_STEPS or not all(
+            np.array_equal(series[f][-1], getattr(flat, f).numpy())
+            for f in fields):
+        fail(f"{tag}: the series' last snapshot is not gather_state's")
+    ckpt2 = os.path.join(work, f"sharded_ckpt_{GS_IO_STEPS:06d}")
+    if not os.path.exists(os.path.join(ckpt2, "meta.json")):
+        fail(f"{tag}: solve() wrote no checkpoint at step {GS_IO_STEPS}")
+    del series, flat, st_solve
+    snap = os.path.join(work, "snapshot")
+    w = ShardedSeriesWriter(snap, fields=tuple(fields), grid=gs.grid,
+                            pad0=gs.pad0, rank=rank,
+                            world_size=gs.n_devices)
+    t0 = time.perf_counter()
+    w.write(0.0, st)
+    snapshot_s = time.perf_counter() - t0
+    ck = os.path.join(work, "ckpt")
+    t0 = time.perf_counter()
+    gs.save_checkpoint(ck, st)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = gs.load_checkpoint(ck)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if not all(bits_equal(getattr(loaded, f), getattr(st, f))
+               for f in ViscoState._fields):
+        fail(f"{tag}: the loaded state is not the saved one")
+    (a, ok_a, ni_a, ki_a), _, resumed_launches = counted(
+        lambda: gs.run(loaded, 1), 1)
+    del loaded
+    (b, ok_b, ni_b, ki_b), _, _ = counted(lambda: gs.run(st, 1), 1)
+    if not (ok_a and ok_b and (ni_a, ki_a) == (ni_b, ki_b) and all(
+            bits_equal(getattr(a, f), getattr(b, f))
+            for f in ViscoState._fields)):
+        fail(f"{tag}: run(1) from the loaded checkpoint is not run(1) from "
+             f"the state ({ni_a} / {ki_a} against {ni_b} / {ki_b})")
+    del a, b
+    out = dict(solve_s=solve_s, solve_newton=gs.newton_iters,
+               solve_cg=gs.krylov_iters,
+               solve_newton_per_step=gs.newton_iters / GS_IO_STEPS,
+               solve_cg_per_step=gs.krylov_iters / GS_IO_STEPS,
+               solve_launches=solve_launches,
+               resumed_launches=resumed_launches,
+               resumed_newton_cg=[ni_a, ki_a],
+               snapshot_fields=fields, snapshot_s=snapshot_s,
+               ckpt_save_s=save_s, ckpt_load_s=load_s,
+               series_bit_equal=True, resume_bit_equal=True)
+    mine = f"_o{gs.rows[rank][0]:06d}.npz"      # this rank's pieces
+    gs._sync()          # every rank's files are written: count them
+    out.update(snapshot_mb_rank=dir_mb(snap, mine),
+               ckpt_mb_rank=dir_mb(ck, mine),
+               ckpt_mb_all_ranks=dir_mb(ck))
+    gs._sync()          # every rank has read the directories
+    if rank == 0:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"{tag}: " + json.dumps(out))
+    return out
 
 
 def k2_halo_check(gs, st, port) -> dict:
@@ -4382,7 +4517,7 @@ def k2_halo_check(gs, st, port) -> dict:
     return out
 
 
-def grid_shard_phase(dev, port, mech_ref) -> dict:
+def grid_shard_phase(dev, port, mech_ref, scratch_dir=None) -> dict:
     """Phase 13d: GridShardedProblem on the card. Three processes start at
     once: the 160x160x40 plate and then the coupled plate over one NCCL
     rank, and every case over two gloo ranks; they set up together, and
@@ -4390,15 +4525,21 @@ def grid_shard_phase(dev, port, mech_ref) -> dict:
     Meanwhile this process runs the 12x6x4 plate and the dry-run
     mechanics config unsharded (the ranks' references). `mech_ref`: phase
     8b's reference (its out["reference"]), which 13d(c)'s one rank is
-    held to."""
+    held to. 13d(b)'s output goes to a new directory under `scratch_dir`
+    (default build/chip_smoke/ of this checkout), removed at the end."""
     from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
     from fem_glass_tempering_tpu_torch.parallel.comm import run_ranks
     t_phase = time.perf_counter()
     go = tempfile.mkdtemp(prefix="fgt_13d_")
+    if scratch_dir is None:
+        scratch_dir = os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "build", "chip_smoke")
+    os.makedirs(scratch_dir, exist_ok=True)
+    io_root = tempfile.mkdtemp(prefix="io_13d_", dir=scratch_dir)
     with ThreadPoolExecutor(2) as ex:
         job_two = ex.submit(run_ranks, grid_shard_rank, GS_RANKS, dev, go,
-                            backend="gloo", timeout=600)
-        job_one = ex.submit(run_ranks, grid_shard_one, 1, dev, go,
+                            io_root, backend="gloo", timeout=600)
+        job_one = ex.submit(run_ranks, grid_shard_one, 1, dev, go, io_root,
                             backend="nccl", timeout=600)
         unsharded = {}
         for name, steps in (("small", GS_SMALL_STEPS),
@@ -4424,6 +4565,7 @@ def grid_shard_phase(dev, port, mech_ref) -> dict:
                 open(os.path.join(go, name), "a").close()
         res_one = job_one.result()[0]
     shutil.rmtree(go, ignore_errors=True)
+    shutil.rmtree(io_root, ignore_errors=True)
     one, k2h = res_one["plate"], res_one["k2_halo"]
     processes_s = time.perf_counter() - t_phase
 
@@ -4479,6 +4621,13 @@ def grid_shard_phase(dev, port, mech_ref) -> dict:
             abs(two["cg"] - one["cg"]) > 0.02 * one["cg"] or not rel <= 1e-6:
         fail(f"13d plate: two ranks {two['newton']} / {two['cg']} against "
              f"one's {one['newton']} / {one['cg']}, T max-rel {rel:.3e}")
+    io_two = [r["plate"]["io"] for r in ranks]
+    if [x["resumed_newton_cg"] for x in io_two] != [
+            io_two[0]["resumed_newton_cg"]] * GS_RANKS or \
+            io_two[0]["solve_newton"] != one["io"]["solve_newton"]:
+        fail(f"13d(b) output: the runs disagree (one rank "
+             f"{one['io']['solve_newton']} Newton, two ranks "
+             f"{[x['solve_newton'] for x in io_two]})")
     from fem_glass_tempering_tpu_torch.config import ModelParams
     mp, T1 = ModelParams(), one["T"]
     if not (np.isfinite(T1).all() and mp.T_ambient - 1 < T1.min()
@@ -4521,7 +4670,8 @@ def grid_shard_phase(dev, port, mech_ref) -> dict:
                dryrun_mech_T_max_rel=max_rel(dm["T"], um["T"]),
                dryrun_mech_sigma_max=sigma_max),
         b=dict(world_size_1=summary(one),
-               ranks=[summary(r["plate"]) for r in ranks], T_max_rel=rel),
+               ranks=[summary(r["plate"]) for r in ranks], T_max_rel=rel,
+               io=dict(world_size_1=one["io"], ranks=io_two)),
         c=dict(world_size_1=summary(one_c),
                ranks=[summary(r["mech_plate"]) for r in ranks],
                against_8b=against_8b, two_against_one=against_one),
@@ -4639,6 +4789,118 @@ def mech_plate_against(got: dict, ref: dict) -> dict:
         sigma_bit_equal=bool(np.array_equal(got["sigma"], ref["sigma"])))
 
 
+# ----------------------------------------------------------------------
+# phase 13e: the multi-process entry (parallel/multihost.py) under
+# torchrun, two gloo ranks on cuda:0 (NCCL refuses two ranks on one card)
+MH_PLATE = (12, 6, 3, 1.0, 1.0, 0.01)
+MH_STEPS = 2
+
+
+def multihost_config(tc):
+    """JAX's tests/test_multihost.py config: f64, the default solver on the
+    stencil operator, no output."""
+    return tc.RunConfig(fe=tc.FEConfig(T_family="CG", T_degree=1),
+                        time=tc.TimeConfig(0.0, MH_STEPS * 0.1, 0.1),
+                        solver=tc.SolverConfig(linear_operator="stencil"),
+                        output=tc.OutputConfig(write_every=0, formats=()))
+
+
+def multihost_rank(out_path: str) -> int:
+    """Phase 13e's rank, started by torchrun: multihost.initialize (gloo,
+    cuda:0), make_multihost_problem on the 12x6x3 plate, MH_STEPS steps
+    with K1 and K2's launches counted, gather_to_host; rank 0 saves T
+    (ghost planes dropped), the counts and the launches to `out_path`."""
+    from fem_glass_tempering_tpu_torch import config as tc
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+    from fem_glass_tempering_tpu_torch.parallel import multihost
+    setup_device()
+    port = rank_port()
+    mesh_dev = multihost.initialize(backend="gloo", local_device_ids=[0])
+    try:
+        sp = multihost.make_multihost_problem(box_mesh_3d(*MH_PLATE),
+                                              multihost_config(tc))
+        state0 = sp.init_state()
+        torch.cuda.synchronize()
+        reset_counts(port)
+        st, ok, ni, ki = sp.run(state0, MH_STEPS)
+        torch.cuda.synchronize()
+        launches = dict(read_counts(port), stencil_matvec_halo=port[
+            "stencil_matvec_halo"].launches)
+        g = multihost.gather_to_host(st)
+        if mesh_dev.rank == 0:
+            np.savez(out_path, T=g.T[:sp.fs_T.n_scalar_dofs], ok=ok,
+                     newton=ni, cg=ki, world=mesh_dev.size,
+                     device=str(mesh_dev.device), backend=mesh_dev.backend,
+                     padded_rows=g.T.shape[0], launches=json.dumps(launches),
+                     k2_per_apply=json.dumps(k2_forms_per_apply(sp)))
+    finally:
+        mesh_dev.close()
+    return 0
+
+
+def multihost_phase(dev) -> dict:
+    """Phase 13e (a side phase: it times nothing): `python -m
+    torch.distributed.run --standalone --nproc-per-node 2 chip_smoke.py
+    --multihost-rank OUT` (multihost_rank) while this process runs the
+    unsharded ThermoViscoProblem on the card; T of the two ranks within
+    1e-11 of it (max |dT| / max |T|, JAX's tests/test_multihost.py
+    bound), K1 once a step and K2's halo form 31 a Newton or CG iteration
+    on rank 0, no full-grid K2."""
+    from fem_glass_tempering_tpu_torch import config as tc
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+    from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="fgt_13e_")
+    out_path = os.path.join(work, "rank0.npz")
+    log_path = os.path.join(work, "torchrun.log")
+    with open(log_path, "w") as log_fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(GS_RANKS), os.path.abspath(__file__),
+             "--multihost-rank", out_path],
+            stdout=log_fh, stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            prob = ThermoViscoProblem(mesh=box_mesh_3d(*MH_PLATE),
+                                      config=multihost_config(tc),
+                                      device=dev)
+            prob.setup()
+            st, ok, ni, ki = prob.multi_step(prob.state, MH_STEPS)
+            T_ref = st.T.cpu().numpy()
+            del prob, st
+            rc = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    with open(log_path) as fh:
+        tail = fh.read()[-3000:]
+    if not ok:
+        fail("13e: the unsharded run did not converge")
+    if rc != 0 or not os.path.exists(out_path):
+        fail(f"13e: torchrun exited with code {rc}:\n{tail}")
+    got = dict(np.load(out_path))
+    shutil.rmtree(work, ignore_errors=True)
+    launches = json.loads(str(got["launches"]))
+    per = json.loads(str(got["k2_per_apply"]))
+    n_it = int(got["newton"]) + int(got["cg"])
+    rel = float(np.abs(got["T"] - T_ref).max() / np.abs(T_ref).max())
+    want = dict(material_tspace=MH_STEPS, stencil_matvec=per["full"] * n_it,
+                stencil_matvec_halo=per["halo"] * n_it, dg_cell_residual=0)
+    out = dict(world=int(got["world"]), device=str(got["device"]),
+               backend=str(got["backend"]),
+               padded_rows=int(got["padded_rows"]),
+               newton=int(got["newton"]), cg=int(got["cg"]),
+               unsharded_newton_cg=[ni, ki], T_rel=rel,
+               launches_rank0=launches, k2_per_apply=per,
+               s=time.perf_counter() - t0)
+    if not bool(got["ok"]) or out["world"] != GS_RANKS or \
+            out["backend"] != "gloo" or not rel < 1e-11 or \
+            launches != want:
+        fail(f"13e: {json.dumps(out)} (launches expected {want})\n{tail}")
+    log("multihost " + json.dumps(out))
+    return out
+
+
 def grid_shard_launches(gs: dict, dry64: dict, name: str) -> dict:
     """A kernel's launches in phase 13d's and 13d64's counted windows, per
     rank."""
@@ -4656,6 +4918,14 @@ def grid_shard_launches(gs: dict, dry64: dict, name: str) -> dict:
             name]
         out[f"{case}_ranks"] = [r["launches"][name]
                                 for r in gs[part]["ranks"]]
+    if name != "stencil_matvec":
+        # 13d(b)'s output: the chunked solve and the resumed run(1)
+        io = gs["b"]["io"]
+        for run in ("solve", "resumed"):
+            out[f"plate_io_{run}_world_size_1"] = io["world_size_1"][
+                f"{run}_launches"][name]
+            out[f"plate_io_{run}_ranks"] = [
+                r[f"{run}_launches"][name] for r in io["ranks"]]
     return out
 
 
@@ -4770,8 +5040,8 @@ def setup_device() -> torch.device:
 # group's card work is small beside the main process's plates, and each
 # group takes about as long as what the main process runs meanwhile
 # (6a: phase 6's 8x8x4 parity runs; 7a: phase 7's; 13d64 fills the
-# first group's slack).
-SIDE_GROUPS = (("5", "12b", "12c", "12d", "12e", "13d64"),
+# first group's slack, and 13e after it).
+SIDE_GROUPS = (("5", "12b", "12c", "12d", "12e", "13d64", "13e"),
                ("6a", "7a", "8a"),
                ("13", "11", "9a", "10a"))
 
@@ -4804,6 +5074,7 @@ def side_phases(names, t0_epoch, scratch_dir, warmup, k2_per_apply) -> dict:
         "12e": lambda: native_phase(dev, scratch_dir),
         "13": lambda: distributed_phase(dev, port),
         "13d64": lambda: dryrun64_phase(dev, port),
+        "13e": lambda: multihost_phase(dev),
     }
     out, ends = {}, {}
     for name in names:
@@ -4884,11 +5155,16 @@ def main() -> int:
     ap.add_argument("--profile", metavar="DIR",
                     help="trace 5 full-size steps with torch.profiler and "
                          "write DIR/profile.txt")
+    ap.add_argument("--multihost-rank", metavar="OUT",
+                    help="run one rank of phase 13e (under torchrun) and "
+                         "write rank 0's result to OUT")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.multihost_rank:
+        return multihost_rank(args.multihost_rank)
     from fem_glass_tempering_tpu_torch.ops import kernel_lib
     port = load_port()
     stencil_matvec = port["stencil_matvec"]
@@ -5003,7 +5279,7 @@ def main() -> int:
     mech_parity, cg2_parity = side["8a"], side["9a"]
     d2_parity, cli, dist = side["10a"], side["11"], side["13"]
     bf16_parity, forms, scan = side["12b"], side["12c"], side["12d"]
-    native_rt, dry64 = side["12e"], side["13d64"]
+    native_rt, dry64, multihost = side["12e"], side["13d64"], side["13e"]
 
     # ---- phase 9b: the CG-2 plate on the lattice path ----
     drop_garbage("phase 9b")
@@ -5017,7 +5293,7 @@ def main() -> int:
 
     # ---- phase 13d: the grid-sharded CG-1 step ----
     drop_garbage("phase 13d")
-    gshard = grid_shard_phase(dev, port, mech_ref)
+    gshard = grid_shard_phase(dev, port, mech_ref, scratch_dir)
     phase_end("13d")
 
     k1_32 = k1["float32"]
@@ -5050,7 +5326,9 @@ def main() -> int:
              launches_distributed=distributed_launches(
                  dist, "material_tspace"),
              launches_grid_sharded=grid_shard_launches(
-                 gshard, dry64, "material_tspace")),
+                 gshard, dry64, "material_tspace"),
+             launches_multihost_rank0=multihost["launches_rank0"][
+                 "material_tspace"]),
         dict(name="stencil_matvec", route="cuda",
              source="fem_glass_tempering_tpu_torch/csrc/stencil_matvec.cu",
              replaces="fem_glass_tempering_tpu/ops/pallas_stencil.py:54",
@@ -5091,7 +5369,9 @@ def main() -> int:
              device_ms=gshard["k2_halo"]["device_ms"],
              slab=gshard["k2_halo"]["slab"],
              launches_grid_sharded=grid_shard_launches(
-                 gshard, dry64, "stencil_matvec_halo")),
+                 gshard, dry64, "stencil_matvec_halo"),
+             launches_multihost_rank0=multihost["launches_rank0"][
+                 "stencil_matvec_halo"]),
         # the bf16-table instantiation of K2 (f32 vector: the mixed
         # V-cycle's), timed on the fine level's tables of the 1M-dof plate
         dict(name="stencil_matvec_bf16_tables", route="cuda",
@@ -5190,6 +5470,7 @@ def main() -> int:
     log("summary native runtime " + json.dumps(native_rt))
     log("summary distributed " + json.dumps(dist))
     log("summary grid sharded " + json.dumps(gshard))
+    log("summary multihost " + json.dumps(multihost))
     log("summary phase end times, s " + json.dumps(ends))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -2,7 +2,8 @@
 fem_glass_tempering_tpu/parallel): the collectives (comm.py), cell-axis
 sharding of a ThermoViscoProblem (sharding.py), the partition
 (partition.py), the DG and CG domain decompositions (domain.py,
-domain_cg.py) and the grid-sharded step (grid_shard.py)."""
+domain_cg.py), the grid-sharded step (grid_shard.py) and its
+multi-process entry (multihost.py)."""
 
 from fem_glass_tempering_tpu_torch.parallel.comm import (  # noqa: F401
     make_device_mesh,
@@ -15,6 +16,12 @@ from fem_glass_tempering_tpu_torch.parallel.domain_cg import (  # noqa: F401
 )
 from fem_glass_tempering_tpu_torch.parallel.grid_shard import (  # noqa: F401
     GridShardedProblem,
+)
+from fem_glass_tempering_tpu_torch.parallel.multihost import (  # noqa: F401
+    gather_to_host,
+    global_device_mesh,
+    initialize,
+    make_multihost_problem,
 )
 from fem_glass_tempering_tpu_torch.parallel.partition import (  # noqa: F401
     build_dd_layout,

@@ -31,10 +31,13 @@ torch.distributed group (parallel/comm.py) and writes them out:
   vector operator, its dots summed over the ranks, preconditioned by
   GridElastMG's rank form; `du` rides in the state on the rank's rows.
 
+- output (`solve`) and checkpoints are per rank (io/sharded.py, JAX's
+  files): each rank writes its planes' pieces, and a checkpoint loads
+  onto any rank count that pads the grid to as many planes.
+
 The CG-1 route is ported, with and without mechanics. DG-1 T
-(`_init_dg`), CG-2 T (`_init_q2`) and the sharded writer / checkpoint
-(io/sharded.py) raise NotImplementedError, naming the slice of the port
-that brings them (ROADMAP.md Queue 1).
+(`_init_dg`) and CG-2 T (`_init_q2`) raise NotImplementedError, naming
+the slice of the port that brings them (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -49,6 +52,12 @@ from fem_glass_tempering_tpu_torch.config import RunConfig
 from fem_glass_tempering_tpu_torch.device import resolve_dtype
 from fem_glass_tempering_tpu_torch.fem.functionspace import FunctionSpace
 from fem_glass_tempering_tpu_torch.fem.mesh import Mesh
+from fem_glass_tempering_tpu_torch.io.sharded import (
+    PlaneLayout,
+    ShardedSeriesWriter,
+    load_sharded_checkpoint,
+    save_sharded_checkpoint,
+)
 from fem_glass_tempering_tpu_torch.models.mechanics import (
     GridMechanicsCoupling,
 )
@@ -86,8 +95,9 @@ class GridShardedProblem:
     there); JAX's class has no such option: it is here so that a sharded
     run can be held to an unsharded one with that flux (chip_smoke.py
     13d(c), phase 8b's plate). Every rank must call `step` / `run` / `solve` /
-    `gather_state` together. With mechanics, `last_mech_iters` holds the
-    elasticity CG count of each step of the last `step` / `run`,
+    `save_checkpoint` / `gather_state` together. With mechanics,
+    `last_mech_iters` holds the elasticity CG count of each step of the
+    last `step` / `run` / `solve`,
     `last_mech_converged` whether each met its tolerance (a step's
     `converged` is its heat solve's, as in JAX), and
     `last_mech_collectives` the collectives of each step's elasticity
@@ -408,31 +418,84 @@ class GridShardedProblem:
 
     def solve(self, state: ViscoState | None = None, *,
               n_steps: int | None = None, progress: bool = False):
-        """The time loop (JAX's `solve` without its output): raises where
-        the config asks for the sharded writer or checkpoints."""
-        oc = self.config.output
-        if (oc.write_every and oc.write_every > 0 and oc.formats) \
-                or oc.checkpoint_every:
-            raise _waits_for("7d(ii)", "the sharded writer and "
-                             "checkpoints (io/sharded.py)")
+        """The time loop with per-rank output (JAX's `solve`): one `run`
+        of `write_every` steps a chunk (the operators rebuilt at each
+        chunk's start), this rank's pieces of the series written after
+        each (`output_dir`/sharded_series) and a checkpoint every
+        `checkpoint_every` steps (`output_dir`/sharded_ckpt_{done:06d}).
+        The counts (and with mechanics `last_mech_*`) are the whole
+        run's."""
         if state is None:
             state = self.init_state()
         n_total = n_steps if n_steps is not None else self.n_steps
+        oc = self.config.output
+        we = oc.write_every
+        chunk = we if we and we > 0 else n_total
+        writer = None
+        if we and we > 0 and oc.formats:
+            writer = ShardedSeriesWriter(
+                f"{oc.output_dir}/sharded_series",
+                fields=tuple(f for f in oc.npz_fields
+                             if f in ViscoState._fields),
+                grid=self.grid, pad0=self.pad0, rank=self.comm.rank,
+                world_size=self.n_devices)
         t0 = _time.perf_counter()
-        state, ok, ni, ki = self.run(state, n_total)
-        if not ok:
-            raise RuntimeError(
-                f"Newton failed to converge in steps 0..{n_total}")
-        if progress:
-            print(f"t={n_total * self.dt:.3f}")
+        done = ni_tot = ki_tot = 0
+        mech_iters, mech_conv, mech_coll = [], [], []
+        while done < n_total:
+            n = min(chunk, n_total - done)
+            state, ok, ni, ki = self.run(state, n)
+            mech_iters += self.last_mech_iters
+            mech_conv += self.last_mech_converged
+            mech_coll += self.last_mech_collectives
+            if not ok:
+                raise RuntimeError(
+                    f"Newton failed to converge in steps {done}..{done + n}")
+            done += n
+            t = done * self.dt
+            ni_tot += ni
+            ki_tot += ki
+            if writer is not None:
+                writer.write(t, state)
+            ce = oc.checkpoint_every
+            if ce and done % ce == 0:
+                self.save_checkpoint(
+                    f"{oc.output_dir}/sharded_ckpt_{done:06d}", state,
+                    extra={"t": t, "done": done})
+            if progress:
+                print(f"t={t:.3f}")
+        if writer is not None:
+            writer.close()
+            self._sync()
+        self.last_mech_iters, self.last_mech_converged = mech_iters, mech_conv
+        self.last_mech_collectives = mech_coll
         self.elapsed_seconds = _time.perf_counter() - t0
-        self.newton_iters = ni
-        self.krylov_iters = ki
+        self.newton_iters = ni_tot
+        self.krylov_iters = ki_tot
         return state
+
+    def _layout(self) -> PlaneLayout:
+        return PlaneLayout(self.grid, self.comm.rank, self.n_devices)
+
+    def _sync(self) -> None:
+        """Return once every rank has come here (one collective): what a
+        rank wrote is then there for the others to read."""
+        float(all_reduce_sum(torch.zeros((), dtype=self.dtype,
+                                         device=self.device), self.comm))
 
     def save_checkpoint(self, out_dir: str, state: ViscoState,
                         extra: dict | None = None) -> None:
-        raise _waits_for("7d(ii)", "sharded checkpoints (io/sharded.py)")
+        """This rank's pieces of every field (rank 0's also `t` and
+        meta.json); returns once every rank's are written."""
+        save_sharded_checkpoint(out_dir, state, self._layout(), extra=extra)
+        self._sync()
 
     def load_checkpoint(self, out_dir: str) -> ViscoState:
-        raise _waits_for("7d(ii)", "sharded checkpoints (io/sharded.py)")
+        """This rank's rows of a sharded checkpoint (either package's), read
+        from the pieces that cover its planes, on its device in the
+        problem's dtype. ValueError where the checkpoint's padded grid is
+        not this problem's."""
+        state, _ = load_sharded_checkpoint(out_dir, self._layout(),
+                                           device=self.device,
+                                           dtype=self.dtype)
+        return state

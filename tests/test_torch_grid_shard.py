@@ -8,7 +8,8 @@ module (tests/torch_grid_shard_ranks.py, which imports no JAX), and its
 unsharded runs and a world-size-1 GridShardedProblem in one more process,
 while the tests compute JAX's side. Mirrors tests/test_grid_ops.py:131-191
 and tests/test_grid_mg.py:87-149 at P = 4, and the dry run's "gspmd-grid"
-strategy.
+strategy; a short solve() with the sharded writer and a checkpoint at
+P = 4 (tests/test_torch_sharded_io.py holds the output to JAX's).
 
 Tolerances: gathered T and Tf against JAX's GridShardedProblem at rtol
 1e-11 (Newton equal, CG within max(5, 2%): the dots' sums run in another
@@ -62,14 +63,15 @@ JAX_CASES = ("grid_ops", "grid_mg", "dryrun")
 
 
 @pytest.fixture(scope="module")
-def ranks():
+def ranks(tmp_path_factory):
     """The port's processes, running while the tests compute JAX's side."""
+    work = str(tmp_path_factory.mktemp("grid_shard"))
     with ThreadPoolExecutor(4) as ex:
         yield SimpleNamespace(
-            main=[ex.submit(run_ranks, R.rank_body, P, "cpu", group,
+            main=[ex.submit(run_ranks, R.rank_body, P, "cpu", group, work,
                             threads=1) for group in range(len(R.GROUPS))],
             two=ex.submit(run_ranks, R.two_rank_body, 2, "cpu", threads=1),
-            ref=ex.submit(run_ranks, R.reference_body, 1, "cpu",
+            ref=ex.submit(run_ranks, R.reference_body, 1, "cpu", work,
                           threads=1))
 
 
@@ -381,9 +383,28 @@ def test_unported_routes_raise(fe, mechanics, slice_):
         GridShardedProblem(box_mesh_3d(4, 3, 2), cfg)
 
 
-def test_sharded_io_raises(ref):
-    for what, msg in ref["refusals"].items():
-        assert "Slice 7d" in msg, what
+# ---- sharded output -------------------------------------------------------
+def test_sharded_io_raises(main, ref):
+    """Sharded output at P = 4 on the 4x3x2 plate (5 planes and 3 ghost
+    planes; rank 3 holds ghost planes only): solve() writes a piece a
+    field, step and rank, an index a rank, and a checkpoint of every field
+    a rank (rank 0's also `t` and meta.json); the series' last T is the
+    gathered T bit for bit. That checkpoint (8 planes), loaded by a
+    world-size-1 problem (5 planes), raises a ValueError naming both
+    grids."""
+    io = [r["io"] for r in main]
+    assert io[0]["pad0"] == 3 and io[0]["rows"][3] == (6, 8)
+    assert all(np.array_equal(r["series_T"], r["T"]) for r in io)
+    files = io[0]["series_files"]
+    assert len(files) == P + 2 * 2 * P
+    assert {f"piece_T_000001_o{o:06d}.npz" for o in (0, 2, 4, 6)} <= set(
+        files)
+    ckpt = io[0]["ckpt_files"]
+    assert len(ckpt) == 2 + (len(ViscoState._fields) - 1) * P
+    assert "piece_du_000000_o000006.npz" in ckpt
+    assert ref["io_grid"] == (5, 4, 3)
+    assert "(8, 4, 3)" in ref["io_refusal"]
+    assert "(5, 4, 3)" in ref["io_refusal"]
 
 
 def test_defaults_to_cuda(monkeypatch):

@@ -27,7 +27,8 @@ def _port_files():
             "utils/profiling.py", "ops/forms.py", "solver/direct.py",
             "utils/native.py", "parallel/comm.py", "parallel/partition.py",
             "parallel/sharding.py", "parallel/domain_cg.py",
-            "parallel/domain.py", "parallel/grid_shard.py"} <= names
+            "parallel/domain.py", "parallel/grid_shard.py",
+            "parallel/multihost.py", "io/sharded.py"} <= names
     return files
 
 
@@ -129,6 +130,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from fem_glass_tempering_tpu_torch.parallel.comm import make_device_mesh
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_device_mesh()
+    from fem_glass_tempering_tpu_torch.io.sharded import (
+        PlaneLayout,
+        load_sharded_checkpoint,
+    )
+    from fem_glass_tempering_tpu_torch.parallel import multihost
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_sharded_checkpoint("never-opened", PlaneLayout((4, 3, 2)))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        multihost.initialize("localhost:1", 2, 0)
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):

@@ -12,6 +12,8 @@ strategy (__graft_entry__.py:146-166: 12x6x4, f32, 2 steps)."""
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 
 import numpy as np
 import torch
@@ -26,6 +28,7 @@ from fem_glass_tempering_tpu_torch.config import (
 )
 from fem_glass_tempering_tpu_torch.fem.functionspace import FunctionSpace
 from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+from fem_glass_tempering_tpu_torch.io.sharded import read_sharded_series
 from fem_glass_tempering_tpu_torch.ops.cuda_stencil import (
     stencil_matvec,
     stencil_matvec_halo,
@@ -215,14 +218,45 @@ def halo_twin(mesh_dev, dtype=torch.float64) -> dict:
                 exchanges=halo_exchange.count)
 
 
+# the sharded output's plate: 5 planes, at P = 4 three ghost planes, and
+# rank 3 holds ghost planes only
+IO_DIMS = (4, 3, 2)
+
+
+def io_case(mesh_dev, work) -> dict:
+    """solve() with the sharded writer (T and sigma every step) and a
+    checkpoint after 2 steps, on the IO_DIMS plate; the files, the series'
+    last T beside the gathered one. Rank 0 then creates `work`/io_ready
+    (the checkpoint is complete: save_checkpoint returns once every rank
+    has written)."""
+    out = os.path.join(work, "io")
+    cfg = dataclasses.replace(mg_cfg(steps=2), output=OutputConfig(
+        output_dir=out, write_every=1, formats=("npz",),
+        npz_fields=("T", "sigma"), checkpoint_every=2))
+    gs = GridShardedProblem(plate(IO_DIMS), cfg, mesh_dev)
+    st = gs.solve()
+    flat = gs.gather_state(st)
+    series = read_sharded_series(os.path.join(out, "sharded_series"))
+    if mesh_dev.rank == 0:
+        open(os.path.join(work, "io_ready"), "w").close()
+    return dict(rows=gs.rows, pad0=gs.pad0, newton=gs.newton_iters,
+                series_T=series["T"][-1], T=flat.T.numpy(),
+                series_files=sorted(os.listdir(os.path.join(
+                    out, "sharded_series"))),
+                ckpt_files=sorted(os.listdir(os.path.join(
+                    out, "sharded_ckpt_000002"))))
+
+
 # the P = 4 cases, in two groups of ranks that run at once
 GROUPS = (("grid_ops", "grid_mg"), ("mixed", "dryrun"))
 
 
-def rank_body(mesh_dev, group) -> dict:
+def rank_body(mesh_dev, group, work) -> dict:
     """The P = 4 step cases of GROUPS[group] on this rank; the first group
-    also applies GridMG's rank form and K2's halo form."""
-    out = {name: step_case(mesh_dev, name) for name in GROUPS[group]}
+    also applies GridMG's rank form and K2's halo form, the second first
+    runs the sharded output (io_case)."""
+    out = {"io": io_case(mesh_dev, work)} if group == 1 else {}
+    out.update({name: step_case(mesh_dev, name) for name in GROUPS[group]})
     if group == 0:
         out["mg_auto"] = mg_rank_apply(mesh_dev, "auto")
         out["mg_smooth"] = mg_rank_apply(mesh_dev, "smooth")
@@ -237,18 +271,11 @@ def two_rank_body(mesh_dev) -> dict:
             "mg_auto": mg_rank_apply(mesh_dev, "auto")}
 
 
-def refusal(fn) -> str:
-    try:
-        fn()
-    except NotImplementedError as e:
-        return str(e)
-    return ""
-
-
-def reference_body(mesh_dev) -> dict:
+def reference_body(mesh_dev, work) -> dict:
     """In one process: the unsharded ThermoViscoProblem runs of the step
     cases the tests compare with, the grid_mg case as a world-size-1
-    GridShardedProblem, and the refusals of a constructed problem."""
+    GridShardedProblem, and io_case's checkpoint (8 planes at P = 4)
+    loaded by a world-size-1 problem (5 planes)."""
     from fem_glass_tempering_tpu_torch.models.problem import (
         ThermoViscoProblem,
     )
@@ -268,21 +295,18 @@ def reference_body(mesh_dev) -> dict:
     # collectives an iteration cost ~2-9 ms each over 4 gloo ranks on a
     # CPU host (127 s in all)
     out["jacobi"] = step_case(mesh_dev, "jacobi")
-    gs = GridShardedProblem(plate((4, 3, 2)), mg_cfg(steps=1), mesh_dev)
-    write_cfg = dataclasses.replace(gs.config, output=OutputConfig(
-        write_every=1, formats=("npz",)))
-    ckpt_cfg = dataclasses.replace(gs.config, output=OutputConfig(
-        write_every=0, formats=(), checkpoint_every=1))
-    st = gs.init_state()
-
-    def solve_with(cfg):
-        gs.config = cfg
-        return gs.solve(st)
-    out["refusals"] = dict(
-        writer=refusal(lambda: solve_with(write_cfg)),
-        checkpoint=refusal(lambda: solve_with(ckpt_cfg)),
-        save=refusal(lambda: gs.save_checkpoint("never-written", st)),
-        load=refusal(lambda: gs.load_checkpoint("never-read")))
+    gs = GridShardedProblem(plate(IO_DIMS), mg_cfg(steps=1), mesh_dev)
+    ready, t0 = os.path.join(work, "io_ready"), time.monotonic()
+    while not os.path.exists(ready):
+        if time.monotonic() - t0 > 300:
+            raise TimeoutError("io_case never wrote its checkpoint")
+        time.sleep(0.05)
+    try:
+        gs.load_checkpoint(os.path.join(work, "io", "sharded_ckpt_000002"))
+        out["io_refusal"] = ""
+    except ValueError as e:
+        out["io_refusal"] = str(e)
+    out["io_grid"] = gs.grid
     return out
 
 
