@@ -43,7 +43,10 @@ coupled mechanics plate over one NCCL rank and two gloo ranks, K2's halo
 form checked and timed), after phase 8b, whose state 13d(c) is held to,
 then side phase 13d64 (the dry run's mechanics config in f64);
 `phase13e` side phase 13e alone (the multi-process entry under torchrun,
-two gloo ranks on the card, against the unsharded run).
+two gloo ranks on the card, against the unsharded run); `phase13f` side
+phase 13f alone (the grid-sharded DG-1 step: the small plates and phase
+7b's 64x64x16 plate over one NCCL rank and two gloo ranks), after phase
+7b, whose f64 run 13f(b) is held to.
 `dryrunmech` runs phase 13d's dry-run mechanics config (12x6x4, 2 steps)
 over one rank and over two gloo ranks, in f32 and in f64, on the CPU and
 on the card, with every elasticity CG logged (the copy of solver/krylov.py
@@ -388,7 +391,8 @@ def main() -> int:
     ap.add_argument("what", choices=("kernels", "phase5", "phase6",
                                      "phase8b", "phase9", "phase10",
                                      "phase11", "phase12", "phase13",
-                                     "phase13d", "phase13e", "dgparity",
+                                     "phase13d", "phase13e", "phase13f",
+                                     "dgparity",
                                      "dryrunmech"))
     ap.add_argument("--source-flags", default="", metavar="SRC:FLAG[,FLAG]",
                     help="replace one source's nvcc flags (empty FLAG: none)")
@@ -495,6 +499,17 @@ def main() -> int:
         res["13d64"] = cs.dryrun64_phase(dev, port)
     elif args.what == "phase13e":
         res = cs.multihost_phase(dev)
+    elif args.what == "phase13f":
+        # 13f(b) is held to phase 7b's f64 run: 7b first
+        scratch = os.path.join(root, "build", "chip_smoke")
+        os.makedirs(scratch, exist_ok=True)
+        t0 = time.perf_counter()
+        cs.dg_auto_plate_phase(dev, port, os.path.join(scratch,
+                                                       cs.PHASE7B_REF))
+        res = dict(phase7b_s=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        res.update(cs.grid_shard_dg_phase(dev, port, scratch))
+        res["phase13f_s"] = time.perf_counter() - t0
     elif args.what == "phase8b":
         full = cs.mechanics_plate_phase(dev, port)
         full.pop("reference")

@@ -198,7 +198,29 @@ Phases (each raises on failure; the exit code is then nonzero):
      chip_smoke.py --multihost-rank OUT`, two gloo ranks on cuda:0
      through multihost.initialize, JAX's tests/test_multihost.py plate
      (12x6x3, f64, 2 steps) within 1e-11 of the unsharded run on the
-     card, K1 and K2's launches held on rank 0.
+     card, K1 and K2's launches held on rank 0; (f, a side phase of its
+     own) GridShardedProblem with DG-1 T (the cell-grid layout, the DG
+     operator's slab on each rank's cell layers, DGMultigrid's grid route
+     with its CG-1 correction on RankGridMG, K2's halo form on its
+     sharded levels, K1 in the material step) over one NCCL rank and two
+     gloo ranks, while the side process runs the same plates unsharded:
+     (a) JAX's tests/test_grid_dg.py plates (8x4x4, 3 steps; 9x4x3, one
+     ghost cell layer at P = 2, 2 steps; 8x4x3 with mechanics and the
+     trapezoid xi, 2 steps) and the dry run's "gspmd-dg" config (16x4x4,
+     2 steps) in f64 and mixed precision, each held to the unsharded run
+     (T 1e-9 and sigma 1e-8 of their max, 1e-5 with mechanics; CG at most
+     2x + 8) and the two ranks to the one (Newton equal, one apart in
+     mixed precision; T max-rel 1e-12); (b) phase 7b's 64x64x16 plate
+     (524,288 T dofs, f64), 1 + 1 steps on the one rank and on the two,
+     and mixed (1 + 1) on the one, held to 7b's f64 run (T 1e-9 of its
+     max, the mixed run 5e-3 K; Newton within one a step, CG at most 2x
+     + 8) and the two ranks to the one: ms a step and a CG iteration,
+     counts, collectives a CG iteration by kind (cell halos, node halos,
+     re-partitions, other sums), setup s by part, peak memory, K1 and K2
+     launches per rank (no full-grid K2, no K3); K2's halo form bit-equal
+     to its twin on each rank's slab of the CG-1 correction's fine
+     level at the run's tables; the output as 13d(b)'s, with cell-grid
+     pieces.
 Phase 2 also holds K3 at every degree-2 cell shape (nloc 3, 6, 9, 10, 27)
 on the port's HeatOperator tables, f64 and f32, all in the element form,
 and times nloc 27 (uniform f32 and f64, 65,536 cells) and nloc 10
@@ -208,7 +230,8 @@ PyTorch call on the baked matrices (torch.addmm / torch.baddbmm), with
 the bake's seconds and bytes.
 Every main path (4, 5, 6, 7b f64, 7b mixed, 8b, 9b, 10b, 10c, 11a, 11b,
 12a's two arms, 12b, 12d's two runs, each run of 13, 13d (13d(b)'s
-output included) and 13d64 on every rank, 13e's on rank 0) runs
+output included), 13d64 and 13f (13f(b)'s output included) on every
+rank, 13e's on rank 0) runs
 with the launch counters set to 0 just before it and read just after; K2
 also counts its launches per table dtype (an instantiation each), and its
 halo form its own (`stencil_matvec_halo.launches`). A line
@@ -219,7 +242,7 @@ and last {"ok": true, "device": {...}}.
 
 Phases whose times feed no kernel's `ms` (dispatch-bound runs on tiny
 meshes, the GPU-against-CPU runs, the command line, the native runtime,
-phases 13, 13d64 and 13e) run in SIDE_GROUPS: three processes of their own
+phases 13, 13d64, 13e and 13f) run in SIDE_GROUPS: four processes of their own
 on the same card, started after phase 4, beside this process's plates of phases 6,
 7b, 8b, 10b and 10c, and joined before phase 9b. Their lines carry a
 "[side ...]" prefix, their launch counters are their own, and their
@@ -1744,14 +1767,22 @@ def dg_auto_plate_run(dev, port, cg_dtype) -> tuple[dict, object]:
     return out, st.T.cpu()
 
 
-def dg_auto_plate_phase(dev, port) -> dict:
+def dg_auto_plate_phase(dev, port, ref_path=None) -> dict:
     """Phase 7b: the f64 run, then the mixed-precision run, whose T must
-    lie within 5e-3 K of the f64 run's (the mixed-precision DG floor)."""
+    lie within 5e-3 K of the f64 run's (the mixed-precision DG floor).
+    `ref_path`: where the f64 run's T and counts go for phase 13f (an
+    .npz, written whole or not at all)."""
     out = {}
     T = {}
     for cg_dtype in ("same", "float32"):
         drop_garbage(f"phase 7b {cg_dtype}")
         out[cg_dtype], T[cg_dtype] = dg_auto_plate_run(dev, port, cg_dtype)
+        if cg_dtype == "same" and ref_path is not None:
+            tmp = ref_path + ".part.npz"
+            np.savez(tmp, T=T["same"].numpy(),
+                     newton_per_step=out["same"]["newton_per_step"],
+                     cg_per_step=out["same"]["cg_per_step"])
+            os.replace(tmp, ref_path)
     diff = float((T["float32"] - T["same"]).abs().max())
     out["mixed_vs_f64_T_max_abs_K"] = diff
     if not diff <= 5e-3:
@@ -4153,17 +4184,39 @@ def gs_cases():
         plate=(lambda: box_mesh_3d(*N_FULL, 1.0, 1.0, 0.01),
                plate_config(tc, GS_PLATE_STEPS, True), {}),
         mech_plate=(coupled_plate_mesh, coupled_plate_config(tc),
-                    dict(flux_marker=z_faces)))
+                    dict(flux_marker=z_faces)),
+        # phase 13f: DG-1 T (JAX's tests/test_grid_dg.py plates, the dry
+        # run's "gspmd-dg" config, phase 7b's plate)
+        dg_plate=(lambda: box_mesh_3d(8, 4, 4, 1.0, 1.0, 0.01),
+                  gsdg_config(tc, 3), {}),
+        dg_pad=(lambda: box_mesh_3d(9, 4, 3, 1.0, 1.0, 0.01),
+                gsdg_config(tc, 2), {}),
+        dg_mech=(lambda: box_mesh_3d(8, 4, 3, 1.0, 1.0, 0.01),
+                 dataclasses.replace(
+                     gsdg_config(tc, 2), mechanics="equilibrium",
+                     physics_mode="corrected", xi_formula="trapezoid"), {}),
+        dg_dryrun=(lambda: box_mesh_3d(16, 4, 4, 1.0, 1.0, 0.01),
+                   gsdg_dryrun_config(tc, "same"), {}),
+        dg_dryrun_mixed=(lambda: box_mesh_3d(16, 4, 4, 1.0, 1.0, 0.01),
+                         gsdg_dryrun_config(tc, "float32"), {}),
+        dg_full=(lambda: box_mesh_3d(*N_DG, 1.0, 1.0, 0.01),
+                 dg_plate_config(tc, 1, **DG_AUTO), {}),
+        dg_full_mixed=(lambda: box_mesh_3d(*N_DG, 1.0, 1.0, 0.01),
+                       dg_plate_config(tc, 1, cg_dtype="float32",
+                                       **DG_AUTO), {}))
 
 
 def k2_forms_per_apply(gs) -> dict:
     """K2's launches by form in one Newton or CG iteration of a
-    GridShardedProblem: the Jacobian action (halo form) and one V-cycle,
+    GridShardedProblem: the Jacobian action (halo form; under DG-1 the
+    DG slab's, plain PyTorch) and one V-cycle of the CG-1 correction,
     whose sharded levels smooth with the halo form and whose replicated
     smoothed levels with the full-grid form (nu_pre + 1 + nu_post each,
     coarse_iters on a smoothed coarsest level)."""
-    out = dict(halo=1, full=0)
+    out = dict(halo=0 if gs.is_dg else 1, full=0)
     mg, rmg = gs.grid_mg, gs.rank_mg
+    if mg is None:
+        return out
     for i, axes in enumerate(mg.axes):
         if axes is None and mg.coarse_inv is not None:
             continue
@@ -4174,11 +4227,14 @@ def k2_forms_per_apply(gs) -> dict:
 
 
 def grid_shard_run(dev, port, mesh_dev, name, steps, warmup=0,
-                   keep=False, before=None, after=None) -> dict:
+                   keep=False, before=None, after=None, tag="13d") -> dict:
     """GridShardedProblem on case `name` over `mesh_dev`: set up, `warmup`
     steps from the initial state, then `steps` counted and timed from a
     fresh one (`before()` / `after()` called just outside the window);
-    the state gathered to the global layout."""
+    the state gathered to the global layout. Under DG-1 T also the
+    collectives of the window by kind (halo exchanges of cell layers and
+    of node planes, re-partitions between the two grids, other sums: the
+    dots, the residual's mean, the replicated levels' all-gathers)."""
     from fem_glass_tempering_tpu_torch.parallel import comm
     from fem_glass_tempering_tpu_torch.parallel.comm import halo_exchange
     from fem_glass_tempering_tpu_torch.parallel.grid_shard import (
@@ -4202,21 +4258,36 @@ def grid_shard_run(dev, port, mesh_dev, name, steps, warmup=0,
     reset_counts(port)
     h0 = halo_exchange.count
     c0 = comm.all_reduce_sum.count + comm.all_reduce_max.count
+    s0, r0 = comm.all_reduce_sum.count, comm.Repartition.count
+    ch0 = getattr(gs, "cell_halos", 0)
     t0 = time.perf_counter()
     st, ok, ni, ki = gs.run(state0, steps)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     collectives = comm.all_reduce_sum.count + comm.all_reduce_max.count - c0
+    by_kind = {}
+    if gs.is_dg:
+        cell = gs.cell_halos - ch0
+        halos = halo_exchange.count - h0
+        reparts = comm.Repartition.count - r0
+        its = max(ni + ki, 1)
+        by_kind = dict(cell_halos=cell, node_halos=halos - cell,
+                       repartitions=reparts,
+                       other_sums=comm.all_reduce_sum.count - s0 - halos
+                       - reparts)
+        by_kind = dict(collectives_by_kind=by_kind,
+                       collectives_by_kind_per_iteration={
+                           k: v / its for k, v in by_kind.items()})
     if after is not None:
         after()
     launches = dict(read_counts(port),
                     stencil_matvec_halo=port["stencil_matvec_halo"].launches)
     exchanges = halo_exchange.count - h0
-    log(f"13d {name} rank {mesh_dev.rank} of {mesh_dev.size}: setup "
+    log(f"{tag} {name} rank {mesh_dev.rank} of {mesh_dev.size}: setup "
         f"{setup_s:.1f} s, {steps} steps in {elapsed:.1f} s")
     peak = torch.cuda.max_memory_allocated(dev)
     if not ok:
-        fail(f"13d {name}: did not converge")
+        fail(f"{tag} {name}: did not converge")
     per = k2_forms_per_apply(gs)
     # K1 computes the reference xi's chain (eq. 5 shift): the trapezoid
     # xi's is plain PyTorch, as in phase 8b; the elasticity solve has no
@@ -4226,15 +4297,17 @@ def grid_shard_run(dev, port, mesh_dev, name, steps, warmup=0,
     expect = dict(material_tspace=k1, dg_cell_residual=0,
                   stencil_matvec=per["full"] * (ni + ki),
                   stencil_matvec_halo=per["halo"] * (ni + ki))
-    if launches != expect or launches["stencil_matvec_halo"] == 0 or (
-            name in ("plate", "mech_plate") and per["full"]):
-        fail(f"13d {name} rank {mesh_dev.rank}: launches {launches}, "
+    if launches != expect or (
+            per["halo"] and launches["stencil_matvec_halo"] == 0) or (
+            name in ("plate", "mech_plate", "dg_full", "dg_full_mixed")
+            and per["full"]):
+        fail(f"{tag} {name} rank {mesh_dev.rank}: launches {launches}, "
              f"expected {expect} (K2 an iteration {per})")
     mech = {}
     if gs.mech is not None:
         mi, mc = list(gs.last_mech_iters), list(gs.last_mech_collectives)
         if len(mi) != steps or not all(gs.last_mech_converged):
-            fail(f"13d {name} rank {mesh_dev.rank}: elasticity CG per step "
+            fail(f"{tag} {name} rank {mesh_dev.rank}: elasticity CG per step "
                  f"{mi}, converged {gs.last_mech_converged} (at most "
                  f"{gs.mech.cg_max_it})")
         mech = dict(elast_cg_each_step=mi, elast_cg_per_step=sum(mi) / steps,
@@ -4246,6 +4319,7 @@ def grid_shard_run(dev, port, mesh_dev, name, steps, warmup=0,
     flat = gs.gather_state(st)
     out = dict(newton=ni, cg=ki, newton_per_step=ni / steps,
                cg_per_step=ki / steps, ms_per_step=elapsed / steps * 1e3,
+               ms_per_iteration=elapsed / max(ni + ki, 1) * 1e3,
                setup_s=setup_s, setup_parts_s=gs.setup_seconds,
                launches=launches, k2_per_apply=per,
                halo_exchanges=exchanges,
@@ -4253,7 +4327,8 @@ def grid_shard_run(dev, port, mesh_dev, name, steps, warmup=0,
                collectives=collectives,
                max_memory_allocated_bytes=peak,
                sharded_levels=list(gs.rank_mg.sharded), rows=gs.rows,
-               **mech, **{f: getattr(flat, f) for f in ("T", "Tf", "sigma")})
+               **by_kind, **mech,
+               **{f: getattr(flat, f) for f in ("T", "Tf", "sigma")})
     if keep:
         out["problem"], out["state"] = gs, st
     return out
@@ -4360,7 +4435,7 @@ def dir_mb(path: str, suffix: str = "") -> float:
                for n in os.listdir(path) if n.endswith(suffix)) / 1e6
 
 
-def grid_shard_io(gs, st, port, work) -> dict:
+def grid_shard_io(gs, st, port, work, tag=None) -> dict:
     """13d(b)'s output on this rank's planes of the plate, after the timed
     window: solve() of GS_IO_STEPS steps from the initial state with a
     snapshot (npz_fields' default) every step and a checkpoint every 2
@@ -4378,7 +4453,8 @@ def grid_shard_io(gs, st, port, work) -> dict:
         read_sharded_series,
     )
     from fem_glass_tempering_tpu_torch.models.viscoelastic import ViscoState
-    rank, tag = gs.comm.rank, f"13d(b) output, rank {gs.comm.rank}"
+    rank = gs.comm.rank
+    tag = f"{tag or '13d(b)'} output, rank {rank}"
     per = k2_forms_per_apply(gs)
     oc = OutputConfig(output_dir=work, write_every=1, formats=("npz",),
                       checkpoint_every=2)
@@ -4416,7 +4492,7 @@ def grid_shard_io(gs, st, port, work) -> dict:
     snap = os.path.join(work, "snapshot")
     w = ShardedSeriesWriter(snap, fields=tuple(fields), grid=gs.grid,
                             pad0=gs.pad0, rank=rank,
-                            world_size=gs.n_devices)
+                            world_size=gs.n_devices, **gs._cell_layout())
     t0 = time.perf_counter()
     w.write(0.0, st)
     snapshot_s = time.perf_counter() - t0
@@ -4451,10 +4527,14 @@ def grid_shard_io(gs, st, port, work) -> dict:
                snapshot_fields=fields, snapshot_s=snapshot_s,
                ckpt_save_s=save_s, ckpt_load_s=load_s,
                series_bit_equal=True, resume_bit_equal=True)
-    mine = f"_o{gs.rows[rank][0]:06d}.npz"      # this rank's pieces
+    # this rank's pieces: at its node-plane offset, and (DG-1) its cell
+    # layer offset
+    mine = {f"_o{gs.rows[rank][0]:06d}.npz"}
+    if gs.is_dg:
+        mine.add(f"_o{gs.cell_rows[rank][0]:06d}.npz")
     gs._sync()          # every rank's files are written: count them
-    out.update(snapshot_mb_rank=dir_mb(snap, mine),
-               ckpt_mb_rank=dir_mb(ck, mine),
+    out.update(snapshot_mb_rank=sum(dir_mb(snap, m) for m in mine),
+               ckpt_mb_rank=sum(dir_mb(ck, m) for m in mine),
                ckpt_mb_all_ranks=dir_mb(ck))
     gs._sync()          # every rank has read the directories
     if rank == 0:
@@ -4790,6 +4870,293 @@ def mech_plate_against(got: dict, ref: dict) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phase 13f: the grid-sharded DG-1 step
+GSDG_SMALL = (("dg_plate", 3), ("dg_pad", 2), ("dg_mech", 2),
+              ("dg_dryrun", 2), ("dg_dryrun_mixed", 2))
+# phase 7b's unsharded f64 run of the 64x64x16 plate (T after its timed
+# step, its counts), which 13f(b) is held to: written by the main
+# process into the scratch directory
+PHASE7B_REF = "phase7b_f64.npz"
+
+
+def gsdg_config(tc, steps):
+    """JAX's tests/test_grid_dg.py `_run_cfg`: f64, Newton and CG rtol
+    1e-12, Chebyshev MG."""
+    return tc.RunConfig(
+        fe=tc.FEConfig(T_family="DG", T_degree=1, sigma_family="CG",
+                       sigma_degree=1),
+        time=tc.TimeConfig(0.0, steps * 0.1, 0.1),
+        solver=tc.SolverConfig(newton_rtol=1e-12, newton_atol=1e-10,
+                               cg_rtol=1e-12, cg_max_it=2000,
+                               linear_operator="stencil",
+                               preconditioner="mg", mg_smoother="chebyshev"),
+        output=tc.OutputConfig(write_every=0, formats=()), dtype="float64")
+
+
+def gsdg_dryrun_config(tc, cg_dtype):
+    """The dry run's "gspmd-dg" strategy (__graft_entry__.py:192-205),
+    f64 or with the f32 twins (cg_dtype="float32")."""
+    return tc.RunConfig(
+        fe=tc.FEConfig(T_family="DG", T_degree=1, sigma_family="CG",
+                       sigma_degree=1),
+        time=tc.TimeConfig(0.0, 0.1, 0.1),
+        solver=tc.SolverConfig(newton_rtol=1e-12, newton_atol=1e-10,
+                               cg_rtol=1e-10, cg_max_it=500,
+                               linear_operator="stencil",
+                               preconditioner="mg", mg_smoother="chebyshev",
+                               cg_dtype=cg_dtype),
+        output=tc.OutputConfig(write_every=0, formats=()), dtype="float64")
+
+
+def k2_halo_level_check(gs, st, port) -> dict:
+    """K2's halo form on this rank's slab of the CG-1 correction's fine
+    level, its tables baked at the run's state restricted to the node
+    grid (the path's own), against its plain twin bit for bit."""
+    from fem_glass_tempering_tpu_torch.ops.cuda_stencil import (
+        stencil_matvec_halo,
+        stencil_matvec_halo_reference,
+    )
+    rdmg = gs.rank_dg_mg
+    rmg = rdmg.rank_mg
+    T = st.T.reshape(gs.cell_shape).to(gs.dg_mg.dtype)
+    T0 = rmg.linearization_states(rdmg.tr.restrict_state(T))[0]
+    slab = rmg.slabs[0]
+    if slab is None:
+        fail("13f: the CG-1 correction's fine level is not sharded")
+    vals2 = slab.stencil_values_r(rmg._halo(T0), gs.dt)
+    shape = slab.slab_grid
+    rng = np.random.default_rng(31 + gs.comm.rank)
+    xe = torch.tensor(rng.standard_normal((shape[0] + 2,) + shape[1:]),
+                      dtype=vals2.dtype, device=vals2.device).reshape(-1)
+    y = stencil_matvec_halo(vals2, xe, shape)
+    twin = stencil_matvec_halo_reference(vals2, xe, shape)
+    if not bits_equal(y, twin):
+        fail(f"13f rank {gs.comm.rank}: K2's halo form is not its twin's "
+             f"bits on the fine level's slab {list(shape)}")
+    return dict(slab=list(shape), dtype=str(vals2.dtype),
+                max_abs_err=float((y - twin).abs().max()))
+
+
+def grid_shard_dg_rank(mesh_dev, go, io_root) -> dict:
+    """Phase 13f on one of the two gloo ranks: (a) the small plates, (b)
+    the 64x64x16 plate in f64 (1 + 1 steps), K2's halo form on its fine
+    level's slab, and its output (grid_shard_io, in `io_root`/two); rank 0
+    creates the file `go`/dg_full when (b) is over."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, port = mesh_dev.device, rank_port()
+    t0 = time.perf_counter()
+    out = {name: to_host(grid_shard_run(dev, port, mesh_dev, name, steps,
+                                        tag="13f"))
+           for name, steps in GSDG_SMALL}
+    out["a_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    res = grid_shard_run(dev, port, mesh_dev, "dg_full", 1, warmup=1,
+                         keep=True, tag="13f")
+    gs, st = res.pop("problem"), res.pop("state")
+    res["k2_halo"] = k2_halo_level_check(gs, st, port)
+    res["io"] = grid_shard_io(gs, st, port, os.path.join(io_root, "two"),
+                              tag="13f(b)")
+    if mesh_dev.rank == 0:
+        open(os.path.join(go, "dg_full"), "w").close()
+    del gs, st
+    out["dg_full"] = to_host(res)
+    out["b_s"] = time.perf_counter() - t1
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def grid_shard_dg_one(mesh_dev, go, io_root) -> dict:
+    """Phase 13f over one NCCL rank, in a process of its own that sets up
+    while the two gloo ranks run: (a) the small plates, then (b) the
+    64x64x16 plate in f64, its timed window after the two ranks' (the
+    file `go`/dg_full), K2's halo form and its output (`io_root`/one),
+    then in mixed precision (1 + 1 steps)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, port = mesh_dev.device, rank_port()
+    out = {name: to_host(grid_shard_run(dev, port, mesh_dev, name, steps,
+                                        tag="13f"))
+           for name, steps in GSDG_SMALL}
+    res = grid_shard_run(dev, port, mesh_dev, "dg_full", 1, warmup=1,
+                         keep=True, tag="13f", before=lambda: wait_for(
+                             go, "dg_full", "the two ranks' (b)"))
+    gs, st = res.pop("problem"), res.pop("state")
+    res["k2_halo"] = k2_halo_level_check(gs, st, port)
+    res["io"] = grid_shard_io(gs, st, port, os.path.join(io_root, "one"),
+                              tag="13f(b)")
+    out["dg_full"] = to_host(res)
+    del gs, st, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["dg_full_mixed"] = to_host(grid_shard_run(
+        dev, port, mesh_dev, "dg_full_mixed", 1, warmup=1, tag="13f"))
+    return out
+
+
+def load_phase7b_ref(path: str, timeout: float = 600.0) -> dict:
+    """Phase 7b's f64 reference, once the main process has written it."""
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > timeout:
+            fail(f"13f: phase 7b's reference {path} never appeared")
+        time.sleep(0.5)
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def grid_shard_dg_phase(dev, port, scratch_dir) -> dict:
+    """Phase 13f: GridShardedProblem with DG-1 T on the card. Three
+    processes start at once: one NCCL rank and two gloo ranks, each
+    running (a) the small plates and (b) phase 7b's 64x64x16 plate (the
+    one rank's timed window after the two ranks'), while this process
+    runs (a)'s plates unsharded. (a) is held to the unsharded runs at JAX's
+    tolerances (tests/test_grid_dg.py: T 1e-9 and sigma 1e-8 of their max,
+    1e-5 with mechanics; sharded CG at most 2x + 8) and the two ranks to
+    the one (Newton equal, T max-rel 1e-12); (b) to phase 7b's f64 run
+    (PHASE7B_REF in `scratch_dir`: T 1e-9 of its max, the mixed run's
+    within 7b's 5e-3 K; Newton within one a step, CG at most 2x + 8), and
+    the two ranks to the one."""
+    from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
+    from fem_glass_tempering_tpu_torch.parallel.comm import run_ranks
+    t_phase = time.perf_counter()
+    go = tempfile.mkdtemp(prefix="fgt_13f_")
+    io_root = tempfile.mkdtemp(prefix="io_13f_", dir=scratch_dir)
+    try:
+        with ThreadPoolExecutor(2) as ex:
+            job_two = ex.submit(run_ranks, grid_shard_dg_rank, GS_RANKS, dev,
+                                go, io_root, backend="gloo", timeout=900)
+            job_one = ex.submit(run_ranks, grid_shard_dg_one, 1, dev, go,
+                                io_root, backend="nccl", timeout=900)
+            unsharded = {}
+            for name, steps in GSDG_SMALL:
+                make_mesh, cfg, _ = gs_cases()[name]
+                prob = ThermoViscoProblem(mesh=make_mesh(), config=cfg,
+                                          device=dev)
+                prob.setup()
+                st, ok, ni, ki = prob.multi_step(prob.state, steps)
+                if not ok:
+                    fail(f"13f {name}: the unsharded run did not converge")
+                unsharded[name] = dict(
+                    newton=ni, cg=ki,
+                    **{f: getattr(st, f).cpu().numpy() for f in GS_FIELDS})
+                del prob, st
+            try:
+                ranks = job_two.result()
+            finally:
+                # a failed pair must not leave the one rank waiting
+                open(os.path.join(go, "dg_full"), "a").close()
+            one = job_one.result()[0]
+    finally:
+        shutil.rmtree(go, ignore_errors=True)
+        shutil.rmtree(io_root, ignore_errors=True)
+    processes_s = time.perf_counter() - t_phase
+
+    def rel_max(a, b):
+        return float(np.abs(a - b).max() / max(float(np.abs(b).max()),
+                                                1e-30))
+
+    # ---- (a) the small plates ----
+    a = {}
+    for name, _ in GSDG_SMALL:
+        un = unsharded[name]
+        s_band = 1e-5 if name == "dg_mech" else 1e-8
+        rows = []
+        for who, got in [("one", one[name])] + [
+                (f"rank {r}", rk[name]) for r, rk in enumerate(ranks)]:
+            row = dict(newton=got["newton"], cg=got["cg"],
+                       T=rel_max(got["T"], un["T"]),
+                       sigma=rel_max(got["sigma"], un["sigma"]))
+            if not (row["T"] <= 1e-9 and row["sigma"] <= s_band
+                    and got["cg"] <= 2 * un["cg"] + 8):
+                fail(f"13f {name} {who} against the unsharded run "
+                     f"({un['newton']} / {un['cg']}): {json.dumps(row)}")
+            rows.append(row)
+        two_rel = max_rel(ranks[0][name]["T"], one[name]["T"])
+        # under mixed precision the f32 CG's dots sum in another order on
+        # two ranks, and a Newton test at rtol 1e-12 may take one more
+        # iteration or one fewer (23 against 22 on a CPU at 32x32x8, 22
+        # against 23 on an H100; JAX's on 2 devices 22): one apart there,
+        # equal elsewhere
+        slack = 1 if name == "dg_dryrun_mixed" else 0
+        if any(abs(rk[name]["newton"] - one[name]["newton"]) > slack
+               for rk in ranks) or not two_rel <= 1e-12:
+            fail(f"13f {name}: two ranks against one, Newton "
+                 f"{[rk[name]['newton'] for rk in ranks]} / "
+                 f"{one[name]['newton']}, T max-rel {two_rel:.3e}")
+        a[name] = dict(unsharded_newton_cg=[un["newton"], un["cg"]],
+                       one_and_ranks=rows, two_vs_one_T_max_rel=two_rel)
+    # ---- (b) the plate, against phase 7b ----
+    ref = load_phase7b_ref(os.path.join(scratch_dir, PHASE7B_REF))
+    n7, c7 = float(ref["newton_per_step"]), float(ref["cg_per_step"])
+    b = {}
+    for who, got in [("one", one["dg_full"]),
+                     ("one_mixed", one["dg_full_mixed"])] + [
+            (f"rank{r}", rk["dg_full"]) for r, rk in enumerate(ranks)]:
+        dT = float(np.abs(got["T"] - ref["T"]).max())
+        row = dict(newton_per_step=got["newton_per_step"],
+                   cg_per_step=got["cg_per_step"], newton_cg_7b=[n7, c7],
+                   T_max_abs_K=dT, T_rel_max=dT / float(
+                       np.abs(ref["T"]).max()))
+        band_ok = (dT <= 5e-3 if who == "one_mixed"
+                   else row["T_rel_max"] <= 1e-9)
+        if not (band_ok and abs(got["newton_per_step"] - n7) <= 1
+                and got["cg_per_step"] <= 2 * c7 + 8):
+            fail(f"13f(b) {who} against phase 7b: {json.dumps(row)}")
+        b[who] = row
+    two = ranks[0]["dg_full"]
+    rel = max_rel(two["T"], one["dg_full"]["T"])
+    if (two["newton"] != one["dg_full"]["newton"] or not rel <= 1e-12
+            or ranks[1]["dg_full"]["newton"] != two["newton"]
+            or not np.array_equal(ranks[1]["dg_full"]["T"], two["T"])):
+        fail(f"13f(b): two ranks {two['newton']} / {two['cg']} against one "
+             f"{one['dg_full']['newton']} / {one['dg_full']['cg']}, T "
+             f"max-rel {rel:.3e}")
+    io = [one["dg_full"]["io"]] + [r["dg_full"]["io"] for r in ranks]
+    if len({x["solve_newton"] for x in io}) != 1:
+        fail(f"13f(b) output: the runs disagree "
+             f"({[x['solve_newton'] for x in io]} Newton)")
+
+    def summary(res):
+        return {k: v for k, v in res.items() if k not in GS_FIELDS}
+    out = dict(
+        a=dict(holds=a, ranks=[{n: summary(rk[n]) for n, _ in GSDG_SMALL}
+                               for rk in ranks],
+               world_size_1={n: summary(one[n]) for n, _ in GSDG_SMALL}),
+        b=dict(holds=b, world_size_1=summary(one["dg_full"]),
+               world_size_1_mixed=summary(one["dg_full_mixed"]),
+               ranks=[summary(r["dg_full"]) for r in ranks],
+               two_vs_one_T_max_rel=rel),
+        processes_s=processes_s, ranks_a_s=[r["a_s"] for r in ranks],
+        ranks_b_s=[r["b_s"] for r in ranks])
+    out["s"] = time.perf_counter() - t_phase
+    log("grid sharded DG " + json.dumps(out))
+    return out
+
+
+def grid_shard_dg_launches(gsdg: dict, name: str) -> dict:
+    """A kernel's launches in phase 13f's counted windows, per rank."""
+    out = {}
+    for case, _ in GSDG_SMALL:
+        out[f"{case}_world_size_1"] = gsdg["a"]["world_size_1"][case][
+            "launches"][name]
+        out[f"{case}_ranks"] = [r[case]["launches"][name]
+                                for r in gsdg["a"]["ranks"]]
+    b = gsdg["b"]
+    out["dg_full_world_size_1"] = b["world_size_1"]["launches"][name]
+    out["dg_full_mixed_world_size_1"] = b["world_size_1_mixed"][
+        "launches"][name]
+    out["dg_full_ranks"] = [r["launches"][name] for r in b["ranks"]]
+    if name in ("material_tspace", "stencil_matvec_halo"):
+        for run in ("solve", "resumed"):
+            out[f"dg_full_io_{run}_world_size_1"] = b["world_size_1"]["io"][
+                f"{run}_launches"][name]
+            out[f"dg_full_io_{run}_ranks"] = [
+                r["io"][f"{run}_launches"][name] for r in b["ranks"]]
+    return out
+
+
+# ----------------------------------------------------------------------
 # phase 13e: the multi-process entry (parallel/multihost.py) under
 # torchrun, two gloo ranks on cuda:0 (NCCL refuses two ranks on one card)
 MH_PLATE = (12, 6, 3, 1.0, 1.0, 0.01)
@@ -5043,7 +5410,8 @@ def setup_device() -> torch.device:
 # first group's slack, and 13e after it).
 SIDE_GROUPS = (("5", "12b", "12c", "12d", "12e", "13d64", "13e"),
                ("6a", "7a", "8a"),
-               ("13", "11", "9a", "10a"))
+               ("13", "11", "9a", "10a"),
+               ("13f",))
 
 
 def side_phases(names, t0_epoch, scratch_dir, warmup, k2_per_apply) -> dict:
@@ -5075,6 +5443,7 @@ def side_phases(names, t0_epoch, scratch_dir, warmup, k2_per_apply) -> dict:
         "13": lambda: distributed_phase(dev, port),
         "13d64": lambda: dryrun64_phase(dev, port),
         "13e": lambda: multihost_phase(dev),
+        "13f": lambda: grid_shard_dg_phase(dev, port, scratch_dir),
     }
     out, ends = {}, {}
     for name in names:
@@ -5249,7 +5618,8 @@ def main() -> int:
 
         # ---- phase 7b: the DG-1 plate through "auto" (DG p-multigrid) ----
         drop_garbage("phase 7b")
-        dg_auto = dg_auto_plate_phase(dev, port)
+        dg_auto = dg_auto_plate_phase(
+            dev, port, os.path.join(scratch_dir, PHASE7B_REF))
         phase_end("7")
 
         # ---- phase 8b: equilibrium mechanics at full width ----
@@ -5280,6 +5650,7 @@ def main() -> int:
     d2_parity, cli, dist = side["10a"], side["11"], side["13"]
     bf16_parity, forms, scan = side["12b"], side["12c"], side["12d"]
     native_rt, dry64, multihost = side["12e"], side["13d64"], side["13e"]
+    gsdg = side["13f"]
 
     # ---- phase 9b: the CG-2 plate on the lattice path ----
     drop_garbage("phase 9b")
@@ -5327,6 +5698,8 @@ def main() -> int:
                  dist, "material_tspace"),
              launches_grid_sharded=grid_shard_launches(
                  gshard, dry64, "material_tspace"),
+             launches_grid_sharded_dg=grid_shard_dg_launches(
+                 gsdg, "material_tspace"),
              launches_multihost_rank0=multihost["launches_rank0"][
                  "material_tspace"]),
         dict(name="stencil_matvec", route="cuda",
@@ -5351,7 +5724,9 @@ def main() -> int:
              launches_distributed=distributed_launches(
                  dist, "stencil_matvec"),
              launches_grid_sharded=grid_shard_launches(
-                 gshard, dry64, "stencil_matvec")),
+                 gshard, dry64, "stencil_matvec"),
+             launches_grid_sharded_dg=grid_shard_dg_launches(
+                 gsdg, "stencil_matvec")),
         # K2's halo form (a rank's planes of the grid-sharded step, f32 /
         # f64 tables): launches of phase 13d's plate over one NCCL rank,
         # timed on the two-rank layout's first slab of its fine level
@@ -5370,6 +5745,9 @@ def main() -> int:
              slab=gshard["k2_halo"]["slab"],
              launches_grid_sharded=grid_shard_launches(
                  gshard, dry64, "stencil_matvec_halo"),
+             launches_grid_sharded_dg=grid_shard_dg_launches(
+                 gsdg, "stencil_matvec_halo"),
+             grid_sharded_dg_check=gsdg["b"]["world_size_1"]["k2_halo"],
              launches_multihost_rank0=multihost["launches_rank0"][
                  "stencil_matvec_halo"]),
         # the bf16-table instantiation of K2 (f32 vector: the mixed
@@ -5438,6 +5816,8 @@ def main() -> int:
                  "k3_launches_gpu"],
              launches_distributed=distributed_launches(
                  dist, "dg_cell_residual"),
+             launches_grid_sharded_dg=grid_shard_dg_launches(
+                 gsdg, "dg_cell_residual"),
              launches_degree2_parity={
                  label: case["k3_launches_gpu"]
                  for label, case in d2_parity.items()},
@@ -5471,6 +5851,7 @@ def main() -> int:
     log("summary distributed " + json.dumps(dist))
     log("summary grid sharded " + json.dumps(gshard))
     log("summary multihost " + json.dumps(multihost))
+    log("summary grid sharded DG " + json.dumps(gsdg))
     log("summary phase end times, s " + json.dumps(ends))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

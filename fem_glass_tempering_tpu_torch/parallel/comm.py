@@ -17,6 +17,10 @@ a torch.distributed group, and every collective is a sum over the ranks:
   for rows scattered over a global vector.
 - `halo_exchange` gives each rank of a grid split along axis 0 its
   neighbours' adjacent planes through that all-gather.
+- `Repartition` moves windows of a tensor split along axis 0 from one
+  split to another (the DG-1 cell grid's and the CG-1 node grid's of
+  the grid-sharded step), through one such all-gather of the rows that
+  other ranks need.
 - `all_reduce_max` is the one collective that is not a sum (a bound taken
   over the ranks); a max is exact in any order.
 
@@ -192,6 +196,65 @@ def halo_exchange(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
 
 
 halo_exchange.count = 0
+
+
+class Repartition:
+    """Rows of a tensor split along axis 0 in one layout -> windows of it
+    in another: rank p holds global rows `src_rows[p]` = [a, b) (every
+    rank's, in rank order, contiguous) and receives rows `windows[p]` =
+    [c, d) (empty where c >= d), on every rank. Each rank contributes the
+    hull of the rows that the other ranks need from it to one summed
+    all-gather of those slots (exact, as `all_gather`); none where no rank
+    needs another's rows, or at world size 1. Counted in
+    `Repartition.count`. Every rank must apply it together, with the same
+    plan."""
+
+    count = 0
+
+    def __init__(self, src_rows, windows, mesh: DeviceMesh):
+        self.src_rows = [tuple(r) for r in src_rows]
+        self.windows = [tuple(w) for w in windows]
+        self.mesh = mesh
+        # (source rank, first row, last row + 1, offset in the buffer)
+        self.slots, off = [], 0
+        for q, (a, b) in enumerate(self.src_rows):
+            need = [(max(a, c), min(b, d))
+                    for p, (c, d) in enumerate(self.windows)
+                    if p != q and max(a, c) < min(b, d)]
+            if need:
+                lo = min(x for x, _ in need)
+                hi = max(y for _, y in need)
+                self.slots.append((q, lo, hi, off))
+                off += hi - lo
+        self.total = off
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """x: this rank's rows (b - a, ...) -> its window (d - c, ...)."""
+        r = self.mesh.rank
+        a, _ = self.src_rows[r]
+        c, d = self.windows[r]
+        buf = None
+        if self.total:
+            Repartition.count += 1
+            buf = torch.full((self.total,) + tuple(x.shape[1:]), -0.0,
+                             dtype=x.dtype, device=x.device)
+            for q, lo, hi, off in self.slots:
+                if q == r:
+                    buf[off:off + hi - lo] = x[lo - a:hi - a]
+            buf = all_reduce_sum(buf, self.mesh)
+        parts = []
+        for q, (qa, qb) in enumerate(self.src_rows):
+            lo, hi = max(qa, c), min(qb, d)
+            if lo >= hi:
+                continue
+            if q == r:
+                parts.append(x[lo - a:hi - a])
+                continue
+            s = next(s for s in self.slots if s[0] == q)
+            parts.append(buf[s[3] + lo - s[1]:s[3] + hi - s[1]])
+        if not parts:
+            return x[:0]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def _rank_main(fn, rank, world_size, init_method, device, backend, threads,

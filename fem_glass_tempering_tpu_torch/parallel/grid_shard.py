@@ -35,9 +35,26 @@ torch.distributed group (parallel/comm.py) and writes them out:
   files): each rank writes its planes' pieces, and a checkpoint loads
   onto any rank count that pads the grid to as many planes.
 
-The CG-1 route is ported, with and without mechanics. DG-1 T
-(`_init_dg`) and CG-2 T (`_init_q2`) raise NotImplementedError, naming
-the slice of the port that brings them (ROADMAP.md Queue 1).
+DG-1 T (`_init_dg`, the reference's default element) keeps JAX's
+cell-grid layout: the T-space fields (T, T_prev, Tf, Tf_prev,
+Tf_partial, phi, xi) live on the cell grid (cx, cy, cz, nloc), axis 0
+padded with `cell_pad0 = (-cx) % P` edge-replicated ghost cell layers,
+rank p holding layers [p Lc, (p + 1) Lc); the sigma-space fields stay on
+the node grid as above. The heat operator is GridDGOperator's slab of the
+rank's layers (solver/grid_dg.py), the preconditioner DGMultigrid's grid
+route in its rank form (RankDGMultigrid, its CG-1 correction RankGridMG
+on the rank's node rows). JAX's solve never sees a ghost cell (it slices
+the state to the physical cells first), so here the ghost rows are zero
+rows of the residual and of every Jacobian action and preconditioner
+apply, and every dot, norm, mean and finiteness test reads the real
+cells alone; at step exit the ghost layers are edge-padded from cell
+layer cx - 1, which may lie on another rank (one summed all-gather). The
+sigma cross evaluation (dg_to_nodes_g) maps the rank's cells to its
+node rows through one re-partition (CellNodeTransfers).
+
+The CG-1 and DG-1 routes are ported, with and without mechanics; CG-2 T
+(`_init_q2`) raises NotImplementedError, naming the slice of the port
+that brings it (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -75,8 +92,16 @@ from fem_glass_tempering_tpu_torch.parallel.comm import (
     halo_exchange,
     make_device_mesh,
 )
+from fem_glass_tempering_tpu_torch.solver.grid_dg import (
+    CellNodeTransfers,
+    GridDGOperator,
+    RankDGMultigrid,
+    dg_vertex_offsets,
+)
 from fem_glass_tempering_tpu_torch.solver.grid_mg import GridMG, RankGridMG
+from fem_glass_tempering_tpu_torch.solver.multigrid import DGMultigrid
 from fem_glass_tempering_tpu_torch.solver.newton import newton_solve
+
 
 
 def _waits_for(slice_: str, what: str) -> NotImplementedError:
@@ -88,20 +113,24 @@ def _waits_for(slice_: str, what: str) -> NotImplementedError:
 class GridShardedProblem:
     """Coupled thermo-viscoelastic tempering, this rank's share of a grid
     split along axis 0 over `device_mesh` (default: a group of one rank on
-    the GPU). Needs a uniform box mesh, CG-1 T and CG-1 sigma.
+    the GPU). Needs a uniform box mesh, CG-1 or DG-1 T and CG-1 sigma.
     `flux_marker(midpoints) -> bool mask` restricts the radiation +
     convection flux to whole box faces, as `ThermoViscoProblem.setup`'s
     does (the V-cycle's coarse levels keep the whole boundary's, as
-    there); JAX's class has no such option: it is here so that a sharded
-    run can be held to an unsharded one with that flux (chip_smoke.py
-    13d(c), phase 8b's plate). Every rank must call `step` / `run` / `solve` /
-    `save_checkpoint` / `gather_state` together. With mechanics,
-    `last_mech_iters` holds the elasticity CG count of each step of the
-    last `step` / `run` / `solve`,
-    `last_mech_converged` whether each met its tolerance (a step's
-    `converged` is its heat solve's, as in JAX), and
-    `last_mech_collectives` the collectives of each step's elasticity
-    solve."""
+    there; CG-1 T only); JAX's class has no such option: it is here so
+    that a sharded run can be held to an unsharded one with that flux
+    (chip_smoke.py 13d(c), phase 8b's plate). Every rank must call `step` /
+    `run` / `solve` / `save_checkpoint` / `gather_state` together. With
+    mechanics, `last_mech_iters` holds the elasticity CG count of each
+    step of the last `step` / `run` / `solve`, `last_mech_converged`
+    whether each met its tolerance (a step's `converged` is its heat
+    solve's, as in JAX), and `last_mech_collectives` the collectives of
+    each step's elasticity solve. With DG-1 T, `cell_halos` counts the
+    halo exchanges of cell layers this rank has made."""
+
+    _TSPACE_FIELDS = frozenset(
+        {"T", "T_prev", "Tf", "Tf_prev", "Tf_partial", "phi", "xi"})
+    is_dg = False
 
     def __init__(self, mesh: Mesh, config: RunConfig,
                  device_mesh: DeviceMesh | None = None, *,
@@ -117,12 +146,14 @@ class GridShardedProblem:
             raise ValueError("GridShardedProblem needs a CG-1 sigma space")
         if mesh.structured is None:
             raise ValueError("GridShardedProblem needs a structured box mesh")
-        if fe.T_family == "DG":
-            raise _waits_for("7e", "DG-1 temperature (_init_dg)")
-        if fe.T_degree == 2:
+        if fe.T_family == "CG" and fe.T_degree == 2:
             raise _waits_for("7f", "CG-2 temperature (_init_q2)")
+        self.is_dg = fe.T_family == "DG"
+        if self.is_dg and flux_marker is not None:
+            raise ValueError("GridShardedProblem: DG-1 T takes the flux of "
+                             "the whole boundary (no flux_marker)")
         if config.solver.preconditioner == "auto":
-            # structured CG-1: 'auto' is the grid-native multigrid
+            # structured degree 1: 'auto' is the grid-native (p-)multigrid
             config = dataclasses.replace(config, solver=dataclasses.replace(
                 config.solver, preconditioner="mg"))
         self.config = config
@@ -150,16 +181,20 @@ class GridShardedProblem:
             shift_function=config.shift_function,
             xi_formula=config.xi_formula, dtype=self.dtype,
             device=self.device)
-        assert self.engine.to_sigma.same_space("T"), \
-            "CG-1/CG-1 must share the scalar dofmap"
-        heat_form = config.heat_form
         self._mixed = (config.solver.cg_dtype == "float32"
                        and self.dtype == torch.float64)
+        self.last_mech_iters: list[int] = []
+        self.last_mech_converged: list[bool] = []
+        self.last_mech_collectives: list[int] = []
+        if self.is_dg:
+            self._init_dg(mesh, config, t0)
+            self._build_step()
+            return
+        assert self.engine.to_sigma.same_space("T"), \
+            "CG-1/CG-1 must share the scalar dofmap"
 
         def heat_operator(dtype, fs=self.fs_T, marker=None):
-            return HeatOperator(fs, self.params, self.dt, dtype=dtype,
-                                device=self.device, form=heat_form,
-                                flux_marker=marker)
+            return self._heat_operator(dtype, fs, flux_marker=marker)
 
         # the padded grid: ghost planes up to a multiple of the ranks
         gx = mesh.structured["dims"][0] + 1
@@ -191,59 +226,153 @@ class GridShardedProblem:
                 self.grid_op32 if self._mixed else self.grid_op,
                 lambda level_mesh: heat_operator(
                     mg_dtype, FunctionSpace(level_mesh, "CG", 1)),
-                smoother=sc.mg_smoother, nu_pre=sc.mg_nu_pre,
-                nu_post=sc.mg_nu_post,
-                # 'dense' maps to 'auto': GridMG's dense coarse level is
-                # always the auto stopping rule
-                coarse="smooth" if sc.mg_coarse == "smooth" else "auto")
+                **self._mg_kwargs())
             self.grid_mg.freeze_rhos(self.dt)
             self.rank_mg = RankGridMG(self.grid_mg, self.comm, self.rows)
         self.setup_seconds["mg"] = _time.perf_counter() - t1
-        # equilibrium mechanics: JAX's tolerances (models/problem.py's):
-        # the elasticity CG to min(cg_rtol, 1e-8), at least 2e-6 in f32,
-        # where its residual norms bottom out; mech_inc_rtol None -> 1e-2
-        self.mech = None
-        self.last_mech_iters: list[int] = []
-        self.last_mech_converged: list[bool] = []
-        self.last_mech_collectives: list[int] = []
-        if config.mechanics == "equilibrium":
-            t2 = _time.perf_counter()
-            mech_rtol = min(sc.cg_rtol, 1e-8)
-            if self.dtype == torch.float32:
-                mech_rtol = max(mech_rtol, 2e-6)
-            mech_inc = (1e-2 if sc.mech_inc_rtol is None
-                        else sc.mech_inc_rtol)
-            self.mech = GridMechanicsCoupling(
-                self.fs_sigma, self.engine, dtype=self.dtype,
-                cg_rtol=mech_rtol, inc_rtol=mech_inc, pad_axis0=self.pad0,
-                grid_shaped=True).rank_form(self.comm, self.rows)
-            self.setup_seconds["mechanics"] = _time.perf_counter() - t2
+        self._init_mech()
         self._build_step()
+
+    def _heat_operator(self, dtype, fs, **kw):
+        return HeatOperator(fs, self.params, self.dt, dtype=dtype,
+                            device=self.device, form=self.config.heat_form,
+                            **kw)
+
+    def _mg_kwargs(self) -> dict:
+        sc = self.config.solver
+        # 'dense' maps to 'auto': GridMG's dense coarse level is always
+        # the auto stopping rule
+        return dict(smoother=sc.mg_smoother, nu_pre=sc.mg_nu_pre,
+                    nu_post=sc.mg_nu_post,
+                    coarse="smooth" if sc.mg_coarse == "smooth" else "auto")
+
+    def _init_mech(self) -> None:
+        """Equilibrium mechanics on the padded node grid's rank rows, at
+        JAX's tolerances (models/problem.py's): the elasticity CG to
+        min(cg_rtol, 1e-8), at least 2e-6 in f32, where its residual norms
+        bottom out; mech_inc_rtol None -> 1e-2."""
+        self.mech = None
+        sc = self.config.solver
+        if self.config.mechanics != "equilibrium":
+            return
+        t2 = _time.perf_counter()
+        mech_rtol = min(sc.cg_rtol, 1e-8)
+        if self.dtype == torch.float32:
+            mech_rtol = max(mech_rtol, 2e-6)
+        mech_inc = 1e-2 if sc.mech_inc_rtol is None else sc.mech_inc_rtol
+        self.mech = GridMechanicsCoupling(
+            self.fs_sigma, self.engine, dtype=self.dtype,
+            cg_rtol=mech_rtol, inc_rtol=mech_inc, pad_axis0=self.pad0,
+            grid_shaped=True).rank_form(self.comm, self.rows)
+        self.setup_seconds["mechanics"] = _time.perf_counter() - t2
+
+    def _init_dg(self, mesh: Mesh, config: RunConfig, t0: float) -> None:
+        """DG-1 temperature (JAX's `_init_dg`): the cell-grid layout
+        (module docstring), GridDGOperator's slab, DGMultigrid's grid
+        route in its rank form; the sigma fields and the mechanics on the
+        padded node grid as in the CG-1 route."""
+        sc = config.solver
+        P, rank = self.n_devices, self.comm.rank
+        dims = tuple(mesh.structured["dims"])
+        self.cell_dims = dims
+        self.cell_pad0 = (-dims[0]) % P
+        self._vert_offs, self._ngrid_base = dg_vertex_offsets(mesh)
+        self.nloc = self.fs_T.element.nloc
+        gx = self._ngrid_base[0]
+        self.pad0 = (-gx) % P
+        self.grid = (gx + self.pad0,) + self._ngrid_base[1:]
+        L = self.grid[0] // P
+        self.rows = [(r * L, (r + 1) * L) for r in range(P)]
+        self.slab_shape = (L,) + self.grid[1:]
+        Lc = (dims[0] + self.cell_pad0) // P
+        self.cell_rows = [(r * Lc, (r + 1) * Lc) for r in range(P)]
+        self.cell_shape = (Lc,) + dims[1:] + (self.nloc,)
+        c0 = self.cell_rows[rank][0]
+        self.n_real_cells = max(0, min(c0 + Lc, dims[0]) - c0)
+        self.cell_halos = 0
+
+        def heat_operator(dtype):
+            return self._heat_operator(dtype, self.fs_T,
+                                       interior_device_tables=False)
+
+        self.heat = heat_operator(self.dtype)
+        self.dg_op = GridDGOperator(self.heat)
+        self.slab = self.dg_op.slab(*self.cell_rows[rank])
+        self.dg_op32 = self.slab32 = heat32 = None
+        if self._mixed:
+            heat32 = heat_operator(torch.float32)
+            self.dg_op32 = GridDGOperator(heat32)
+            self.slab32 = self.dg_op32.slab(*self.cell_rows[rank])
+        self.grid_op = self.grid_op32 = None
+        # the sigma space's cross evaluation: the rank's cells -> its rows
+        # of the node grid
+        self.to_nodes = CellNodeTransfers(
+            self._vert_offs, dims, self.cell_rows, self.rows, self.comm)
+        self.setup_seconds["operator"] = _time.perf_counter() - t0
+        t1 = _time.perf_counter()
+        self.dg_mg = self.rank_dg_mg = None
+        self.grid_mg = self.rank_mg = None
+        if sc.preconditioner == "mg":
+            mg_dtype = torch.float32 if self._mixed else self.dtype
+            self.dg_mg = DGMultigrid(
+                heat32 if self._mixed else self.heat,
+                lambda level_mesh: self._heat_operator(
+                    mg_dtype, FunctionSpace(level_mesh, "CG", 1)),
+                dtype=mg_dtype, smoother=sc.dg_smoother, coarse_kind="grid",
+                grid_pad0=self.pad0, mg_kwargs=self._mg_kwargs())
+            self.dg_mg.freeze(float(self.params.T_0), self.dt)
+            self.rank_dg_mg = RankDGMultigrid(self.dg_mg, self.comm,
+                                              self.cell_rows, self.rows)
+            # the CG-1 correction's V-cycle and its rank form
+            self.grid_mg = self.dg_mg.cg_mg
+            self.rank_mg = self.rank_dg_mg.rank_mg
+        self.setup_seconds["mg"] = _time.perf_counter() - t1
+        self._init_mech()
 
     # ---- layout ----------------------------------------------------------
     def _halo(self, x):
         return halo_exchange(x, self.comm)
 
+    def _cell_halo(self, x):
+        n0 = halo_exchange.count
+        out = halo_exchange(x, self.comm)
+        self.cell_halos += halo_exchange.count - n0
+        return out
+
     def _dot(self, a, b):
-        """The global dot: this rank's partial sum, summed over the ranks."""
+        """The global dot: this rank's partial sum, summed over the ranks
+        (of a T-space vector under DG-1, over its real cells)."""
+        if self.is_dg and self.n_real_cells < self.cell_shape[0]:
+            n, L = self.n_real_cells, self.cell_shape[0]
+            a, b = a.reshape(L, -1)[:n], b.reshape(L, -1)[:n]
         return all_reduce_sum(torch.dot(a.reshape(-1), b.reshape(-1)),
                               self.comm)
 
+    def _is_cellgrid(self, name: str) -> bool:
+        return self.is_dg and name in self._TSPACE_FIELDS
+
+    def _field_rows(self, name: str) -> tuple:
+        """(physical planes, ghost planes, this rank's [lo, hi)) of the
+        grid that field `name` lives on."""
+        if self._is_cellgrid(name):
+            return (self.cell_dims[0], self.cell_pad0,
+                    self.cell_rows[self.comm.rank])
+        return self._ngrid_base[0], self.pad0, self.rows[self.comm.rank]
+
     def shard_state(self, state: ViscoState) -> ViscoState:
         """A flat global state (any device) -> this rank's rows of the
-        padded grid, the ghost planes edge-padded (JAX's `_to_grid`, then
+        padded grids, the ghost planes edge-padded (JAX's `_to_grid`, then
         shard p)."""
-        lo, hi = self.rows[self.comm.rank]
-        gx = self._ngrid_base[0]
 
         def f(name, a):
             if name == "t" or a is None:
                 return a
             a = a.to(device=self.device, dtype=self.dtype)
-            g = a.reshape((gx, -1) + tuple(a.shape[1:]))
-            if self.pad0:
+            n0, pad, (lo, hi) = self._field_rows(name)
+            g = a.reshape((n0, -1) + tuple(a.shape[1:]))
+            if pad:
                 g = torch.cat([g, g[-1:].expand(
-                    (self.pad0,) + tuple(g.shape[1:]))])
+                    (pad,) + tuple(g.shape[1:]))])
             return g[lo:hi].reshape((-1,) + tuple(a.shape[1:])).contiguous()
         return ViscoState(**{k: f(k, getattr(state, k))
                              for k in ViscoState._fields})
@@ -253,15 +382,16 @@ class GridShardedProblem:
         stresses (the engine's, on the rank's rows; ghost rows alike)."""
         p = self.params
         n, d = int(np.prod(self.slab_shape)), self.mesh.tdim
+        nT = int(np.prod(self.cell_shape)) if self.is_dg else n
         f = lambda shape, v=0.0: torch.full(  # noqa: E731
             shape, v, dtype=self.dtype, device=self.device)
         tens = lambda: f((n, d, d))  # noqa: E731
         tab = lambda: f((n, TABLEAU_SIZE, d, d))  # noqa: E731
         return ViscoState(
-            t=f(()), T=f((n,), p.T_0), T_prev=f((n,), p.T_0),
-            Tf=f((n,), p.T_0), Tf_prev=f((n,), p.T_0),
-            Tf_partial=f((n, TABLEAU_SIZE), p.T_0), phi=f((n,)), xi=f((n,)),
-            thermal_strain=tens(), total_strain=tens(),
+            t=f(()), T=f((nT,), p.T_0), T_prev=f((nT,), p.T_0),
+            Tf=f((nT,), p.T_0), Tf_prev=f((nT,), p.T_0),
+            Tf_partial=f((nT, TABLEAU_SIZE), p.T_0), phi=f((nT,)),
+            xi=f((nT,)), thermal_strain=tens(), total_strain=tens(),
             deviatoric_strain=tens(), s_tilde=tab(), sigma_tilde=tab(),
             s_partial=tab(), sigma_partial=tab(), sigma=tens(),
             du=f((n, d)))
@@ -269,26 +399,65 @@ class GridShardedProblem:
     def gather_state(self, state: ViscoState) -> ViscoState:
         """The flat global state on the host (CPU tensors, the ghost planes
         dropped: JAX's `gather_state`), on every rank."""
-        n = self.fs_T.n_scalar_dofs
 
         def f(name, a):
             if name == "t" or a is None:
                 return a if a is None else a.cpu()
+            n0, _, (lo, hi) = self._field_rows(name)
+            n = n0 * (a.shape[0] // (hi - lo))
             return all_gather(a.contiguous(), self.comm)[:n].cpu()
         return ViscoState(**{k: f(k, getattr(state, k))
                              for k in ViscoState._fields})
+
+    def _edge_fill(self, state: ViscoState) -> ViscoState:
+        """The ghost cell layers of the T-space fields, edge-padded from
+        cell layer cx - 1 (JAX's `pad_cs`): one summed all-gather of that
+        layer where a rank other than its holder holds ghost layers."""
+        if not self.cell_pad0:
+            return state
+        cx, rank = self.cell_dims[0], self.comm.rank
+        Lc = self.cell_shape[0]
+        src = (cx - 1) // Lc
+        ghost_ranks = [q for q, (a, b) in enumerate(self.cell_rows)
+                       if b > cx]
+        names = [k for k in sorted(self._TSPACE_FIELDS)
+                 if getattr(state, k) is not None]
+        rows = {k: getattr(state, k).reshape((Lc, -1) + tuple(
+            getattr(state, k).shape[1:])) for k in names}
+        if any(q != src for q in ghost_ranks):
+            if rank == src:
+                layer = torch.cat([rows[k][cx - 1 - src * Lc].reshape(-1)
+                                   for k in names])
+            else:
+                layer = torch.full((sum(rows[k][0].numel() for k in names),),
+                                   -0.0, dtype=self.dtype,
+                                   device=self.device)
+            layer = all_reduce_sum(layer, self.comm)
+        elif rank == src:
+            layer = torch.cat([rows[k][cx - 1 - src * Lc].reshape(-1)
+                               for k in names])
+        if rank not in ghost_ranks:
+            return state
+        g0 = max(cx - rank * Lc, 0)
+        out, off = {}, 0
+        for k in names:
+            r = rows[k]
+            n = r[0].numel()
+            edge = layer[off:off + n].reshape((1,) + tuple(r.shape[1:]))
+            off += n
+            out[k] = torch.cat([r[:g0], edge.expand(
+                (Lc - g0,) + tuple(r.shape[1:]))]).reshape(
+                    getattr(state, k).shape)
+        return state._replace(**out)
 
     # ---- the step ----------------------------------------------------------
     def _build_step(self) -> None:
         sc = self.config.solver
         engine = self.engine
-        shape = self.slab_shape
-        halo = self._halo
         mixed = self._mixed
         f32 = torch.float32
         op_main = self.slab
         op_fast = self.slab32 if mixed else self.slab
-        rmg = self.rank_mg
         mech_fn = self.mech
         # f32 residual norms cannot certify tighter than ~1e-6
         cg_rtol = max(sc.cg_rtol, 1e-6) if mixed else sc.cg_rtol
@@ -298,9 +467,51 @@ class GridShardedProblem:
         inc_forcing = (0.05 if sc.newton_inc_forcing is None
                        else sc.newton_inc_forcing)
         cast = (lambda T: T.to(f32)) if mixed else (lambda T: T)
+        if self.is_dg:
+            # the slab's views: its state argument is the rank's cells
+            # (the residual reads a halo of T), the halo of its vectors
+            # one of cell layers
+            shape, halo = self.cell_shape, self._cell_halo
+            rdmg = self.rank_dg_mg
+            lin = lambda T: T.reshape(shape)  # noqa: E731
 
-        def ext(T):
-            return halo(T.reshape(shape))
+            def total(s):
+                return all_reduce_sum(s, self.comm)
+
+            def residual_fn(state, dt):
+                Tp = state.T.reshape(shape)
+                return lambda T: op_main.residual_r(
+                    halo(T.reshape(shape)), Tp, dt, total).reshape(-1)
+
+            def precond(T, dt, mv):
+                pc = rdmg.preconditioner(T, dt, mv)
+                return lambda r: pc(r.reshape(shape)).reshape(-1)
+
+            # the sigma space's cross evaluation, and the elasticity
+            # coupling's node-grid scalars through it (JAX's _DGMech)
+            def ident(name, arr):
+                return self.to_nodes.to_nodes(arr.reshape(shape)).reshape(-1)
+            if mech_fn is not None:
+                mech_fn = _DGMech(mech_fn, ident)
+        else:
+            shape, halo = self.slab_shape, self._halo
+            rmg = self.rank_mg
+
+            def lin(T):
+                return halo(T.reshape(shape))
+
+            def residual_fn(state, dt):
+                Tp_ext = lin(state.T)
+                return lambda T: op_main.residual_r(
+                    lin(T), Tp_ext, dt).reshape(-1)
+
+            def precond(T, dt, mv):
+                return rmg.preconditioner(rmg.linearization_states(T), dt)
+
+            # CG-1 / CG-1: the cross-space evaluation is the identity
+            def ident(name, arr):
+                return arr
+        has_pc = self.rank_mg is not None
 
         def build_ops(lin_state, dt, lag_mech=False):
             """The operator bundle at the chunk-start state (frozen there
@@ -310,23 +521,30 @@ class GridShardedProblem:
             steps (the CG system stays each step's own)."""
             T_lin = lin_state.T
 
+            def slab_mv(T):
+                return op_fast.make_matvec_r(lin(cast(T)), dt, halo)
+
             def matvec_fn(T):
-                mv = op_fast.make_matvec_r(ext(cast(T)), dt, halo)
+                mv = slab_mv(T)
                 return lambda v: mv(v.reshape(shape)).reshape(-1)
             precond_fn = diag_fn = None
-            if rmg is not None:
+            if has_pc:
                 def precond_fn(T):
-                    return rmg.preconditioner(rmg.linearization_states(
-                        cast(T).reshape(shape)), dt)
+                    return precond(cast(T).reshape(shape), dt,
+                                   slab_mv(T) if self.is_dg else None)
             else:
                 def diag_fn(T):
-                    return op_fast.jacobian_diag_r(ext(cast(T)),
+                    return op_fast.jacobian_diag_r(lin(cast(T)),
                                                    dt).reshape(-1)
             if sc.jac_lag == "step":
-                _mv = matvec_fn(T_lin)
+                mv = slab_mv(T_lin)
+                _mv = lambda v, _m=mv: _m(  # noqa: E731
+                    v.reshape(shape)).reshape(-1)
                 matvec_fn = lambda T, _m=_mv: _m  # noqa: E731
-                if precond_fn is not None:
-                    _pc = precond_fn(T_lin)
+                if has_pc:
+                    # under DG-1 the preconditioner's smoother applies
+                    # the step's Jacobian action
+                    _pc = precond(cast(T_lin).reshape(shape), dt, mv)
                     precond_fn = lambda T, _p=_pc: _p  # noqa: E731
                 if diag_fn is not None:
                     _dg = diag_fn(T_lin)
@@ -334,13 +552,13 @@ class GridShardedProblem:
             noise_fn = None
             if noise_rel:
                 def noise_fn(T):
-                    d = op_main.jacobian_diag_r(ext(T), dt).reshape(-1) * T
+                    d = op_main.jacobian_diag_r(lin(T), dt).reshape(-1) * T
                     return noise_rel * torch.sqrt(self._dot(d, d))
             inc_diag = None
             if inc_forcing:
                 # the frozen magnitude scale: the f32 twin's when it
                 # exists, else the production operator's
-                inc_diag = op_fast.jacobian_diag_r(ext(cast(T_lin)),
+                inc_diag = op_fast.jacobian_diag_r(lin(cast(T_lin)),
                                                    dt).reshape(-1)
             mech_pre = (mech_fn.build_precond(lin_state)
                         if (lag_mech and mech_fn is not None) else None)
@@ -351,10 +569,8 @@ class GridShardedProblem:
         def step(state: ViscoState, dt, ops=None):
             if ops is None:
                 ops = build_ops(state, dt)
-            Tp_ext = ext(state.T)
             res = newton_solve(
-                lambda T: op_main.residual_r(ext(T), Tp_ext, dt).reshape(-1),
-                state.T, jac_diag_fn=ops["diag_fn"],
+                residual_fn(state, dt), state.T, jac_diag_fn=ops["diag_fn"],
                 precond_fn=ops["precond_fn"], matvec_fn=ops["matvec_fn"],
                 noise_fn=ops["noise_fn"], rtol=sc.newton_rtol,
                 atol=sc.newton_atol, max_it=sc.newton_max_it,
@@ -365,16 +581,21 @@ class GridShardedProblem:
             if ops["mech_pre"] is not None:
                 mech_call = (lambda st, xi, th, _p=ops["mech_pre"]:
                              mech_fn(st, xi, th, precond=_p))
-            # CG-1 / CG-1: the cross-space evaluation is the identity
-            new_state = engine.material_step_with(
-                state, res.x, lambda name, arr: arr, dt, mech=mech_call)
-            if mech_fn is not None:
-                self.last_mech_iters.append(int(mech_fn.last_cg_iters))
-                self.last_mech_converged.append(mech_fn.last_converged)
-                self.last_mech_collectives.append(mech_fn.last_collectives)
+            new_state = engine.material_step_with(state, res.x, ident, dt,
+                                                  mech=mech_call)
+            if self.is_dg:
+                new_state = self._edge_fill(new_state)
+            if self.mech is not None:
+                self.last_mech_iters.append(int(self.mech.last_cg_iters))
+                self.last_mech_converged.append(self.mech.last_converged)
+                self.last_mech_collectives.append(
+                    self.mech.last_collectives)
             # Newton's test reads global norms (the same on every rank);
-            # finiteness is summed over the ranks
-            bad = (~torch.isfinite(res.x)).any().to(self.dtype)
+            # finiteness is summed over the ranks (the real cells' alone)
+            x = res.x
+            if self.is_dg:
+                x = x.reshape(shape[0], -1)[:self.n_real_cells]
+            bad = (~torch.isfinite(x)).any().to(self.dtype)
             finite = bool(all_reduce_sum(bad, self.comm) == 0)
             return new_state, res.converged and finite, res.iters, \
                 res.krylov_iters
@@ -398,6 +619,7 @@ class GridShardedProblem:
 
         self._step_fn = step
         self._multi_step_fn = multi_step
+
 
     # ------------------------------------------------------------------
     def step(self, state: ViscoState):
@@ -438,7 +660,7 @@ class GridShardedProblem:
                 fields=tuple(f for f in oc.npz_fields
                              if f in ViscoState._fields),
                 grid=self.grid, pad0=self.pad0, rank=self.comm.rank,
-                world_size=self.n_devices)
+                world_size=self.n_devices, **self._cell_layout())
         t0 = _time.perf_counter()
         done = ni_tot = ki_tot = 0
         mech_iters, mech_conv, mech_coll = [], [], []
@@ -474,8 +696,22 @@ class GridShardedProblem:
         self.krylov_iters = ki_tot
         return state
 
+    def _cell_layout(self) -> dict:
+        """The writer's cell-grid keywords (JAX's `solve`): DG-1 T-space
+        fields on the padded cell grid with its local-dof axis."""
+        if not self.is_dg:
+            return {}
+        return dict(cell_grid=(self.cell_dims[0] + self.cell_pad0,)
+                    + self.cell_dims[1:], cell_pad0=self.cell_pad0,
+                    cell_fields=tuple(sorted(self._TSPACE_FIELDS)),
+                    cell_local_axis=True)
+
     def _layout(self) -> PlaneLayout:
-        return PlaneLayout(self.grid, self.comm.rank, self.n_devices)
+        kw = self._cell_layout()
+        kw.pop("cell_pad0", None)
+        if kw:
+            kw["cell_fields"] = frozenset(kw["cell_fields"])
+        return PlaneLayout(self.grid, self.comm.rank, self.n_devices, **kw)
 
     def _sync(self) -> None:
         """Return once every rank has come here (one collective): what a
@@ -499,3 +735,19 @@ class GridShardedProblem:
                                            device=self.device,
                                            dtype=self.dtype)
         return state
+
+
+class _DGMech:
+    """JAX's `_DGMech` shim: the elasticity coupling takes node-grid
+    scalars, so the cell-grid xi and thermal-strain scalar pass through
+    the sigma cross evaluation `ident` first."""
+
+    def __init__(self, mech, ident):
+        self.mech, self.ident = mech, ident
+
+    def __call__(self, st, xi, th, precond=None):
+        return self.mech(st, self.ident("T", xi), self.ident("T", th),
+                         precond=precond)
+
+    def build_precond(self, st):
+        return self.mech.build_precond(st._replace(xi=self.ident("T", st.xi)))

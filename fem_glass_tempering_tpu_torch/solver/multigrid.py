@@ -14,7 +14,9 @@ hand-written CUDA stencil kernel on the GPU.
 DGMultigrid is the p-multigrid of an SIPG DG-1 space on a box: Chebyshev
 smoothing over a block, column or point solve with the DG block stencil
 (ops/stencil.py DGStencilMatrix), and a correction through the CG-1 space
-of the same mesh, i.e. through GeometricMG.
+of the same mesh, i.e. through GeometricMG, or (coarse_kind="grid", the
+grid-sharded step's route) through GridMG on a node grid padded along
+axis 0, with grid-shaped transfers, smoother solve and apply.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from fem_glass_tempering_tpu_torch.fem.mesh import (
     Mesh,
@@ -35,6 +38,10 @@ from fem_glass_tempering_tpu_torch.ops.stencil import (
     DGStencilMatrix,
     StencilMatrix,
     _bmv,
+)
+from fem_glass_tempering_tpu_torch.solver.grid_dg import (
+    _prolong_window,
+    _restrict_window,
 )
 
 
@@ -369,12 +376,6 @@ class GeometricMG:
         return g.contiguous().reshape(-1)
 
 
-def _waits_for_slice7(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} (the sharded DG route) waits for Slice 7 of the PyTorch "
-        f"port (ROADMAP.md)")
-
-
 class DGMultigrid:
     """p-multigrid preconditioner for SIPG DG-1 on structured box meshes.
 
@@ -389,8 +390,12 @@ class DGMultigrid:
     so P^T A_dg P is the rediscretised CG-1 operator for the mass,
     stiffness and boundary terms.
 
-    Single-device route only: coarse_kind="grid", grid_pad0 and the
-    grid-shaped methods (`*_g`) belong to the sharded DG path.
+    coarse_kind="grid" is the route of the grid-sharded step
+    (parallel/grid_shard.py): the CG-1 correction runs through GridMG
+    (solver/grid_mg.py) on a node grid whose axis 0 carries `grid_pad0`
+    ghost planes, and the grid-shaped methods (`*_g`) take (cx, cy, cz,
+    nloc) cell grids and (gx, gy, gz) node grids; solver/grid_dg.py
+    RankDGMultigrid runs it on one rank's cells.
     """
 
     def __init__(self, dg_op, make_cg_operator, *, nu: int = 1,
@@ -404,9 +409,8 @@ class DGMultigrid:
                              "to CG-1 is vertex-based)")
         if mesh.structured is None:
             raise ValueError("DGMultigrid needs a structured box mesh")
-        if coarse_kind != "geometric" or grid_pad0:
-            raise _waits_for_slice7(f"coarse_kind={coarse_kind!r} / "
-                                    f"grid_pad0={grid_pad0}")
+        if coarse_kind not in ("geometric", "grid"):
+            raise ValueError(coarse_kind)
         self.dg_op = dg_op
         # the table form: the cycle applies it twice per V-cycle, and the
         # smoother factors read its per-cell self blocks
@@ -466,8 +470,31 @@ class DGMultigrid:
             sum((cc[:, i] + o[i]) * nstr[i] for i in range(len(dims)))
             for o in offs], axis=-1)
         self._vert_offs = offs if np.array_equal(rec, cells_np) else None
-        self.cg_mg = GeometricMG(mesh, make_cg_operator, dtype=dtype,
-                                 **(mg_kwargs or {}))
+        # grid_pad0: the ghost planes that a sharded caller appends to the
+        # CG correction's node grid along axis 0 (identity rows, the
+        # grid-sharded step's fine-level pad); the grid-shaped p-transfers
+        # pad and slice between the cell grid and that padded node grid
+        self._grid_pad0 = int(grid_pad0)
+        if coarse_kind == "grid":
+            # imported here: grid_mg imports this module
+            from fem_glass_tempering_tpu_torch.ops.grid import (
+                GridHeatOperator,
+            )
+            from fem_glass_tempering_tpu_torch.solver.grid_mg import GridMG
+            kw = dict(mg_kwargs or {})
+            kw.pop("max_levels", None)      # GridMG: automatic depth only
+            kw.pop("table_dtype", None)
+            if kw.get("coarse") == "dense":
+                kw["coarse"] = "auto"
+            # the whole grid's device tables wait for a whole-grid method:
+            # the sharded step reads its rank's slabs'
+            self.cg_mg = GridMG(
+                GridHeatOperator(make_cg_operator(mesh), pad_axis0=grid_pad0,
+                                 allow_const=False, tables=False),
+                make_cg_operator, **kw)
+        else:
+            self.cg_mg = GeometricMG(mesh, make_cg_operator, dtype=dtype,
+                                     **(mg_kwargs or {}))
         self._frozen_rho = None
         self._frozen_smoother_data = None
 
@@ -498,21 +525,21 @@ class DGMultigrid:
         linearization state of the coarse hierarchy."""
         return self.restrict(T_dg) * self.inv_counts
 
-    # the grid-shaped methods of the sharded DG route
-    def prolong_g(self, *args, **kwargs):
-        raise _waits_for_slice7("DGMultigrid.prolong_g")
+    # ---- grid-shaped p-transfers (the grid-sharded route) -------------
+    def prolong_g(self, x_cg):
+        """(gx, gy, gz) node grid -> (cx, cy, cz, nloc) cell grid."""
+        assert self._vert_offs is not None
+        return _prolong_window(x_cg, self._vert_offs, self.stencil.cell_dims)
 
-    def restrict_g(self, *args, **kwargs):
-        raise _waits_for_slice7("DGMultigrid.restrict_g")
+    def restrict_g(self, r_dg):
+        """(cx, cy, cz, nloc) -> (gx, gy, gz): the transposed prolongation
+        as 2^d zero pads added in vertex order."""
+        assert self._vert_offs is not None
+        return _restrict_window(r_dg, self._vert_offs)
 
-    def restrict_state_g(self, *args, **kwargs):
-        raise _waits_for_slice7("DGMultigrid.restrict_state_g")
-
-    def _zsolve_apply_g(self, *args, **kwargs):
-        raise _waits_for_slice7("DGMultigrid._zsolve_apply_g")
-
-    def preconditioner_g(self, *args, **kwargs):
-        raise _waits_for_slice7("DGMultigrid.preconditioner_g")
+    def restrict_state_g(self, T_dg):
+        return self.restrict_g(T_dg) * self.inv_counts.reshape(
+            self._node_grid)
 
     # ---- block/line solvers -------------------------------------------
     def _zsolve_data(self, T_dg, dt):
@@ -605,6 +632,31 @@ class DGMultigrid:
         xg = (ys * mask[:, :, None]).sum(dim=1)     # (ncol, nb)
         xg = xg.reshape(tuple(dims[i] for i in perm) + (nloc,))
         return xg.permute(inv_perm + (d,)).reshape(-1)
+
+    def _zsolve_apply_g(self, data, rg):
+        """The smoother solve on a cell grid rg (n, cy, cz, nloc), in and
+        out: the whole grid, or a run of whole cell layers with the
+        layers' slice of the data (solver/grid_dg.py RankDGMultigrid)."""
+        if "diag" in data:
+            return rg / data["diag"].reshape(rg.shape)
+        if "inv_self" in data:
+            return _bmv(data["inv_self"].reshape(
+                rg.shape[:-1] + data["inv_self"].shape[-2:]), rg)
+        if "colinv" not in data:
+            raise ValueError("grid-shaped smoother needs the dense column "
+                             "form (column_dense=True) or block/jacobi")
+        _, d, _, _, perm, inv_perm = self._column_perm()
+        nb = rg.shape[self.col_axis] * rg.shape[-1]
+        Minv = data["colinv"]                       # (t, nb, nb)
+        mask = data["colmask"]                      # (ncol, t)
+        t = Minv.shape[0]
+        rt = rg.permute(perm + (d,)).reshape(-1, nb)
+        ys = (rt @ Minv.reshape(t * nb, nb).T).reshape(-1, t, nb)
+        xg = (ys * mask[:, :, None]).sum(dim=1)     # (ncol, nb)
+        xg = xg.reshape(tuple(rg.shape[i] for i in perm) + rg.shape[-1:])
+        # contiguous: a product over a strided view may sum in another
+        # order than over the same values laid out densely
+        return xg.permute(inv_perm + (d,)).contiguous()
 
     # ---- setup -------------------------------------------------------
     def freeze(self, T_dg0, dt) -> None:
@@ -768,7 +820,10 @@ class DGMultigrid:
             rho = rho_new
         self._frozen_rho = rho * 1.15
         self._frozen_smoother_data = data
-        self.cg_mg.freeze_omegas(None, dt)
+        if self.coarse_kind == "grid":
+            self.cg_mg.freeze_rhos(dt)
+        else:
+            self.cg_mg.freeze_omegas(None, dt)
 
     # ---- apply -------------------------------------------------------
     def preconditioner(self, T_dg, dt):
@@ -796,13 +851,50 @@ class DGMultigrid:
                 v = w / torch.linalg.norm(w)
             rho = r * 2.0
 
+        smooth = self._make_smooth(mv, zsolve, rho)
+        return self._pmg_apply(smooth, mv,
+                               lambda rr: inner(self.restrict(rr)),
+                               self.prolong)
+
+    def preconditioner_g(self, T_dg_g, dt, matvec_g):
+        """The grid-shaped apply for the grid-sharded step over the whole
+        grid: `matvec_g` is the caller's Jacobian action (solver/grid_dg.py
+        GridDGOperator.make_matvec_g at the frozen state); needs
+        coarse_kind="grid" and freeze()."""
+        assert self.coarse_kind == "grid", \
+            "preconditioner_g needs coarse_kind='grid'"
+        data = self._frozen_smoother_data
+        rho = self._frozen_rho
+        assert data is not None and rho is not None, "call freeze() first"
+        pad = self._grid_pad0
+        gx = self._node_grid[0]
+
+        def pad0(a, mode="constant"):
+            if not pad:
+                return a
+            if mode == "edge":
+                return torch.cat([a, a[-1:].expand(
+                    (pad,) + tuple(a.shape[1:]))])
+            return F.pad(a, (0, 0) * (a.dim() - 1) + (0, pad))
+
+        T_cg = pad0(self.restrict_state_g(T_dg_g), mode="edge")
+        inner = self.cg_mg.preconditioner_g(
+            self.cg_mg.linearization_states_g(T_cg), dt)
+        smooth = self._make_smooth(
+            matvec_g, lambda r: self._zsolve_apply_g(data, r), rho)
+        return self._pmg_apply(
+            smooth, matvec_g,
+            lambda rr: inner(pad0(self.restrict_g(rr)))[:gx], self.prolong_g)
+
+    def _make_smooth(self, mv, zsolve, rho):
+        """smooth(x, b): Chebyshev acceleration of `zsolve` over [rho/4,
+        rho] ('jacobi': damped sweeps), nu steps. x None is the zero
+        start, whose residual is b itself: no matvec is spent on it (the
+        same bits as b - mv(0))."""
         nu = self.nu
 
         def smooth(x, b):
-            # Chebyshev acceleration of zsolve over [rho/4, rho] ('jacobi':
-            # damped sweeps). x None is the zero start, whose residual is
-            # b itself: no matvec is spent on it
-            res = lambda x: b if x is None else b - mv(x)
+            res = lambda x: b if x is None else b - mv(x)  # noqa: E731
             if self.smoother == "jacobi":
                 omega = 4.0 / (3.0 * rho)
                 for _ in range(nu):
@@ -826,11 +918,16 @@ class DGMultigrid:
                 rho_k = rho_next
             return x
 
+        return smooth
+
+    @staticmethod
+    def _pmg_apply(smooth, mv, coarse, prolong):
+        """The p-multigrid cycle: pre-smooth, the CG-1 correction
+        `coarse(residual)` prolonged, post-smooth."""
         def apply(r):
             x = smooth(None, r)
             rr = r - mv(x)
-            xc = inner(self.restrict(rr))
-            x = x + self.prolong(xc)
+            x = x + prolong(coarse(rr))
             return smooth(x, r)
 
         return apply

@@ -10,12 +10,17 @@ on the CPU in f64.
 - The dense column solve equals the Thomas recurrence (1e-10 relative, the
   JAX test's bound), and the slice p-transfers equal the gather/scatter
   pair.
+- The grid route of the grid-sharded step (coarse_kind="grid" over a
+  padded GridMG, the grid-shaped transfers, smoother solve and apply)
+  against JAX's: prolong_g bit for bit, the restrictions at 1e-14, the
+  rest at 1e-12.
 - The 8x8x4 DG-1 plate, "auto" + "stencil", 2 steps at rtol 1e-12: T and
   Tf within 1e-12 relative of JAX's, with equal Newton and CG counts; and
   the p-multigrid cuts CG more than 8x against Jacobi with the same
   solution at rtol 1e-11 (the JAX package's test_multigrid.py).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -192,18 +197,64 @@ def test_auto_smoother_rule(dims, smoother, axis):
     assert mg.smoother == smoother and mg.col_axis == axis
 
 
+@pytest.fixture(scope="module")
+def grid_pair():
+    """DGMultigrid's grid route (coarse_kind="grid", the CG correction's
+    node grid padded with 2 ghost planes) on the 4x4x2 plate, frozen, in
+    both packages, with JAX's GridDGOperator for the apply's action."""
+    from fem_glass_tempering_tpu.solver.grid_dg import GridDGOperator as JG
+
+    from fem_glass_tempering_tpu_torch.solver.grid_dg import GridDGOperator
+    dims, kw = (4, 4, 2), dict(coarse_kind="grid", grid_pad0=2)
+    jm, tm = _jax_mg(dims, **kw), _port_mg(dims, **kw)
+    jm.freeze(None, DT)
+    tm.freeze(None, DT)
+    return jm, tm, JG(jm.dg_op), GridDGOperator(tm.dg_op)
+
+
 @pytest.mark.parametrize("what", [
     "coarse_kind", "grid_pad0", "prolong_g", "restrict_g",
     "restrict_state_g", "_zsolve_apply_g", "preconditioner_g"])
-def test_sharded_route_raises(what):
-    """The grid-shaped (sharded DG) route waits for Slice 7."""
-    with pytest.raises(NotImplementedError, match="Slice 7"):
-        if what == "coarse_kind":
-            _port_mg((4, 4, 2), coarse_kind="grid")
-        elif what == "grid_pad0":
-            _port_mg((4, 4, 2), grid_pad0=2)
-        else:
-            getattr(_port_mg((4, 4, 2)), what)(None, DT)
+def test_sharded_route_raises(grid_pair, what):
+    """The grid-shaped (sharded DG) route, which raised until the port's
+    slice 7e, against JAX's on the 4x4x2 plate: GridMG's hierarchy
+    (coarse_kind), the padded fine node grid (grid_pad0), prolong_g bit
+    for bit, restrict_g and restrict_state_g at 1e-14, the frozen
+    smoother solve and one preconditioner_g apply at 1e-12."""
+    jm, tm, jop, top = grid_pair
+    shape = tm.stencil.cell_dims + (tm.stencil.nloc,)
+    T, r = (a.reshape(shape) for a in _seeded(tm.stencil.n, 7))
+    t, j = torch.tensor, jnp.asarray
+    if what == "coarse_kind":
+        assert [op.dims for op in tm.cg_mg.ops] == [
+            tuple(op.dims) for op in jm.cg_mg.ops]
+        assert tm.cg_mg.axes == [None if a is None else tuple(a)
+                                 for a in jm.cg_mg.axes]
+        assert tm.cg_mg._frozen_rhos == pytest.approx(
+            jm.cg_mg._frozen_rhos, rel=1e-12)
+    elif what == "grid_pad0":
+        assert tm.cg_mg.ops[0].grid == tuple(jm.cg_mg.ops[0].grid) == (
+            7, 5, 3)
+        assert tm.cg_mg.pad0 == jm.cg_mg.pad0 == 2
+    elif what == "prolong_g":
+        x = np.random.default_rng(8).standard_normal(tm._node_grid)
+        np.testing.assert_array_equal(tm.prolong_g(t(x)).numpy(),
+                                      np.asarray(jm.prolong_g(j(x))))
+    elif what == "restrict_g":
+        _close(tm.restrict_g(t(r)), jm.restrict_g(j(r)), what, 1e-14)
+    elif what == "restrict_state_g":
+        _close(tm.restrict_state_g(t(T)), jm.restrict_state_g(j(T)), what,
+               1e-14)
+    elif what == "_zsolve_apply_g":
+        got = tm._zsolve_apply_g(tm._frozen_smoother_data, t(r))
+        _close(got, jm._zsolve_apply_g(jm._frozen_smoother_data, j(r)),
+               what, 1e-12)
+    else:
+        got = tm.preconditioner_g(t(T), DT, top.make_matvec_g(t(T), DT))(
+            t(r))
+        want = jax.jit(lambda T, r: jm.preconditioner_g(
+            T, DT, jop.make_matvec_g(T, DT))(r))(j(T), j(r))
+        _close(got, want, what, 1e-12)
 
 
 # ----------------------------------------------------------------------

@@ -23,6 +23,7 @@ einsums run over the slab's cells, and torch may contract a three-operand
 einsum in another order for another batch.
 """
 
+import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
@@ -372,15 +373,47 @@ def test_dryrun_gspmd_grid_counts_equal_jax(main, jax_side):
         assert (got["newton"], got["cg"]) == (jx["newton"], jx["cg"])
 
 
-# ---- what the slice leaves to later ones ---------------------------------
+# ---- the T spaces beside CG-1 -------------------------------------------
 @pytest.mark.parametrize("fe,mechanics,slice_", [
     (dict(T_family="DG", T_degree=1), "none", "7e"),
     (dict(T_family="CG", T_degree=2), "none", "7f")],
     ids=["dg1", "cg2"])
 def test_unported_routes_raise(fe, mechanics, slice_):
+    """CG-2 T waits for its slice of the port. DG-1 T (slice 7e) runs:
+    the 4x3x2 plate over a group of one rank in this process, 2 steps of
+    the default config, against the port's unsharded ThermoViscoProblem
+    at tests/test_grid_dg.py's tolerances (T 1e-9 and sigma 1e-8 of their
+    max, CG at most 2x + 8; its CG-1 correction is GeometricMG, the
+    sharded step's GridMG); tests/test_torch_grid_shard_dg.py holds it
+    to JAX's."""
     cfg = RunConfig(fe=FEConfig(**fe), mechanics=mechanics)
-    with pytest.raises(NotImplementedError, match=f"Slice {slice_}"):
-        GridShardedProblem(box_mesh_3d(4, 3, 2), cfg)
+    if slice_ == "7f":
+        with pytest.raises(NotImplementedError, match=f"Slice {slice_}"):
+            GridShardedProblem(box_mesh_3d(4, 3, 2), cfg)
+        return
+    from fem_glass_tempering_tpu_torch.config import TimeConfig
+    from fem_glass_tempering_tpu_torch.models.problem import (
+        ThermoViscoProblem,
+    )
+    from fem_glass_tempering_tpu_torch.parallel.comm import make_device_mesh
+    cfg = dataclasses.replace(cfg, time=TimeConfig(0.0, 0.2, 0.1))
+    mesh = box_mesh_3d(4, 3, 2)
+    dm = make_device_mesh("cpu")
+    try:
+        gs = GridShardedProblem(mesh, cfg, dm)
+        st, ok, ni, ki = gs.run(gs.init_state(), 2)
+        flat = gs.gather_state(st)
+    finally:
+        dm.close()
+    un = ThermoViscoProblem(mesh=mesh, config=cfg, device="cpu")
+    un.setup()
+    st_u, ok_u, ni_u, ki_u = un.multi_step(un.state, 2)
+    assert ok and ok_u and gs.dg_mg is not None
+    assert ki <= 2 * ki_u + 8, (ki, ki_u)
+    for f, tol in (("T", 1e-9), ("sigma", 1e-8)):
+        a, b = getattr(flat, f).numpy(), getattr(st_u, f).numpy()
+        scale = max(float(np.abs(b).max()), 1e-30)
+        assert float(np.abs(a - b).max()) <= tol * scale, f
 
 
 # ---- sharded output -------------------------------------------------------

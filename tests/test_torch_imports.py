@@ -28,7 +28,8 @@ def _port_files():
             "utils/native.py", "parallel/comm.py", "parallel/partition.py",
             "parallel/sharding.py", "parallel/domain_cg.py",
             "parallel/domain.py", "parallel/grid_shard.py",
-            "parallel/multihost.py", "io/sharded.py"} <= names
+            "parallel/multihost.py", "io/sharded.py",
+            "solver/grid_dg.py"} <= names
     return files
 
 

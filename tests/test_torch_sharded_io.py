@@ -4,12 +4,14 @@ GridShardedProblem.solve / save_checkpoint / load_checkpoint) against the
 JAX package's, on the CPU.
 
 The port runs in P = 4 gloo ranks (the 12x6x3 plate of JAX's
-tests/test_sharded_io.py), in P = 2 ranks (the mechanics plate), in one
+tests/test_sharded_io.py, and in 4 more its DG-1 case on a 10x6x3 plate),
+in P = 2 ranks (the mechanics plate), in one
 more process (its unsharded run) and in two subprocesses joined through
 multihost.initialize at an explicit coordinator (tests/test_multihost.py),
 all spawned once for the module (tests/torch_sharded_io_ranks.py, which
 imports no JAX), while this process runs JAX's side: its checkpoint on 8
-virtual devices, which the ranks wait for, and its chunked solve on 4.
+virtual devices, which the ranks wait for, its chunked solve on 4, and
+its DG-1 checkpoint and solve on 4.
 
 Bit for bit: the series read back against the gathered state; a resumed
 run against the straight one with the same chunk boundaries (with
@@ -134,6 +136,45 @@ def _jax_solve(work):
                 **{f: np.asarray(getattr(flat, f)) for f in S.SERIES_FIELDS})
 
 
+def _jax_dg(work):
+    """JAX's DG-1 GridShardedProblem (tests/test_sharded_io.py `_dg_cfg`)
+    on S.DG_PLATE over 4 virtual devices: its solve() series, its
+    checkpoint of step 2 (the ranks wait for the file jax_dg_ckpt_ready)
+    and the step after it."""
+    ready = os.path.join(work, "jax_dg_ckpt_ready")
+    cfg = lambda out, we: jcfg.RunConfig(  # noqa: E731
+        fe=jcfg.FEConfig(T_family="DG", T_degree=1),
+        time=jcfg.TimeConfig(0.0, 0.3, 0.1),
+        solver=jcfg.SolverConfig(linear_operator="stencil",
+                                 newton_rtol=1e-10, cg_rtol=1e-10,
+                                 cg_max_it=300),
+        output=jcfg.OutputConfig(output_dir=str(out), write_every=we,
+                                 formats=("npz",),
+                                 npz_fields=S.SERIES_FIELDS),
+        dtype="float64")
+    mesh = jmesh.box_mesh_3d(*S.DG_PLATE, 1.0, 1.0, 0.01)
+    try:
+        sp = JaxGridSharded(mesh, cfg(work, 0), devices=jax.devices()[:P])
+        st2, ok, _, _ = sp.run(sp.init_state(), 2)
+        assert ok
+        sp.save_checkpoint(os.path.join(work, "jax_dg_ckpt"), st2,
+                           extra={"t": 0.2})
+        with open(ready, "w") as fh:
+            fh.write("ok")
+    finally:
+        if not os.path.exists(ready):
+            with open(ready, "w") as fh:
+                fh.write("failed")
+    st3, ok3, _, _ = sp.run(st2, 1)
+    out = os.path.join(work, "jax_dg_solve")
+    sv = JaxGridSharded(mesh, cfg(out, 1), devices=jax.devices()[:P])
+    flat = sv.gather_state(sv.solve())
+    return dict(problem=sp, ok=ok3, cell_pad0=sp.cell_pad0,
+                T_step3=np.asarray(sp.gather_state(st3).T), out=out,
+                series={f: np.asarray(getattr(flat, f))
+                        for f in S.SERIES_FIELDS})
+
+
 @pytest.fixture(scope="module", autouse=True)
 def side(tmp_path_factory):
     """Every process of the module and JAX's side, started at once."""
@@ -142,7 +183,7 @@ def side(tmp_path_factory):
     work = str(tmp_path_factory.mktemp("sharded_io"))
     procs, mh_out = _multihost(work)
     try:
-        with ThreadPoolExecutor(5) as ex:
+        with ThreadPoolExecutor(7) as ex:
             yield SimpleNamespace(
                 work=work, procs=procs, multihost_out=mh_out,
                 main=ex.submit(run_ranks, S.rank_body, P, "cpu", work,
@@ -151,8 +192,11 @@ def side(tmp_path_factory):
                                threads=1),
                 ref=ex.submit(run_ranks, S.reference_body, 1, "cpu", work,
                               threads=1),
+                dg=ex.submit(run_ranks, S.dg_body, P, "cpu", work,
+                             threads=1),
                 jax_ckpt=ex.submit(_jax_checkpoint, work),
-                jax_solve=ex.submit(_jax_solve, work))
+                jax_solve=ex.submit(_jax_solve, work),
+                jax_dg=ex.submit(_jax_dg, work))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -469,6 +513,62 @@ def test_problem_refuses_a_checkpoint_of_other_padding(side):
     ref = side.ref.result()[0]
     assert ref["grid"] == (13, 7, 4)
     assert "(16, 7, 4)" in ref["refusal"] and "(13, 7, 4)" in ref["refusal"]
+
+
+# ---- DG-1 T: cell-grid fields (P = 4) --------------------------------------
+def test_dg_series_equals_gathered_state(side):
+    """tests/test_sharded_io.py:97 at P = 4: solve()'s series of the DG-1
+    plate (T and Tf on the cell grid, 10 layers padded to 12; sigma on the
+    node grid, 11 planes padded to 12) equals the gathered state bit for
+    bit at every rank; a piece a field, step and rank, at the rank's cell
+    layer offset for T, and a checkpoint at step 2."""
+    for r in side.dg.result():
+        assert (r["cell_pad0"], r["pad0"]) == (2, 1)
+        assert r["series"]["T"].shape[0] == 3
+        for f in S.SERIES_FIELDS:
+            assert np.array_equal(r["series"][f][-1], r["flat"][f]), f
+        assert r["ckpts"] == ["sharded_ckpt_000002"]
+        files = r["files"]
+    assert {f"piece_T_000002_o{3 * p:06d}.npz" for p in range(P)} <= set(
+        files)
+    assert len(files) == P + 3 * P * len(S.SERIES_FIELDS)
+
+
+def test_dg_checkpoint_resume_bit_for_bit(side):
+    """tests/test_sharded_io.py:117 at P = 4: run(2) -> save -> load ->
+    run(1) == run(3), every field bit for bit; the loaded state is the
+    saved one."""
+    for r in side.dg.result():
+        assert r["ok"] and all(r["loaded_bits"].values())
+        for f, a in r["straight"].items():
+            assert np.array_equal(r["resumed"][f], a), f
+
+
+def test_dg_files_cross_read(side):
+    """The DG files both ways at P = 4: the port reads JAX's series (its
+    gathered state, bit for bit) and resumes JAX's checkpoint of step 2
+    (T at rtol 1e-11 from JAX's step 3); JAX's loader places the port's
+    checkpoint on its shardings (cell-grid T-space fields, node-grid
+    sigma fields), every field bit for bit."""
+    jx = side.jax_dg.result()
+    assert jx["ok"] and jx["cell_pad0"] == 2
+    got = sharded.read_sharded_series(os.path.join(jx["out"],
+                                                   "sharded_series"))
+    for f in S.SERIES_FIELDS:
+        assert np.array_equal(got[f][-1], jx["series"][f]), f
+    ranks = side.dg.result()
+    for r in ranks:
+        assert r["ok_jax"] and r["jax_t"] == pytest.approx(0.2, abs=1e-15)
+        _close(r["jax_T"], jx["T_step3"], 1e-11, "T")
+    sp = jx["problem"]
+    jst, meta = jsharded.load_sharded_checkpoint(
+        os.path.join(side.work, "port_dg_ckpt"), sp._state_shardings)
+    want = ranks[0]["saved_padded"]
+    assert meta["extra"] == {"t": 0.2}
+    assert np.asarray(jst.T).shape == (12, 6, 3, 8)
+    for f in JViscoState._fields:
+        a = np.asarray(getattr(jst, f))
+        assert np.array_equal(a.reshape(want[f].shape), want[f]), f
 
 
 # ---- mechanics (P = 2) ----------------------------------------------------

@@ -5,10 +5,12 @@ torch_sharded_io_ranks.py PID PORT OUT`): this module imports the port
 alone (no JAX), and every body returns numpy data.
 
 The step cases are the JAX package's tests/test_sharded_io.py (`_cfg`: the
-12x6x3 plate, 13 planes, 3 steps, npz of T, Tf and sigma) and
-tests/test_multihost.py (the same plate, 2 steps, no output); the
-mechanics case is tests/torch_grid_shard_mech_ranks.py's plate (8x6x4,
-f64, equilibrium, corrected physics, trapezoid xi).
+12x6x3 plate, 13 planes, 3 steps, npz of T, Tf and sigma; `_dg_cfg`, its
+DG-1 twin, on a 10x6x3 plate: 10 cell layers padded to 12 and 11 node
+planes padded to 12 at P = 4) and tests/test_multihost.py (the 12x6x3
+plate, 2 steps, no output); the mechanics case is
+tests/torch_grid_shard_mech_ranks.py's plate (8x6x4, f64, equilibrium,
+corrected physics, trapezoid xi).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from fem_glass_tempering_tpu_torch.parallel.grid_shard import (
 )
 
 PLATE = (12, 6, 3)
+DG_PLATE = (10, 6, 3)
 SERIES_FIELDS = ("T", "Tf", "sigma")
 # a Newton tolerance that resolves jac_every "auto" to 5: the operators
 # of a chunk are frozen at its start, so solve()'s chunks of write_every
@@ -60,6 +63,19 @@ def io_cfg(out, write_every=1, checkpoint_every=0, steps=3, **solver):
         output=OutputConfig(output_dir=str(out), write_every=write_every,
                             formats=("npz",), npz_fields=SERIES_FIELDS,
                             checkpoint_every=checkpoint_every))
+
+
+def dg_io_cfg(out, write_every=1, checkpoint_every=0):
+    """tests/test_sharded_io.py `_dg_cfg`."""
+    return RunConfig(
+        fe=FEConfig(T_family="DG", T_degree=1),
+        time=TimeConfig(0.0, 0.3, 0.1),
+        solver=SolverConfig(linear_operator="stencil", newton_rtol=1e-10,
+                            cg_rtol=1e-10, cg_max_it=300),
+        output=OutputConfig(output_dir=str(out), write_every=write_every,
+                            formats=("npz",), npz_fields=SERIES_FIELDS,
+                            checkpoint_every=checkpoint_every),
+        dtype="float64")
 
 
 def multihost_cfg():
@@ -182,6 +198,44 @@ def rank_body(mesh_dev, work) -> dict:
     return dict(series=series_case(gs, work), resume=resume_case(gs, work),
                 chunked=chunked_case(mesh_dev, work),
                 jax_ckpt=jax_ckpt_case(gs, work))
+
+
+def dg_body(mesh_dev, work) -> dict:
+    """DG-1 T (cell-grid T-space fields, 2 ghost cell layers and 1 ghost
+    node plane at P = 4): tests/test_sharded_io.py:97 (solve() with the
+    writer and a checkpoint at step 2; the series read back against the
+    gathered state), :117 (run(2) -> save -> load -> run(1) against
+    run(3)), and JAX's DG checkpoint of step 2 (4 devices) loaded and
+    stepped once."""
+    out = os.path.join(work, "dg_series")
+    gs = GridShardedProblem(plate(DG_PLATE), dg_io_cfg(out,
+                                                       checkpoint_every=2),
+                            mesh_dev)
+    st = gs.solve()
+    flat = gs.gather_state(st)
+    series = read_sharded_series(os.path.join(out, "sharded_series"))
+    st2, ok2, _, _ = gs.run(gs.init_state(), 2)
+    ck = os.path.join(work, "port_dg_ckpt")
+    gs.save_checkpoint(ck, st2, extra={"t": 0.2})
+    st2b = gs.load_checkpoint(ck)
+    st3r, ok_r, _, _ = gs.run(st2b, 1)
+    st3, ok3, _, _ = gs.run(gs.init_state(), 3)
+    wait_for(os.path.join(work, "jax_dg_ckpt_ready"))
+    stj = gs.load_checkpoint(os.path.join(work, "jax_dg_ckpt"))
+    stj3, ok_j, _, _ = gs.run(stj, 1)
+    return dict(
+        ok=ok2 and ok_r and ok3, ok_jax=ok_j, newton=gs.newton_iters,
+        cg=gs.krylov_iters, cell_pad0=gs.cell_pad0, pad0=gs.pad0,
+        cell_rows=gs.cell_rows, series=series,
+        flat={f: getattr(flat, f).numpy() for f in SERIES_FIELDS},
+        files=sorted(os.listdir(os.path.join(out, "sharded_series"))),
+        ckpts=sorted(d for d in os.listdir(out)
+                     if d.startswith("sharded_ckpt")),
+        loaded_bits=bits_equal(st2b, st2),
+        resumed=host(gs.gather_state(st3r)),
+        straight=host(gs.gather_state(st3)),
+        saved_padded=multihost.gather_to_host(st2, gs.comm)._asdict(),
+        jax_t=float(stj.t), jax_T=gs.gather_state(stj3).T.numpy())
 
 
 # ---- P = 2: mechanics ------------------------------------------------------
