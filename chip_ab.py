@@ -46,7 +46,10 @@ then side phase 13d64 (the dry run's mechanics config in f64);
 two gloo ranks on the card, against the unsharded run); `phase13f` side
 phase 13f alone (the grid-sharded DG-1 step: the small plates and phase
 7b's 64x64x16 plate over one NCCL rank and two gloo ranks), after phase
-7b, whose f64 run 13f(b) is held to.
+7b, whose f64 run 13f(b) is held to; `phase13g` side phase 13g alone (the
+grid-sharded CG-2 step: the small plates and phase 9b's 64x64x16 plate
+over one NCCL rank and two gloo ranks), then phase 9b, which holds
+13g(b)'s step 1 to its warm-up step.
 `dryrunmech` runs phase 13d's dry-run mechanics config (12x6x4, 2 steps)
 over one rank and over two gloo ranks, in f32 and in f64, on the CPU and
 on the card, with every elasticity CG logged (the copy of solver/krylov.py
@@ -392,6 +395,7 @@ def main() -> int:
                                      "phase8b", "phase9", "phase10",
                                      "phase11", "phase12", "phase13",
                                      "phase13d", "phase13e", "phase13f",
+                                     "phase13g",
                                      "dgparity",
                                      "dryrunmech"))
     ap.add_argument("--source-flags", default="", metavar="SRC:FLAG[,FLAG]",
@@ -510,6 +514,17 @@ def main() -> int:
         t0 = time.perf_counter()
         res.update(cs.grid_shard_dg_phase(dev, port, scratch))
         res["phase13f_s"] = time.perf_counter() - t0
+    elif args.what == "phase13g":
+        # phase 9b holds 13g(b)'s step 1: 13g first
+        scratch = os.path.join(root, "build", "chip_smoke")
+        os.makedirs(scratch, exist_ok=True)
+        t0 = time.perf_counter()
+        res = cs.grid_shard_q2_phase(dev, port, scratch)
+        res["phase13g_s"] = time.perf_counter() - t0
+        cs.drop_garbage("phase 9b")
+        t0 = time.perf_counter()
+        res["phase9b"] = cs.cg2_plate_phase(dev, port, scratch)
+        res["phase9b_s"] = time.perf_counter() - t0
     elif args.what == "phase8b":
         full = cs.mechanics_plate_phase(dev, port)
         full.pop("reference")

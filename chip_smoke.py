@@ -220,6 +220,27 @@ Phases (each raises on failure; the exit code is then nonzero):
      launches per rank (no full-grid K2, no K3); K2's halo form bit-equal
      to its twin on each rank's slab of the CG-1 correction's fine
      level at the run's tables; the output as 13d(b)'s, with cell-grid
+     pieces; (g, a side phase in 13f's processes, after 13f)
+     GridShardedProblem with CG-2 T (the lattice layout, GridQ2Slab's
+     kron chain on each rank's lattice planes and a two-plane window,
+     Q2MG's grid route in its rank form with its CG-1 chain on RankGridMG,
+     K2's halo form on its sharded levels, K1 in the material step) over
+     one NCCL rank and two gloo ranks, while the side process runs the
+     same plates unsharded: (a) JAX's tests/test_grid2.py:237 plate
+     (6x4x3 of 1 x 0.7 x 0.01, 2 steps, line-smoothed Q2MG) in f64 and
+     mixed precision and the dry run's "gspmd-q2" config, each held to
+     the unsharded run (T 1e-9 and sigma 1e-8 of their max) and the two
+     ranks to the one (Newton equal, one apart in mixed precision; T
+     max-rel 1e-12); (b) phase 9b's 64x64x16 plate (549,153 T dofs, f32),
+     1 + 1 steps on the one rank and on the two, each writing T and its
+     counts after step 1 (PHASE13G_REF) for phase 9b, which holds them to
+     its warm-up step (T max-rel 1e-5, Newton equal, CG within 2%), and
+     the two ranks to the one (T max-rel 1e-6, Newton equal): ms a step
+     and a CG iteration, collectives a CG iteration by kind (lattice
+     halos, node halos, re-partitions, other sums), setup s by part, peak
+     memory, K1 and K2 launches per rank (no full-grid K2, no K3); K2's
+     halo form bit-equal to its twin on each rank's slab of the coarse
+     chain's fine level (f32); the output as 13d(b)'s, with lattice
      pieces.
 Phase 2 also holds K3 at every degree-2 cell shape (nloc 3, 6, 9, 10, 27)
 on the port's HeatOperator tables, f64 and f32, all in the element form,
@@ -230,8 +251,8 @@ PyTorch call on the baked matrices (torch.addmm / torch.baddbmm), with
 the bake's seconds and bytes.
 Every main path (4, 5, 6, 7b f64, 7b mixed, 8b, 9b, 10b, 10c, 11a, 11b,
 12a's two arms, 12b, 12d's two runs, each run of 13, 13d (13d(b)'s
-output included), 13d64 and 13f (13f(b)'s output included) on every
-rank, 13e's on rank 0) runs
+output included), 13d64, 13f and 13g (their (b)'s output included) on
+every rank, 13e's on rank 0) runs
 with the launch counters set to 0 just before it and read just after; K2
 also counts its launches per table dtype (an instantiation each), and its
 halo form its own (`stencil_matvec_halo.launches`). A line
@@ -242,8 +263,8 @@ and last {"ok": true, "device": {...}}.
 
 Phases whose times feed no kernel's `ms` (dispatch-bound runs on tiny
 meshes, the GPU-against-CPU runs, the command line, the native runtime,
-phases 13, 13d64, 13e and 13f) run in SIDE_GROUPS: four processes of their own
-on the same card, started after phase 4, beside this process's plates of phases 6,
+phases 13, 13d64, 13e, 13f and 13g) run in SIDE_GROUPS: four processes
+of their own on the same card, started after phase 4, beside this process's plates of phases 6,
 7b, 8b, 10b and 10c, and joined before phase 9b. Their lines carry a
 "[side ...]" prefix, their launch counters are their own, and their
 checks fail the script as any other's do; the main process stops them
@@ -2332,13 +2353,14 @@ def cg2_parity_phase(dev, port) -> dict:
     return out
 
 
-def cg2_plate_phase(dev, port) -> dict:
+def cg2_plate_phase(dev, port, scratch_dir=None) -> dict:
     """Phase 9b: the JAX package's largest CG-2 row (BENCH.md:398), the
     64x64x16 plate with CG-2 T and CG-1 sigma, 549,153 T dofs, f32, 1
     warm-up step and CG2_TIMED_STEPS timed ones; then the layers, K2 on
     every smoothed coarse level's real tables, and K3 at nloc 27 at the
     plate's cell count (65,536 cells, f64, its prepared call) against its
-    bound."""
+    bound. With `scratch_dir`, the warm-up step holds phase 13g(b)'s step
+    1 (hold_phase13g)."""
     from fem_glass_tempering_tpu_torch import config as tc
     from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
     from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
@@ -2383,6 +2405,8 @@ def cg2_plate_phase(dev, port) -> dict:
     torch.cuda.synchronize()
     if not ok:
         fail(f"{tag}: warm-up step did not converge")
+    held_13g = (hold_phase13g(scratch_dir, st.T.cpu().numpy(), ni0, ki0)
+                if scratch_dir is not None else None)
     del st
     state0 = prob.engine.init_state()
     torch.cuda.synchronize()
@@ -2418,7 +2442,8 @@ def cg2_plate_phase(dev, port) -> dict:
                levels=levels, ms_per_step=elapsed / CG2_TIMED_STEPS * 1e3,
                newton_per_step=ni / CG2_TIMED_STEPS,
                cg_per_step=ki / CG2_TIMED_STEPS,
-               warmup_newton=ni0, warmup_cg=ki0, launches=launches,
+               warmup_newton=ni0, warmup_cg=ki0, held_13g=held_13g,
+               launches=launches,
                k2_launches_per_q2mg_apply=per_apply, q2mg_applies=ni + ki,
                max_memory_allocated_bytes=peak,
                setup_max_memory_allocated_bytes=setup_peak,
@@ -4173,6 +4198,7 @@ def gs_cases():
     from fem_glass_tempering_tpu_torch import config as tc
     from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
     small = lambda: box_mesh_3d(*GS_SMALL)  # noqa: E731
+    q2_small = lambda: box_mesh_3d(*GSQ2_PLATE)  # noqa: E731
     return dict(
         small=(small, gs_small_config(tc), {}),
         dryrun=(small, gs_dryrun_config(tc), {}),
@@ -4203,17 +4229,25 @@ def gs_cases():
                  dg_plate_config(tc, 1, **DG_AUTO), {}),
         dg_full_mixed=(lambda: box_mesh_3d(*N_DG, 1.0, 1.0, 0.01),
                        dg_plate_config(tc, 1, cg_dtype="float32",
-                                       **DG_AUTO), {}))
+                                       **DG_AUTO), {}),
+        # phase 13g: CG-2 T (JAX's tests/test_grid2.py:237 plate in f64
+        # and mixed, the dry run's "gspmd-q2" config, phase 9b's plate)
+        q2_plate=(q2_small, gsq2_config(tc), {}),
+        q2_mixed=(q2_small, gsq2_config(tc, cg_dtype="float32"), {}),
+        q2_dryrun=(q2_small, gsq2_config(tc, rtol=1e-10), {}),
+        q2_full=(lambda: box_mesh_3d(*N_CG2, 1.0, 1.0, 0.01),
+                 cg2_config(tc, 1, True), {}))
 
 
 def k2_forms_per_apply(gs) -> dict:
     """K2's launches by form in one Newton or CG iteration of a
-    GridShardedProblem: the Jacobian action (halo form; under DG-1 the
-    DG slab's, plain PyTorch) and one V-cycle of the CG-1 correction,
+    GridShardedProblem: the Jacobian action (halo form; under DG-1 and
+    CG-2 the DG slab's and the lattice slab's, plain PyTorch) and one
+    V-cycle of the CG-1 correction (under CG-2 Q2MG's coarse chain),
     whose sharded levels smooth with the halo form and whose replicated
     smoothed levels with the full-grid form (nu_pre + 1 + nu_post each,
     coarse_iters on a smoothed coarsest level)."""
-    out = dict(halo=0 if gs.is_dg else 1, full=0)
+    out = dict(halo=0 if gs.is_dg or gs.is_q2 else 1, full=0)
     mg, rmg = gs.grid_mg, gs.rank_mg
     if mg is None:
         return out
@@ -4234,7 +4268,10 @@ def grid_shard_run(dev, port, mesh_dev, name, steps, warmup=0,
     the state gathered to the global layout. Under DG-1 T also the
     collectives of the window by kind (halo exchanges of cell layers and
     of node planes, re-partitions between the two grids, other sums: the
-    dots, the residual's mean, the replicated levels' all-gathers)."""
+    dots, the residual's mean, the replicated levels' all-gathers); under
+    CG-2 T likewise, with the lattice windows (LatticeHalo) in place of
+    the cell halos."""
+    from fem_glass_tempering_tpu_torch.ops.grid2 import LatticeHalo
     from fem_glass_tempering_tpu_torch.parallel import comm
     from fem_glass_tempering_tpu_torch.parallel.comm import halo_exchange
     from fem_glass_tempering_tpu_torch.parallel.grid_shard import (
@@ -4260,21 +4297,27 @@ def grid_shard_run(dev, port, mesh_dev, name, steps, warmup=0,
     c0 = comm.all_reduce_sum.count + comm.all_reduce_max.count
     s0, r0 = comm.all_reduce_sum.count, comm.Repartition.count
     ch0 = getattr(gs, "cell_halos", 0)
+    lh0 = LatticeHalo.count
     t0 = time.perf_counter()
     st, ok, ni, ki = gs.run(state0, steps)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     collectives = comm.all_reduce_sum.count + comm.all_reduce_max.count - c0
     by_kind = {}
-    if gs.is_dg:
-        cell = gs.cell_halos - ch0
+    if gs.is_dg or gs.is_q2:
         halos = halo_exchange.count - h0
         reparts = comm.Repartition.count - r0
         its = max(ni + ki, 1)
-        by_kind = dict(cell_halos=cell, node_halos=halos - cell,
-                       repartitions=reparts,
-                       other_sums=comm.all_reduce_sum.count - s0 - halos
-                       - reparts)
+        if gs.is_dg:
+            cell = gs.cell_halos - ch0
+            by_kind = dict(cell_halos=cell, node_halos=halos - cell,
+                           repartitions=reparts)
+        else:
+            lat = LatticeHalo.count - lh0
+            by_kind = dict(lattice_halos=lat, node_halos=halos,
+                           repartitions=reparts - lat)
+        by_kind["other_sums"] = (comm.all_reduce_sum.count - s0 - halos
+                                 - reparts)
         by_kind = dict(collectives_by_kind=by_kind,
                        collectives_by_kind_per_iteration={
                            k: v / its for k, v in by_kind.items()})
@@ -4299,8 +4342,8 @@ def grid_shard_run(dev, port, mesh_dev, name, steps, warmup=0,
                   stencil_matvec_halo=per["halo"] * (ni + ki))
     if launches != expect or (
             per["halo"] and launches["stencil_matvec_halo"] == 0) or (
-            name in ("plate", "mech_plate", "dg_full", "dg_full_mixed")
-            and per["full"]):
+            name in ("plate", "mech_plate", "dg_full", "dg_full_mixed",
+                     "q2_full") and per["full"]):
         fail(f"{tag} {name} rank {mesh_dev.rank}: launches {launches}, "
              f"expected {expect} (K2 an iteration {per})")
     mech = {}
@@ -4527,11 +4570,11 @@ def grid_shard_io(gs, st, port, work, tag=None) -> dict:
                snapshot_fields=fields, snapshot_s=snapshot_s,
                ckpt_save_s=save_s, ckpt_load_s=load_s,
                series_bit_equal=True, resume_bit_equal=True)
-    # this rank's pieces: at its node-plane offset, and (DG-1) its cell
-    # layer offset
+    # this rank's pieces: at its node-plane offset, and (DG-1, CG-2) its
+    # cell layer or lattice plane offset
     mine = {f"_o{gs.rows[rank][0]:06d}.npz"}
-    if gs.is_dg:
-        mine.add(f"_o{gs.cell_rows[rank][0]:06d}.npz")
+    if gs.is_dg or gs.is_q2:
+        mine.add(f"_o{gs.t_rows[rank][0]:06d}.npz")
     gs._sync()          # every rank's files are written: count them
     out.update(snapshot_mb_rank=sum(dir_mb(snap, m) for m in mine),
                ckpt_mb_rank=sum(dir_mb(ck, m) for m in mine),
@@ -4908,21 +4951,28 @@ def gsdg_dryrun_config(tc, cg_dtype):
         output=tc.OutputConfig(write_every=0, formats=()), dtype="float64")
 
 
-def k2_halo_level_check(gs, st, port) -> dict:
+def k2_halo_level_check(gs, st, port, tag="13f") -> dict:
     """K2's halo form on this rank's slab of the CG-1 correction's fine
-    level, its tables baked at the run's state restricted to the node
-    grid (the path's own), against its plain twin bit for bit."""
+    level (under CG-2 Q2MG's coarse chain), its tables baked at the run's
+    state restricted (injected) to the node grid (the path's own), against
+    its plain twin bit for bit."""
     from fem_glass_tempering_tpu_torch.ops.cuda_stencil import (
         stencil_matvec_halo,
         stencil_matvec_halo_reference,
     )
-    rdmg = gs.rank_dg_mg
-    rmg = rdmg.rank_mg
-    T = st.T.reshape(gs.cell_shape).to(gs.dg_mg.dtype)
-    T0 = rmg.linearization_states(rdmg.tr.restrict_state(T))[0]
+    if gs.is_dg:
+        rdmg = gs.rank_dg_mg
+        rmg = rdmg.rank_mg
+        T = st.T.reshape(gs.cell_shape).to(gs.dg_mg.dtype)
+        T0 = rmg.linearization_states(rdmg.tr.restrict_state(T))[0]
+    else:
+        rq = gs.rank_q2_mg
+        rmg = rq.rank_mg
+        T0 = rq.linearization_states(st.T.reshape(gs.t_shape).to(
+            gs.q2_mg.fine.dtype))[1]
     slab = rmg.slabs[0]
     if slab is None:
-        fail("13f: the CG-1 correction's fine level is not sharded")
+        fail(f"{tag}: the CG-1 chain's fine level is not sharded")
     vals2 = slab.stencil_values_r(rmg._halo(T0), gs.dt)
     shape = slab.slab_grid
     rng = np.random.default_rng(31 + gs.comm.rank)
@@ -4931,7 +4981,7 @@ def k2_halo_level_check(gs, st, port) -> dict:
     y = stencil_matvec_halo(vals2, xe, shape)
     twin = stencil_matvec_halo_reference(vals2, xe, shape)
     if not bits_equal(y, twin):
-        fail(f"13f rank {gs.comm.rank}: K2's halo form is not its twin's "
+        fail(f"{tag} rank {gs.comm.rank}: K2's halo form is not its twin's "
              f"bits on the fine level's slab {list(shape)}")
     return dict(slab=list(shape), dtype=str(vals2.dtype),
                 max_abs_err=float((y - twin).abs().max()))
@@ -5152,6 +5202,255 @@ def grid_shard_dg_launches(gsdg: dict, name: str) -> dict:
             out[f"dg_full_io_{run}_world_size_1"] = b["world_size_1"]["io"][
                 f"{run}_launches"][name]
             out[f"dg_full_io_{run}_ranks"] = [
+                r["io"][f"{run}_launches"][name] for r in b["ranks"]]
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase 13g: the grid-sharded CG-2 step (a side phase in 13f's processes)
+# JAX's tests/test_grid2.py:237 plate (6x4x3 of 1 x 0.7 x 0.01)
+GSQ2_PLATE = (6, 4, 3, 1.0, 0.7, 0.01)
+GSQ2_SMALL = (("q2_plate", 2), ("q2_mixed", 2), ("q2_dryrun", 2))
+# 13g(b)'s T and counts after step 1 of phase 9b's plate, one file a rank
+# count ("one", "two"), which phase 9b holds to its warm-up step
+PHASE13G_REF = "phase13g_{}.npz"
+# 13g(b)'s bands: T max-rel against 9b's warm-up step (its coarse chain
+# is GeometricMG, the sharded step's JAX's GridMG over a padded node
+# grid: the same cycle, f32 sums in another order) and the two gloo
+# ranks against the one NCCL rank (13d's f32 precedent); CG within 2% of
+# 9b's
+GSQ2_BANDS = {"9b": 1e-5, "one": 1e-6}
+
+
+def gsq2_config(tc, rtol=1e-12, cg_dtype="same"):
+    """JAX's tests/test_grid2.py:237 config (f64, rtol 1e-12, Chebyshev
+    coarse chain under the line-smoothed Q2MG; the dry run's "gspmd-q2"
+    at rtol 1e-10), 2 steps, optionally with the f32 twins."""
+    return tc.RunConfig(
+        fe=tc.FEConfig(T_family="CG", T_degree=2, sigma_family="CG",
+                       sigma_degree=1),
+        time=tc.TimeConfig(0.0, 0.2, 0.1),
+        solver=tc.SolverConfig(newton_rtol=rtol, newton_atol=1e-10,
+                               cg_rtol=rtol, cg_max_it=300,
+                               linear_operator="stencil",
+                               preconditioner="mg", mg_smoother="chebyshev",
+                               cg_dtype=cg_dtype),
+        output=tc.OutputConfig(write_every=0, formats=()), dtype="float64")
+
+
+def write_phase13g_ref(scratch_dir, who, res) -> None:
+    """13g(b)'s T (the whole lattice) and counts after step 1."""
+    path = os.path.join(scratch_dir, PHASE13G_REF.format(who))
+    np.savez(path + ".tmp.npz", T=res["T"], newton=res["newton"],
+             cg=res["cg"])
+    os.replace(path + ".tmp.npz", path)
+
+
+def grid_shard_q2_b(mesh_dev, port, io_root, who, scratch_dir,
+                    before=None) -> dict:
+    """13g(b) on this rank: phase 9b's plate, 1 + 1 steps, its T after
+    step 1 written for 9b (rank 0), K2's halo form on its coarse chain's
+    fine level, and the output (grid_shard_io, `io_root`/`who`)."""
+    res = grid_shard_run(mesh_dev.device, port, mesh_dev, "q2_full", 1,
+                         warmup=1, keep=True, before=before, tag="13g")
+    gs, st = res.pop("problem"), res.pop("state")
+    if mesh_dev.rank == 0:
+        write_phase13g_ref(scratch_dir, who, to_host(res))
+    res["k2_halo"] = k2_halo_level_check(gs, st, port, tag="13g")
+    res["io"] = grid_shard_io(gs, st, port, os.path.join(io_root, who),
+                              tag="13g(b)")
+    del gs, st
+    return to_host(res)
+
+
+def grid_shard_q2_rank(mesh_dev, go, io_root, scratch_dir) -> dict:
+    """Phase 13g on one of the two gloo ranks: (a) the small plates, (b)
+    phase 9b's plate; rank 0 creates the file `go`/q2_full when (b) is
+    over."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, port = mesh_dev.device, rank_port()
+    t0 = time.perf_counter()
+    out = {name: to_host(grid_shard_run(dev, port, mesh_dev, name, steps,
+                                        tag="13g"))
+           for name, steps in GSQ2_SMALL}
+    out["a_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    try:
+        out["q2_full"] = grid_shard_q2_b(mesh_dev, port, io_root, "two",
+                                         scratch_dir)
+    finally:
+        if mesh_dev.rank == 0:
+            open(os.path.join(go, "q2_full"), "a").close()
+    out["b_s"] = time.perf_counter() - t1
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def grid_shard_q2_one(mesh_dev, go, io_root, scratch_dir) -> dict:
+    """Phase 13g over one NCCL rank, in a process of its own that sets up
+    while the two gloo ranks run: (a) the small plates, then (b) phase
+    9b's plate, its timed window after the two ranks' (the file
+    `go`/q2_full)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, port = mesh_dev.device, rank_port()
+    out = {name: to_host(grid_shard_run(dev, port, mesh_dev, name, steps,
+                                        tag="13g"))
+           for name, steps in GSQ2_SMALL}
+    out["q2_full"] = grid_shard_q2_b(
+        mesh_dev, port, io_root, "one", scratch_dir, before=lambda: wait_for(
+            go, "q2_full", "the two ranks' (b)"))
+    return out
+
+
+def grid_shard_q2_phase(dev, port, scratch_dir) -> dict:
+    """Phase 13g: GridShardedProblem with CG-2 T on the card. Three
+    processes start at once: one NCCL rank and two gloo ranks, each
+    running (a) the small plates and (b) phase 9b's 64x64x16 plate (the
+    one rank's timed window after the two ranks'), while this process
+    runs (a)'s plates unsharded. (a) is held to the unsharded runs at
+    tests/test_grid2.py:237's tolerances (T 1e-9 and sigma 1e-8 of their
+    max; sharded CG at most 2x + 8) and the two ranks to the one (Newton
+    equal, one apart in mixed precision; T max-rel 1e-12); (b)'s two
+    ranks to the one (GSQ2_BANDS; Newton equal); phase 9b holds (b)'s
+    step 1 to its warm-up step (PHASE13G_REF in `scratch_dir`)."""
+    from fem_glass_tempering_tpu_torch.models.problem import ThermoViscoProblem
+    from fem_glass_tempering_tpu_torch.parallel.comm import run_ranks
+    t_phase = time.perf_counter()
+    go = tempfile.mkdtemp(prefix="fgt_13g_")
+    io_root = tempfile.mkdtemp(prefix="io_13g_", dir=scratch_dir)
+    try:
+        with ThreadPoolExecutor(2) as ex:
+            job_two = ex.submit(run_ranks, grid_shard_q2_rank, GS_RANKS, dev,
+                                go, io_root, scratch_dir, backend="gloo",
+                                timeout=900)
+            job_one = ex.submit(run_ranks, grid_shard_q2_one, 1, dev, go,
+                                io_root, scratch_dir, backend="nccl",
+                                timeout=900)
+            unsharded = {}
+            for name, steps in GSQ2_SMALL:
+                make_mesh, cfg, _ = gs_cases()[name]
+                prob = ThermoViscoProblem(mesh=make_mesh(), config=cfg,
+                                          device=dev)
+                prob.setup()
+                st, ok, ni, ki = prob.multi_step(prob.state, steps)
+                if not ok:
+                    fail(f"13g {name}: the unsharded run did not converge")
+                unsharded[name] = dict(
+                    newton=ni, cg=ki,
+                    **{f: getattr(st, f).cpu().numpy() for f in GS_FIELDS})
+                del prob, st
+            try:
+                ranks = job_two.result()
+            finally:
+                # a failed pair must not leave the one rank waiting
+                open(os.path.join(go, "q2_full"), "a").close()
+            one = job_one.result()[0]
+    finally:
+        shutil.rmtree(go, ignore_errors=True)
+        shutil.rmtree(io_root, ignore_errors=True)
+    processes_s = time.perf_counter() - t_phase
+
+    def rel_max(a, b):
+        return float(np.abs(a - b).max() / max(float(np.abs(b).max()),
+                                                1e-30))
+
+    # ---- (a) the small plates ----
+    a = {}
+    for name, _ in GSQ2_SMALL:
+        un = unsharded[name]
+        rows = []
+        for who, got in [("one", one[name])] + [
+                (f"rank {r}", rk[name]) for r, rk in enumerate(ranks)]:
+            row = dict(newton=got["newton"], cg=got["cg"],
+                       T=rel_max(got["T"], un["T"]),
+                       sigma=rel_max(got["sigma"], un["sigma"]))
+            if not (row["T"] <= 1e-9 and row["sigma"] <= 1e-8
+                    and got["cg"] <= 2 * un["cg"] + 8):
+                fail(f"13g {name} {who} against the unsharded run "
+                     f"({un['newton']} / {un['cg']}): {json.dumps(row)}")
+            rows.append(row)
+        two_rel = max_rel(ranks[0][name]["T"], one[name]["T"])
+        # as 13f: a mixed Newton test at rtol 1e-12 may take one more
+        # iteration or one fewer on two ranks (the f32 CG's dots sum in
+        # another order)
+        slack = 1 if name == "q2_mixed" else 0
+        if any(abs(rk[name]["newton"] - one[name]["newton"]) > slack
+               for rk in ranks) or not two_rel <= 1e-12:
+            fail(f"13g {name}: two ranks against one, Newton "
+                 f"{[rk[name]['newton'] for rk in ranks]} / "
+                 f"{one[name]['newton']}, T max-rel {two_rel:.3e}")
+        a[name] = dict(unsharded_newton_cg=[un["newton"], un["cg"]],
+                       one_and_ranks=rows, two_vs_one_T_max_rel=two_rel)
+    # ---- (b) the plate: the two ranks against the one (9b holds both) ----
+    two = ranks[0]["q2_full"]
+    rel = max_rel(two["T"], one["q2_full"]["T"])
+    if (two["newton"] != one["q2_full"]["newton"]
+            or not rel <= GSQ2_BANDS["one"]
+            or ranks[1]["q2_full"]["newton"] != two["newton"]
+            or not np.array_equal(ranks[1]["q2_full"]["T"], two["T"])):
+        fail(f"13g(b): two ranks {two['newton']} / {two['cg']} against one "
+             f"{one['q2_full']['newton']} / {one['q2_full']['cg']}, T "
+             f"max-rel {rel:.3e}")
+    io = [one["q2_full"]["io"]] + [r["q2_full"]["io"] for r in ranks]
+    if len({x["solve_newton"] for x in io}) != 1:
+        fail(f"13g(b) output: the runs disagree "
+             f"({[x['solve_newton'] for x in io]} Newton)")
+
+    def summary(res):
+        return {k: v for k, v in res.items() if k not in GS_FIELDS}
+    out = dict(
+        a=dict(holds=a, ranks=[{n: summary(rk[n]) for n, _ in GSQ2_SMALL}
+                               for rk in ranks],
+               world_size_1={n: summary(one[n]) for n, _ in GSQ2_SMALL}),
+        b=dict(world_size_1=summary(one["q2_full"]),
+               ranks=[summary(r["q2_full"]) for r in ranks],
+               two_vs_one_T_max_rel=rel),
+        processes_s=processes_s, ranks_a_s=[r["a_s"] for r in ranks],
+        ranks_b_s=[r["b_s"] for r in ranks])
+    out["s"] = time.perf_counter() - t_phase
+    log("grid sharded CG-2 " + json.dumps(out))
+    return out
+
+
+def hold_phase13g(scratch_dir, T, newton, cg) -> dict:
+    """Phase 9b's warm-up step (T, its counts) against 13g(b)'s step 1 on
+    one NCCL rank and on two gloo ranks (PHASE13G_REF): T max-rel
+    GSQ2_BANDS["9b"], Newton equal, CG within 2%."""
+    out = {}
+    for who in ("one", "two"):
+        path = os.path.join(scratch_dir, PHASE13G_REF.format(who))
+        if not os.path.exists(path):
+            fail(f"9b: 13g(b)'s {who} file {path} is missing")
+        with np.load(path) as z:
+            got = {k: z[k] for k in z.files}
+        row = dict(newton=int(got["newton"]), cg=int(got["cg"]),
+                   newton_cg_9b=[newton, cg],
+                   T_max_rel=max_rel(got["T"], T))
+        if not (row["T_max_rel"] <= GSQ2_BANDS["9b"] and row["newton"] ==
+                newton and abs(row["cg"] - cg) <= 0.02 * cg):
+            fail(f"9b against 13g(b) {who}: {json.dumps(row)}")
+        out[who] = row
+    return out
+
+
+def grid_shard_q2_launches(gsq2: dict, name: str) -> dict:
+    """A kernel's launches in phase 13g's counted windows, per rank."""
+    out = {}
+    for case, _ in GSQ2_SMALL:
+        out[f"{case}_world_size_1"] = gsq2["a"]["world_size_1"][case][
+            "launches"][name]
+        out[f"{case}_ranks"] = [r[case]["launches"][name]
+                                for r in gsq2["a"]["ranks"]]
+    b = gsq2["b"]
+    out["q2_full_world_size_1"] = b["world_size_1"]["launches"][name]
+    out["q2_full_ranks"] = [r["launches"][name] for r in b["ranks"]]
+    if name in ("material_tspace", "stencil_matvec_halo"):
+        for run in ("solve", "resumed"):
+            out[f"q2_full_io_{run}_world_size_1"] = b["world_size_1"]["io"][
+                f"{run}_launches"][name]
+            out[f"q2_full_io_{run}_ranks"] = [
                 r["io"][f"{run}_launches"][name] for r in b["ranks"]]
     return out
 
@@ -5411,7 +5710,7 @@ def setup_device() -> torch.device:
 SIDE_GROUPS = (("5", "12b", "12c", "12d", "12e", "13d64", "13e"),
                ("6a", "7a", "8a"),
                ("13", "11", "9a", "10a"),
-               ("13f",))
+               ("13f", "13g"))
 
 
 def side_phases(names, t0_epoch, scratch_dir, warmup, k2_per_apply) -> dict:
@@ -5444,6 +5743,7 @@ def side_phases(names, t0_epoch, scratch_dir, warmup, k2_per_apply) -> dict:
         "13d64": lambda: dryrun64_phase(dev, port),
         "13e": lambda: multihost_phase(dev),
         "13f": lambda: grid_shard_dg_phase(dev, port, scratch_dir),
+        "13g": lambda: grid_shard_q2_phase(dev, port, scratch_dir),
     }
     out, ends = {}, {}
     for name in names:
@@ -5650,11 +5950,11 @@ def main() -> int:
     d2_parity, cli, dist = side["10a"], side["11"], side["13"]
     bf16_parity, forms, scan = side["12b"], side["12c"], side["12d"]
     native_rt, dry64, multihost = side["12e"], side["13d64"], side["13e"]
-    gsdg = side["13f"]
+    gsdg, gsq2 = side["13f"], side["13g"]
 
     # ---- phase 9b: the CG-2 plate on the lattice path ----
     drop_garbage("phase 9b")
-    cg2 = cg2_plate_phase(dev, port)
+    cg2 = cg2_plate_phase(dev, port, scratch_dir)
     phase_end("9b")
 
     # ---- phase 12a: bf16 V-cycle tables ----
@@ -5700,6 +6000,8 @@ def main() -> int:
                  gshard, dry64, "material_tspace"),
              launches_grid_sharded_dg=grid_shard_dg_launches(
                  gsdg, "material_tspace"),
+             launches_grid_sharded_q2=grid_shard_q2_launches(
+                 gsq2, "material_tspace"),
              launches_multihost_rank0=multihost["launches_rank0"][
                  "material_tspace"]),
         dict(name="stencil_matvec", route="cuda",
@@ -5726,7 +6028,9 @@ def main() -> int:
              launches_grid_sharded=grid_shard_launches(
                  gshard, dry64, "stencil_matvec"),
              launches_grid_sharded_dg=grid_shard_dg_launches(
-                 gsdg, "stencil_matvec")),
+                 gsdg, "stencil_matvec"),
+             launches_grid_sharded_q2=grid_shard_q2_launches(
+                 gsq2, "stencil_matvec")),
         # K2's halo form (a rank's planes of the grid-sharded step, f32 /
         # f64 tables): launches of phase 13d's plate over one NCCL rank,
         # timed on the two-rank layout's first slab of its fine level
@@ -5748,6 +6052,9 @@ def main() -> int:
              launches_grid_sharded_dg=grid_shard_dg_launches(
                  gsdg, "stencil_matvec_halo"),
              grid_sharded_dg_check=gsdg["b"]["world_size_1"]["k2_halo"],
+             launches_grid_sharded_q2=grid_shard_q2_launches(
+                 gsq2, "stencil_matvec_halo"),
+             grid_sharded_q2_check=gsq2["b"]["world_size_1"]["k2_halo"],
              launches_multihost_rank0=multihost["launches_rank0"][
                  "stencil_matvec_halo"]),
         # the bf16-table instantiation of K2 (f32 vector: the mixed
@@ -5818,6 +6125,8 @@ def main() -> int:
                  dist, "dg_cell_residual"),
              launches_grid_sharded_dg=grid_shard_dg_launches(
                  gsdg, "dg_cell_residual"),
+             launches_grid_sharded_q2=grid_shard_q2_launches(
+                 gsq2, "dg_cell_residual"),
              launches_degree2_parity={
                  label: case["k3_launches_gpu"]
                  for label, case in d2_parity.items()},
@@ -5852,6 +6161,7 @@ def main() -> int:
     log("summary grid sharded " + json.dumps(gshard))
     log("summary multihost " + json.dumps(multihost))
     log("summary grid sharded DG " + json.dumps(gsdg))
+    log("summary grid sharded CG-2 " + json.dumps(gsq2))
     log("summary phase end times, s " + json.dumps(ends))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -22,20 +22,44 @@ anisotropic plate), transfers to the embedded CG-1 node grid (even lattice
 points) by the exact Q1 -> Q2 embedding, and takes one CG-1 V-cycle as
 its coarse solve, whose smoothed levels apply the hand-written stencil
 kernel (ops/cuda_stencil.py) on the GPU. The JAX version's coarse V-cycle
-is its grid-shaped `GridMG` (solver/grid_mg.py), kept apart from
-`GeometricMG` for the ghost-padded fine level of the sharded step; without
-that padding the two compute the same cycle, so the port takes
-`GeometricMG` (solver/multigrid.py) on the flattened coarse residual until
-Slice 7 brings the padding.
+is its grid-shaped `GridMG` (solver/grid_mg.py) over a node grid whose
+axis 0 may carry `coarse_pad0` ghost planes (the grid-sharded step's);
+without that padding the two compute the same cycle, so the unsharded
+default (`coarse_kind="geometric"`) takes `GeometricMG` (solver/
+multigrid.py) on the flattened coarse residual, and `coarse_kind="grid"`
+takes JAX's route.
 
 For the Krylov loop a materialised (5^d, *L) value table is also
 available (`matvec_form="table"` / `make_matvec(..., form="table")`), baked
 from 1D band outer products and the linearised face-flux blocks, and
 applied as 5^d shifted slices.
 
+The grid-sharded CG-2 step (parallel/grid_shard.py) splits the lattice
+along axis 0, padded with ghost planes to a multiple of the ranks:
+
+- `GridQ2Slab` (`GridHeatOperator2.slab(lo, hi)`): the kron-form operator
+  on lattice planes [lo, hi), computed on the window [lo - 2, hi + 2)
+  (a 1D Q2 band couples planes two apart; the kron chain makes one axis-0
+  pass a term, after its axis-1 and axis-2 passes, so a depth-2 halo
+  serves a whole Jacobian action), its axis-0 bands and tables sliced from
+  the whole lattice's, the face terms over the cells that touch the
+  rank's planes. Its rows equal the whole lattice's; ghost rows are zero
+  rows (the diagonal: one).
+- `LatticeHalo`: that window, through one re-partition
+  (parallel/comm.py Repartition) of the real planes.
+- `LatticeNodeTransfers`: the maps between a rank's lattice rows and its
+  rows of the padded CG-1 node grid (the restriction, the prolongation
+  and the even-stride injection): the two splits drift apart along axis
+  0, so each is one re-partition, then the whole grid's formula on the
+  window.
+- `RankQ2MG`: Q2MG's grid route on one rank: smoothing on the slab (lines
+  along axis 1 or 2 factored on the rank's columns, lines along axis 0
+  solved replicated after an all-gather), the power iteration's dots
+  summed over the ranks, and the coarse V-cycle in GridMG's rank form
+  (solver/grid_mg.py RankGridMG) through the transfers.
+
 Everything here is plain PyTorch, as it is plain XLA in the JAX package,
-in the JAX version's order of operations. Waiting for Slice 7 of the port
-(ROADMAP.md): a ghost-padded coarse chain (`coarse_pad0`).
+in the JAX version's order of operations.
 """
 
 from __future__ import annotations
@@ -123,6 +147,10 @@ class GridHeatOperator2:
         self.dims = tuple(mesh.structured["dims"])
         self.d = d = len(self.dims)
         self.grid = tuple(2 * n + 1 for n in self.dims)
+        # a slab's window along axis 0 (GridQ2Slab): its first lattice row
+        # and the cells [c0, c1) whose face terms it computes
+        self._row0, self._cells0 = 0, (0, self.dims[0])
+        self._slabs: dict = {}
         self.n = fs.n_scalar_dofs
         assert int(np.prod(self.grid)) == self.n
         nloc = fs.element.nloc
@@ -272,14 +300,20 @@ class GridHeatOperator2:
     def _corner_slices(self, face: _Face2, l: int):
         """Static strided lattice slices addressing local node l of every
         cell in the face's boundary layer (stride 2: cell i -> lattice
-        2*i + off)."""
+        2*i + off); along axis 0 the cells [c0, c1), from lattice row
+        `_row0` on (the whole lattice: all cells, from row 0)."""
         off = self.loffs[l]
+        c0, c1 = self._cells0
         idx = []
         for i in range(self.d):
+            r0 = self._row0 if i == 0 else 0
             if i == face.axis:
                 base = (0 if face.side == 0
-                        else 2 * (self.dims[i] - 1)) + off[i]
+                        else 2 * (self.dims[i] - 1)) + off[i] - r0
                 idx.append(slice(base, base + 1))
+            elif i == 0:
+                idx.append(slice(2 * c0 + off[0] - r0,
+                                 2 * c1 - 1 + off[0] - r0, 2))
             else:
                 idx.append(slice(off[i], off[i] + 2 * self.dims[i] - 1, 2))
         return tuple(idx)
@@ -323,15 +357,20 @@ class GridHeatOperator2:
         must be a tensor the caller owns."""
         az = face.axis
         c = contrib.squeeze(az)                # (*plane_cells, lc)
+        base = (0 if face.side == 0 else 2 * self.dims[az]) - (
+            self._row0 if az == 0 else 0)
         if self.d == 1:                        # a single end point
-            base = 0 if face.side == 0 else self.grid[0] - 1
             yg.narrow(0, base, 1).add_(c.reshape(1))
             return yg
         npa = self.d - 1
         c3 = c[..., face.plane_pos].reshape(c.shape[:-1] + (3,) * npa)
         plane = self._assemble_cells_to_lattice(c3, npa)
-        base = 0 if face.side == 0 else self.grid[az] - 1
-        yg.narrow(az, base, 1).add_(plane.unsqueeze(az))
+        dst = yg.narrow(az, base, 1)
+        if az != 0:
+            # the plane's rows along axis 0: those of the cells [c0, c1)
+            c0, c1 = self._cells0
+            dst = dst.narrow(0, 2 * c0 - self._row0, 2 * (c1 - c0) + 1)
+        dst.add_(plane.unsqueeze(az))
         return yg
 
     # ---- 1D banded applies (sum factorization) -----------------------
@@ -642,12 +681,129 @@ class GridHeatOperator2:
                 mask, v, mv0(torch.where(mask, torch.zeros_like(v), v)))
         return mv0
 
+    def slab(self, lo: int, hi: int) -> "GridQ2Slab":
+        """The operator on lattice planes [lo, hi) of axis 0 of the lattice
+        padded with ghost planes past its physical grid[0] (one per range:
+        the step and its preconditioner share it)."""
+        if (lo, hi) not in self._slabs:
+            self._slabs[(lo, hi)] = GridQ2Slab(self, lo, hi)
+        return self._slabs[(lo, hi)]
+
+
+def _window0(a: torch.Tensor, w0: int, n: int, axis: int = 0):
+    """Rows [w0, w0 + n) along `axis` of a tensor over the physical
+    lattice, zero (False) outside it."""
+    shape = list(a.shape)
+    shape[axis] = n
+    out = torch.zeros(shape, dtype=a.dtype, device=a.device)
+    lo, hi = max(w0, 0), min(w0 + n, a.shape[axis])
+    if hi > lo:
+        out.narrow(axis, lo - w0, hi - lo).copy_(a.narrow(axis, lo, hi - lo))
+    return out
+
+
+class GridQ2Slab(GridHeatOperator2):
+    """The kron-form GridHeatOperator2 on lattice planes [lo, hi) of axis 0
+    of its lattice padded with ghost planes past the physical g0 = grid[0]
+    (module docstring). It computes on the window of E = L + 4 planes
+    [lo - 2, hi + 2), the whole lattice's methods on it: the axis-0 bands,
+    M 1 and the Dirichlet masks sliced from the whole lattice's (zero
+    outside its physical planes), the x faces whose plane it owns, the y
+    and z faces over the cells [c0, c1) that touch its real planes. It
+    keeps the L owned rows, each equal to the whole lattice's row; ghost
+    rows are zero (the diagonal: one). Inputs carry the halo: `T_ext`
+    (E, *grid[1:]), zero outside the physical planes (LatticeHalo)."""
+
+    def __init__(self, op: GridHeatOperator2, lo: int, hi: int):
+        if op.matvec_form != "kron":
+            raise ValueError("a lattice slab takes the kron form")
+        if not 0 <= lo < hi:
+            raise ValueError(f"lattice planes [{lo}, {hi})")
+        self.__dict__.update(op.__dict__)
+        self._slabs = {}
+        g0 = op.grid[0]
+        self.lo, self.hi, self.L = lo, hi, hi - lo
+        self.n_real = max(0, min(hi, g0) - lo)       # owned real planes
+        self.slab_grid = (self.L,) + op.grid[1:]
+        w0, E = lo - 2, self.L + 4
+        self.grid = (E,) + op.grid[1:]
+        self._row0 = w0
+        # the cells along axis 0 that touch the owned real planes (cell c
+        # spans planes 2c .. 2c + 2)
+        e = lo + self.n_real
+        c0 = max(0, (lo - 1) // 2)
+        c1 = min(self.dims[0], (e - 1) // 2 + 1) if self.n_real else c0
+        self._cells0 = (c0, max(c1, c0))
+        self.bands_m = [_window0(op.bands_m[0], w0, E, 1)] + op.bands_m[1:]
+        self.bands_k = [_window0(op.bands_k[0], w0, E, 1)] + op.bands_k[1:]
+        self.M1g = _window0(op.M1g, w0, E)
+        self.bc_mask_g = _window0(op.bc_mask_g, w0, E)
+        self.bc_values_g = _window0(op.bc_values_g, w0, E)
+        keep = [k for k, fc in enumerate(op.faces)
+                if (fc.axis == 0 and lo <= (0 if fc.side == 0 else g0 - 1)
+                    < e)
+                or (fc.axis != 0 and c1 > c0)]
+        self.faces = [op.faces[k] for k in keep]
+        self._face_phiphi = [op._face_phiphi[k] for k in keep]
+
+    def _own(self, y, ghost: float):
+        """The owned rows of a window result, `ghost` on ghost rows."""
+        y = y[2:self.L + 2]
+        if self.n_real < self.L:
+            y = torch.cat([y[:self.n_real], torch.full_like(
+                y[self.n_real:], ghost)])
+        return y
+
+    def residual_r(self, T_ext, Tp_ext, dt=None):
+        """The owned rows of the residual (L, *grid[1:]), zero on ghost
+        rows; both states with their halos."""
+        return self._own(self.residual_g(T_ext, Tp_ext, dt), 0.0)
+
+    def jacobian_diag_r(self, T_ext, dt=None):
+        return self._own(self.jacobian_diag_g(T_ext, dt), 1.0)
+
+    def make_matvec_r(self, T_ext, dt, halo):
+        """v (L, *grid[1:]) -> J(T) v on the owned rows, zero on ghost
+        rows: the kron chain on v's window `halo(v)` (a collective: every
+        rank applies together)."""
+        mv = self.make_matvec_g(T_ext, dt)
+        return lambda v: self._own(mv(halo(v)), 0.0)
+
+
+class LatticeHalo:
+    """A rank's rows [lo, hi) of a lattice split along axis 0 in rank
+    order (`rows`, every rank's) -> its window [lo - depth, hi + depth),
+    the physical planes [0, g0) from their holders through one
+    re-partition (none at world size 1 or where no rank needs another's
+    planes), zeros elsewhere. Counted in `LatticeHalo.count` (and in
+    `Repartition.count`); every rank must apply it together."""
+
+    count = 0
+
+    def __init__(self, rows, g0: int, device_mesh, depth: int = 2):
+        from fem_glass_tempering_tpu_torch.parallel.comm import Repartition
+        lo, hi = rows[device_mesh.rank]
+        windows = [(max(a - depth, 0), min(b + depth, g0)) for a, b in rows]
+        self._rep = Repartition(rows, windows, device_mesh)
+        c, d = windows[device_mesh.rank]
+        self._pad = (c - (lo - depth), hi + depth - max(c, d))
+
+    def __call__(self, v):
+        if self._rep.total:
+            LatticeHalo.count += 1
+        w = self._rep(v)
+        return F.pad(w, [0, 0] * (w.dim() - 1) + list(self._pad))
+
 
 class Q2MG:
     """p-multigrid preconditioner for GridHeatOperator2: smoothing on the
     Q2 lattice, exact-embedding transfers to the CG-1 node grid (even
-    lattice points), and one GeometricMG V-cycle as the coarse solve. The
-    interface mirrors GeometricMG's (models/problem.py):
+    lattice points), and one CG-1 V-cycle as the coarse solve: GeometricMG
+    (`coarse_kind="geometric"`, the unsharded driver's) or JAX's GridMG
+    over a node grid whose axis 0 carries `coarse_pad0` ghost planes
+    (`coarse_kind="grid"`, the grid-sharded step's; the restricted
+    residual is zero on the ghost planes and the prolongation drops them).
+    The interface mirrors GeometricMG's (models/problem.py):
 
         mg = Q2MG(grid2_op, make_heat_operator)
         mg.freeze_rhos(dt)
@@ -663,15 +819,20 @@ class Q2MG:
 
     def __init__(self, fine: GridHeatOperator2, make_heat_operator, *,
                  nu_pre: int = 2, nu_post: int = 2, smoother: str = "auto",
-                 mg_kwargs: dict | None = None, coarse_pad0: int = 0):
+                 mg_kwargs: dict | None = None, coarse_pad0: int = 0,
+                 coarse_kind: str = "geometric"):
+        from fem_glass_tempering_tpu_torch.ops.grid import GridHeatOperator
+        from fem_glass_tempering_tpu_torch.solver.grid_mg import GridMG
         from fem_glass_tempering_tpu_torch.solver.multigrid import (
             GeometricMG,
         )
-        if coarse_pad0:
-            raise NotImplementedError(
-                "a ghost-padded coarse chain (coarse_pad0) waits for Slice 7 "
-                "of the PyTorch port (ROADMAP.md)")
+        if coarse_kind not in ("geometric", "grid"):
+            raise ValueError(coarse_kind)
+        if coarse_pad0 and coarse_kind != "grid":
+            raise ValueError("a ghost-padded coarse chain (coarse_pad0) "
+                             "needs coarse_kind='grid'")
         self.fine = fine
+        self.coarse_kind = coarse_kind
         self.nu_pre, self.nu_post = nu_pre, nu_post
         mesh = fine.op.fs.mesh
         h = [ln / dd for ln, dd in zip(mesh.structured["lengths"],
@@ -690,37 +851,69 @@ class Q2MG:
             self._perm = tuple(j for j in range(fine.d)
                                if j != self.line_axis) + (self.line_axis,)
             self._inv_perm = tuple(int(j) for j in np.argsort(self._perm))
-        # the coarse V-cycle's defaults are those of the JAX version's
-        # GridMG: Chebyshev smoothing, a dense coarsest level
-        self.gmg = GeometricMG(mesh, make_heat_operator, dtype=fine.dtype,
-                               **{"smoother": "chebyshev",
-                                  **(mg_kwargs or {})})
-        heat1 = self.gmg.levels[0].op
+            f = lambda a: torch.as_tensor(a, dtype=fine.dtype,  # noqa: E731
+                                          device=fine.device)
+            alpha, beta = self._line_coeffs()
+            self._alpha, self._beta = f(alpha), f(beta)
+        if coarse_kind == "grid":
+            heat1 = make_heat_operator(mesh)
+            self._check_coarse(heat1)
+            # the whole grid's device tables wait for a whole-grid method:
+            # the sharded step reads its rank's slabs'
+            self.g1 = GridHeatOperator(heat1, pad_axis0=coarse_pad0,
+                                       allow_const=False, tables=False)
+            self.gmg = GridMG(self.g1, make_heat_operator,
+                              **(mg_kwargs or {}))
+        else:
+            # the coarse V-cycle's defaults are those of the JAX version's
+            # GridMG: Chebyshev smoothing, a dense coarsest level
+            self.gmg = GeometricMG(mesh, make_heat_operator,
+                                   dtype=fine.dtype,
+                                   **{"smoother": "chebyshev",
+                                      **(mg_kwargs or {})})
+            self._check_coarse(self.gmg.levels[0].op)
+        self._rho2 = None
+
+    @staticmethod
+    def _check_coarse(heat1) -> None:
         if heat1.fs.degree != 1 or heat1.fs.family != "CG":
             raise ValueError("make_heat_operator must build the CG-1 "
                              "operator for the coarse chain")
-        self._rho2 = None
 
     def freeze_rhos(self, dt: float) -> None:
         g = self.fine.gersh
         num = (g["mass_abs"] + dt * g["stiff_abs"] + dt * g["b_abs"])
         den = (g["mass_diag"] + dt * g["stiff_diag"] + dt * g["b_diag"])
         self._rho2 = float(np.max(num / den))
-        self.gmg.freeze_omegas(None, dt)
+        if self.coarse_kind == "grid":
+            self.gmg.freeze_rhos(dt)
+        else:
+            self.gmg.freeze_omegas(None, dt)
 
     # GeometricMG-compatible alias
     def freeze_omegas(self, T0, dt) -> None:
         self.freeze_rhos(dt)
 
-    def linearization_states_g(self, Tg: torch.Tensor):
-        """Per-level frozen temperatures: the Q2 lattice grid, then the
-        CG-1 chain's flat states by injection (even lattice points are the
-        CG-1 nodal values; deeper levels by GeometricMG's even-node
-        injection)."""
+    def _inject(self, Tg):
+        """The CG-1 node values of a lattice grid: its even points."""
         T1 = Tg
         for a in range(self.fine.d):
             T1 = T1[(slice(None),) * a + (slice(0, None, 2),)]
-        return [Tg] + self.gmg.linearization_states(T1.reshape(-1))
+        return T1
+
+    def linearization_states_g(self, Tg: torch.Tensor):
+        """Per-level frozen temperatures: the Q2 lattice grid, then the
+        CG-1 chain by injection (even lattice points are the CG-1 nodal
+        values; deeper levels by the coarse cycle's even-node injection):
+        GeometricMG's flat states, or GridMG's grids from the node grid
+        edge-padded to its ghost planes."""
+        T1 = self._inject(Tg)
+        if self.coarse_kind == "geometric":
+            return [Tg] + self.gmg.linearization_states(T1.reshape(-1))
+        if self.gmg.pad0:
+            T1 = torch.cat([T1, T1[-1:].expand(
+                (self.gmg.pad0,) + tuple(T1.shape[1:]))])
+        return [Tg] + self.gmg.linearization_states_g(T1)
 
     def linearization_states(self, T: torch.Tensor):
         return self.linearization_states_g(T.reshape(self.fine.grid))
@@ -742,14 +935,10 @@ class Q2MG:
         return xc
 
     # ---- batched pentadiagonal line solver ---------------------------
-    def _line_bands(self, T_lin, dt):
-        """The line matrices along `line_axis` of the frozen operator as
-        (a0, a1, a2) of shape (ncol, nz): the diagonal, and the couplings
-        A[k+1, k] and A[k+2, k]. Off the diagonal the line matrix is
-        alpha*M1_az + beta*K1_az (Kronecker separability); the diagonal is
-        the exact operator diagonal (it folds in the linearized boundary
-        flux and the Dirichlet identity rows), and the couplings at
-        Dirichlet rows are severed.
+    def _line_coeffs(self):
+        """The per-line scalars alpha, beta (numpy, over the off-line axes
+        of the whole lattice): off the diagonal each line matrix along
+        `line_axis` is alpha*M1_az + beta*K1_az (Kronecker separability).
 
         alpha is the JAX version's as it stands: the cross-axis stiffness
         enters it without the dt factor that the operator c_mass*M +
@@ -760,7 +949,6 @@ class Q2MG:
         d = fine.d
         cm = fine.op.c_mass
         ck = fine.op.c_diff
-        L = fine.grid
         dm = [np.asarray(fine.np_bands[t][0][2]) for t in range(d)]
         dk = [np.asarray(fine.np_bands[t][1][2]) for t in range(d)]
 
@@ -773,28 +961,43 @@ class Q2MG:
                 out = v if out is None else np.multiply.outer(out, v)
             return out
 
-        alpha_np = cm * outer_except(dm)
+        alpha = cm * outer_except(dm)
         for a in range(d):
             if a == az:
                 continue
-            alpha_np = alpha_np + ck * outer_except(
+            alpha = alpha + ck * outer_except(
                 [dk[t] if t == a else dm[t] for t in range(d)])
-        beta_np = ck * outer_except(dm)
-        f = lambda a: torch.as_tensor(a, dtype=fine.dtype,
-                                      device=fine.device)
+        return alpha, ck * outer_except(dm)
+
+    def _line_bands(self, T_lin, dt):
+        """The line matrices along `line_axis` of the operator frozen at
+        the lattice grid T_lin as (a0, a1, a2) of shape (ncol, nz): the
+        diagonal, and the couplings A[k+1, k] and A[k+2, k]. The diagonal
+        is the exact operator diagonal (it folds in the linearized
+        boundary flux and the Dirichlet identity rows), and the couplings
+        at Dirichlet rows are severed."""
+        fine = self.fine
+        return self._line_bands_from(
+            fine.jacobian_diag_g(T_lin, dt), self._alpha, self._beta,
+            fine.bc_mask_g if fine.has_bc else None, dt)
+
+    def _line_bands_from(self, diag_g, alpha, beta, mask_g, dt):
+        """(a0, a1, a2) from a diagonal grid (the whole lattice's or a
+        rank's rows of it), alpha / beta over its off-line axes and its
+        Dirichlet mask (None: no Dirichlet rows)."""
+        fine, az = self.fine, self.line_axis
         Mb, Kb = fine.bands_m[az], fine.bands_k[az]    # (5, Lz)
-        nz = L[az]
-        ncol = int(np.prod(L)) // nz
-        a0 = self._to_lines(fine.jacobian_diag_g(T_lin, dt))
-        ab = f(alpha_np).reshape(ncol, 1)
-        bb = f(beta_np).reshape(ncol, 1)
+        a0 = self._to_lines(diag_g)
+        ncol = a0.shape[0]
+        ab = alpha.reshape(ncol, 1)
+        bb = beta.reshape(ncol, 1)
         # the symmetric band layout stores band b of row r as the coupling
         # to column r + b - 2, so A[k+1, k] = band 3 at row k and
         # A[k+2, k] = band 4 at row k; the stiffness part carries dt
         a1 = ab * Mb[3] + (dt * bb) * Kb[3]            # (ncol, nz)
         a2 = ab * Mb[4] + (dt * bb) * Kb[4]
-        if fine.has_bc:
-            free = 1.0 - self._to_lines(fine.bc_mask_g.to(fine.dtype))
+        if mask_g is not None:
+            free = 1.0 - self._to_lines(mask_g.to(fine.dtype))
             free_n1 = torch.cat(
                 [free[:, 1:], torch.zeros_like(free[:, :1])], dim=1)
             free_n2 = torch.cat(
@@ -804,12 +1007,10 @@ class Q2MG:
         return a0, a1, a2
 
     def _to_lines(self, x):
-        return x.permute(self._perm).reshape(-1, self.fine.grid[
-            self.line_axis])
+        return x.permute(self._perm).reshape(-1, x.shape[self.line_axis])
 
-    def _from_lines(self, x2):
-        L = self.fine.grid
-        return x2.reshape(tuple(L[j] for j in self._perm)).permute(
+    def _from_lines(self, x2, shape):
+        return x2.reshape(tuple(shape[j] for j in self._perm)).permute(
             self._inv_perm)
 
     @staticmethod
@@ -836,7 +1037,12 @@ class Q2MG:
     def _line_solver(self, T_lin, dt):
         """Factorise every lattice line along `line_axis` of the frozen
         operator and return zsolve(r_grid) -> Z^{-1} r_grid."""
-        d0, l1, l2 = self._ldl(*self._line_bands(T_lin, dt))
+        return self._zsolve(self._ldl(*self._line_bands(T_lin, dt)))
+
+    def _zsolve(self, factors):
+        """The line solve over grids of any rows (the lines' order of
+        `_to_lines`) from the factors of `_ldl`."""
+        d0, l1, l2 = factors
         nz = len(d0)
 
         def zsolve(rg):
@@ -854,7 +1060,7 @@ class Q2MG:
                 x[-2] = z[-2] - l1[nz - 2] * x[-1]
             for k in range(nz - 3, -1, -1):
                 x[k] = z[k] - l1[k] * x[k + 1] - l2[k] * x[k + 2]
-            return self._from_lines(torch.stack(x, dim=1))
+            return self._from_lines(torch.stack(x, dim=1), rg.shape)
         return zsolve
 
     @staticmethod
@@ -873,21 +1079,12 @@ class Q2MG:
             v = w / nw
         return rho * 1.1
 
-    def preconditioner_g(self, T_levels, dt):
-        """Grid-shaped V-cycle apply (r_lattice -> ~A^-1 r_lattice)."""
-        assert self._rho2 is not None, "call freeze_rhos(dt) first"
-        fine = self.fine
-        mv = fine.make_matvec_g(T_levels[0], dt)
-        coarse = self.gmg.preconditioner(T_levels[1:], dt)
+    def _cycle(self, mv, zapply, rho, restrict, coarse, prolong):
+        """The apply r -> ~A^{-1} r over a lattice layout (the whole grid,
+        or a rank's rows): Chebyshev (or Jacobi) smoothing by `zapply`
+        over [rho/4, rho], and the coarse correction prolong(coarse(
+        restrict(residual)))."""
         nu_pre, nu_post = self.nu_pre, self.nu_post
-        if self.smoother == "line":
-            zapply = self._line_solver(T_levels[0], dt)
-            rho = self._power_rho(mv, zapply, fine.grid, fine.dtype,
-                                  fine.device)
-        else:
-            diag = fine.jacobian_diag_g(T_levels[0], dt)
-            zapply = lambda r: r / diag
-            rho = self._rho2
 
         def smooth_cheb(x, b, nu):
             lmax = rho
@@ -919,14 +1116,254 @@ class Q2MG:
         def apply_g(rg):
             x = smooth(torch.zeros_like(rg), rg, nu_pre)
             res = rg - mv(x)
-            rc = self._restrict(res)
-            xc = coarse(rc.reshape(-1)).reshape(rc.shape)
-            x = x + self._prolong(xc)
+            x = x + prolong(coarse(restrict(res)))
             return smooth(x, rg, nu_post)
         return apply_g
+
+    def preconditioner_g(self, T_levels, dt):
+        """Grid-shaped V-cycle apply (r_lattice -> ~A^-1 r_lattice)."""
+        assert self._rho2 is not None, "call freeze_rhos(dt) first"
+        fine = self.fine
+        mv = fine.make_matvec_g(T_levels[0], dt)
+        if self.smoother == "line":
+            zapply = self._line_solver(T_levels[0], dt)
+            rho = self._power_rho(mv, zapply, fine.grid, fine.dtype,
+                                  fine.device)
+        else:
+            diag = fine.jacobian_diag_g(T_levels[0], dt)
+            zapply = lambda r: r / diag  # noqa: E731
+            rho = self._rho2
+        if self.coarse_kind == "geometric":
+            inner = self.gmg.preconditioner(T_levels[1:], dt)
+
+            def coarse(rc):
+                return inner(rc.reshape(-1)).reshape(rc.shape)
+        else:
+            inner = self.gmg.preconditioner_g(T_levels[1:], dt)
+            pad = self.gmg.pad0
+
+            def coarse(rc):
+                if not pad:
+                    return inner(rc)
+                # zero residual on the ghost planes; their correction goes
+                xc = inner(F.pad(rc, [0, 0] * (rc.dim() - 1) + [0, pad]))
+                return xc[:xc.shape[0] - pad]
+        return self._cycle(mv, zapply, rho, self._restrict, coarse,
+                           self._prolong)
 
     def preconditioner(self, T_levels, dt):
         """Flat-vector apply (the interface models/problem.py calls)."""
         apply_g = self.preconditioner_g(T_levels, dt)
         grid = self.fine.grid
         return lambda r: apply_g(r.reshape(grid)).reshape(-1)
+
+
+# ----------------------------------------------------------------------
+class LatticeNodeTransfers:
+    """The maps between one rank's rows `lat_rows[rank]` of a Q2 lattice
+    (2 n0 + 1 physical planes along axis 0, padded with ghost planes) and
+    its rows `node_rows[rank]` of the CG-1 node grid (n0 + 1 physical
+    planes, padded likewise): Q2MG's restriction and prolongation and the
+    even-stride injection (the coarse chain's linearisation states and
+    the sigma space's cross evaluation). Node plane i sits at lattice
+    plane 2i, so the two splits drift apart along axis 0 (at P = 4 on a
+    5-cell axis rank 2 holds lattice planes 6-8, nodes 3 and 4, and node
+    rows [4, 6)): each map is one re-partition (parallel/comm.py
+    Repartition) of the rows its window needs, then the whole grid's
+    formula on that window, in its order of operations. Every rank must
+    call each map together."""
+
+    def __init__(self, dims, lat_rows, node_rows, device_mesh):
+        from fem_glass_tempering_tpu_torch.parallel.comm import Repartition
+        self.d = len(dims)
+        self.g0 = g0 = 2 * dims[0] + 1
+        self.gx = gx = dims[0] + 1
+        r = device_mesh.rank
+        self.lo, self.hi = lat_rows[r]
+        self.n0, self.n1 = node_rows[r]
+        # restriction: node i reads lattice planes 2i - 1 .. 2i + 1
+        rwin, pwin, iwin = [], [], []
+        for (lo, hi), (n0, n1) in zip(lat_rows, node_rows):
+            k0, k1 = min(n0, gx), min(n1, gx)
+            rwin.append((max(2 * k0 - 1, 0), min(2 * k1, g0))
+                        if k1 > k0 else (0, 0))
+            e = min(hi, g0)
+            # prolongation: lattice plane j reads nodes j // 2 .. (j+1) // 2
+            pwin.append((lo // 2, e // 2 + 1) if e > lo else (0, 0))
+            # injection: node i takes lattice plane min(2i, g0 - 1) (the
+            # ghost nodes the edge plane's)
+            iwin.append((min(2 * n0, g0 - 1), min(2 * (n1 - 1), g0 - 1) + 1))
+        self.k0, self.k1 = min(self.n0, gx), min(self.n1, gx)
+        self.e = min(self.hi, g0)
+        self._rwin, self._pwin, self._iwin = rwin[r], pwin[r], iwin[r]
+        self._restrict_rep = Repartition(lat_rows, rwin, device_mesh)
+        self._prolong_rep = Repartition(node_rows, pwin, device_mesh)
+        self._inject_rep = Repartition(lat_rows, iwin, device_mesh)
+        w0 = self._iwin[0]
+        self._inject_idx = [min(2 * i, g0 - 1) - w0
+                            for i in range(self.n0, self.n1)]
+
+    @staticmethod
+    def _pad0(x, lo: int, hi: int):
+        return F.pad(x, [0, 0] * (x.dim() - 1) + [lo, hi])
+
+    def restrict(self, r_rows):
+        """Q2MG._restrict on this rank's lattice rows (zero on ghost rows)
+        -> its node rows, zero on ghost planes."""
+        from fem_glass_tempering_tpu_torch.solver.multigrid import (
+            GeometricMG,
+        )
+        L, k = self.n1 - self.n0, self.k1 - self.k0
+        w = self._restrict_rep(r_rows)
+        if k == 0:
+            return r_rows.new_zeros((L,) + tuple(
+                (n + 1) // 2 for n in r_rows.shape[1:]))
+        a, b = self._rwin
+        # the window [2 k0 - 1, 2 k1), zero where it leaves the lattice
+        w = self._pad0(w, a - (2 * self.k0 - 1), 2 * self.k1 - b)
+        even, after, before = w[1::2], w[2::2], w[0:-1:2]
+        rc = even + 0.5 * (after + before)
+        for ax in range(1, self.d):
+            rc = GeometricMG._restrict_axis(rc, ax)
+        return self._pad0(rc, 0, L - k)
+
+    def prolong(self, x_rows):
+        """Q2MG._prolong from this rank's node rows (the real planes read)
+        -> its lattice rows, zero on ghost rows."""
+        from fem_glass_tempering_tpu_torch.solver.multigrid import (
+            GeometricMG,
+        )
+        L = self.hi - self.lo
+        w = self._prolong_rep(x_rows)
+        n = self.e - self.lo
+        if n <= 0:
+            return x_rows.new_zeros((L,) + tuple(
+                2 * m - 1 for m in x_rows.shape[1:]))
+        a, _ = self._pwin
+        x = GeometricMG._prolong_axis(w, 0)[self.lo - 2 * a:self.e - 2 * a]
+        for ax in range(1, self.d):
+            x = GeometricMG._prolong_axis(x, ax)
+        return self._pad0(x, 0, L - n)
+
+    def inject(self, a_rows):
+        """The even lattice points of this rank's lattice rows (L, ...,
+        trailing axes beyond the lattice's kept) -> its node rows, the
+        ghost planes a copy of node plane n0 (JAX's injection and edge
+        pad)."""
+        w = self._inject_rep(a_rows)
+        x = w[self._inject_idx]
+        for ax in range(1, self.d):
+            x = x[(slice(None),) * ax + (slice(0, None, 2),)]
+        return x
+
+
+class RankQ2MG:
+    """Q2MG's grid route (coarse_kind="grid") on one rank of a lattice
+    split along axis 0 (module docstring): `mg` a frozen Q2MG over the
+    whole lattice, `lat_rows` / `node_rows` every rank's lattice rows and
+    node rows in rank order. The smoother runs on the rank's slab of the
+    fine operator (GridQ2Slab, its Jacobian action through LatticeHalo);
+    point smoothing and lines along axis 1 or 2 give the whole cycle's
+    rows bit for bit, lines along axis 0 are solved on the all-gathered
+    lattice (one all-gather a line solve), and the power iteration's start
+    vector is the rank's real rows of the whole lattice's with every
+    norm's sum of squares summed over the ranks (the one place its bits
+    part from the unsharded cycle's). The coarse V-cycle is GridMG's rank
+    form over the node rows. Every rank must build and apply it
+    together."""
+
+    def __init__(self, mg: Q2MG, device_mesh, lat_rows, node_rows):
+        from fem_glass_tempering_tpu_torch.parallel import comm
+        from fem_glass_tempering_tpu_torch.solver.grid_mg import RankGridMG
+        if mg.coarse_kind != "grid":
+            raise ValueError("RankQ2MG needs coarse_kind='grid'")
+        if mg._rho2 is None:
+            raise ValueError("call Q2MG.freeze_rhos() first")
+        self._comm = comm
+        self.mg, self.comm = mg, device_mesh
+        fine = mg.fine
+        lo, hi = lat_rows[device_mesh.rank]
+        self.slab = fine.slab(lo, hi)
+        self.halo = LatticeHalo(lat_rows, fine.grid[0], device_mesh)
+        self.tr = LatticeNodeTransfers(fine.dims, lat_rows, node_rows,
+                                       device_mesh)
+        self.rank_mg = RankGridMG(mg.gmg, device_mesh, node_rows)
+        self.lines_local = mg.smoother == "line" and mg.line_axis != 0
+        if self.lines_local:
+            # the rank's rows of the per-line scalars (axis 0 leads the
+            # off-line axes), zero on ghost rows
+            n = self.slab.n_real
+            self._alpha, self._beta = (self._own(a[lo:lo + n])
+                                       for a in (mg._alpha, mg._beta))
+
+    def _gather_lattice(self, x):
+        """This rank's lattice rows -> the whole physical lattice, on
+        every rank (one all-gather)."""
+        return self._comm.all_gather(x.contiguous(), self.comm)[
+            :self.mg.fine.grid[0]]
+
+    def _own(self, x_real):
+        """This rank's real rows -> all its rows, zero on ghost rows."""
+        return F.pad(x_real, [0, 0] * (x_real.dim() - 1)
+                     + [0, self.slab.L - x_real.shape[0]])
+
+    def linearization_states(self, T_rows):
+        """Per-level states from this rank's lattice rows T_rows (L, ...):
+        the rows themselves, then GridMG's rank form's from the injected
+        node rows (the ghost planes edge-padded)."""
+        return [T_rows] + self.rank_mg.linearization_states(
+            self.tr.inject(T_rows))
+
+    def _line_solver(self, T_rows, T_ext, dt):
+        mg, slab = self.mg, self.slab
+        if self.lines_local:
+            mask = slab.bc_mask_g[2:slab.L + 2] if slab.has_bc else None
+            return mg._zsolve(mg._ldl(*mg._line_bands_from(
+                slab.jacobian_diag_r(T_ext, dt), self._alpha, self._beta,
+                mask, dt)))
+        # lines along axis 0 cross the ranks: the whole lattice's, solved
+        # on every rank
+        whole = mg._line_solver(self._gather_lattice(T_rows), dt)
+        lo, n = slab.lo, slab.n_real
+        return lambda r: self._own(whole(self._gather_lattice(r))[lo:lo + n])
+
+    def _power_rho(self, mv, zsolve, iters: int = 8):
+        """Q2MG._power_rho on this rank's rows: the whole lattice's start
+        vector, each iteration's two sums of squares summed over the ranks
+        in one collective."""
+        s = self.slab
+        M = int(np.prod(s.slab_grid[1:]))
+        fine = self.mg.fine
+        k = torch.arange(s.lo * M, (s.lo + s.n_real) * M, dtype=fine.dtype,
+                         device=fine.device)
+        v = self._own((torch.sin(k * 0.7) + 0.01).reshape(
+            (s.n_real,) + s.slab_grid[1:]))
+        rho = torch.ones((), dtype=fine.dtype, device=fine.device)
+        for _ in range(iters):
+            w = zsolve(mv(v))
+            sums = self._comm.all_reduce_sum(torch.stack([
+                torch.dot(w.reshape(-1), w.reshape(-1)),
+                torch.dot(v.reshape(-1), v.reshape(-1))]), self.comm)
+            nw = torch.sqrt(sums[0])
+            rho = nw / torch.sqrt(sums[1])
+            v = w / nw
+        return rho * 1.1
+
+    def preconditioner(self, T_rows, dt):
+        """The apply r -> ~A^{-1} r on this rank's lattice rows (L,
+        *grid[1:]) for the Jacobian frozen at T_rows (the rank's lattice
+        rows)."""
+        mg, slab = self.mg, self.slab
+        T_levels = self.linearization_states(T_rows)
+        T_ext = self.halo(T_rows)
+        mv = slab.make_matvec_r(T_ext, dt, self.halo)
+        if mg.smoother == "line":
+            zapply = self._line_solver(T_rows, T_ext, dt)
+            rho = self._power_rho(mv, zapply)
+        else:
+            diag = slab.jacobian_diag_r(T_ext, dt)
+            zapply = lambda r: r / diag  # noqa: E731
+            rho = mg._rho2
+        coarse = self.rank_mg.preconditioner(T_levels[1:], dt)
+        return mg._cycle(mv, zapply, rho, self.tr.restrict, coarse,
+                         self.tr.prolong)

@@ -52,9 +52,21 @@ layer cx - 1, which may lie on another rank (one summed all-gather). The
 sigma cross evaluation (dg_to_nodes_g) maps the rank's cells to its
 node rows through one re-partition (CellNodeTransfers).
 
-The CG-1 and DG-1 routes are ported, with and without mechanics; CG-2 T
-(`_init_q2`) raises NotImplementedError, naming the slice of the port
-that brings it (ROADMAP.md Queue 1).
+CG-2 T (`_init_q2`) keeps JAX's lattice layout: the T-space fields live
+on the Q2 dof lattice (2 n0 + 1, 2 n1 + 1, 2 n2 + 1), axis 0 padded with
+`lat_pad0 = (-(2 n0 + 1)) % P` edge-replicated ghost planes, rank p
+holding lattice planes [p Ll, (p + 1) Ll); the sigma-space fields stay on
+the node grid as above. The heat operator is GridHeatOperator2's slab of
+the rank's planes (ops/grid2.py GridQ2Slab: the kron chain on a window of
+two halo planes a side, one re-partition a Jacobian action), the
+preconditioner Q2MG's grid route in its rank form (RankQ2MG, its CG-1
+V-cycle RankGridMG on the rank's node rows). As under DG-1, ghost planes
+are zero rows of the residual, Jacobian action and preconditioner apply,
+every dot, norm and finiteness test reads the real planes alone, and
+the ghost planes are edge-padded at step exit; the sigma cross
+evaluation is the even-stride injection through one re-partition
+(LatticeNodeTransfers). Equilibrium mechanics under CG-2 raises JAX's
+ValueError.
 """
 
 from __future__ import annotations
@@ -84,6 +96,13 @@ from fem_glass_tempering_tpu_torch.models.viscoelastic import (
     ViscoState,
 )
 from fem_glass_tempering_tpu_torch.ops.grid import GridHeatOperator
+from fem_glass_tempering_tpu_torch.ops.grid2 import (
+    Q2MG,
+    GridHeatOperator2,
+    LatticeHalo,
+    LatticeNodeTransfers,
+    RankQ2MG,
+)
 from fem_glass_tempering_tpu_torch.ops.heat import HeatOperator
 from fem_glass_tempering_tpu_torch.parallel.comm import (
     DeviceMesh,
@@ -104,16 +123,11 @@ from fem_glass_tempering_tpu_torch.solver.newton import newton_solve
 
 
 
-def _waits_for(slice_: str, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"GridShardedProblem: {what} waits for Slice {slice_} of the "
-        f"PyTorch port (ROADMAP.md)")
-
-
 class GridShardedProblem:
     """Coupled thermo-viscoelastic tempering, this rank's share of a grid
     split along axis 0 over `device_mesh` (default: a group of one rank on
-    the GPU). Needs a uniform box mesh, CG-1 or DG-1 T and CG-1 sigma.
+    the GPU). Needs a uniform box mesh, CG-1, CG-2 or DG-1 T and CG-1
+    sigma.
     `flux_marker(midpoints) -> bool mask` restricts the radiation +
     convection flux to whole box faces, as `ThermoViscoProblem.setup`'s
     does (the V-cycle's coarse levels keep the whole boundary's, as
@@ -126,11 +140,13 @@ class GridShardedProblem:
     whether each met its tolerance (a step's `converged` is its heat
     solve's, as in JAX), and `last_mech_collectives` the collectives of
     each step's elasticity solve. With DG-1 T, `cell_halos` counts the
-    halo exchanges of cell layers this rank has made."""
+    halo exchanges of cell layers this rank has made; with CG-2 T,
+    ops/grid2.py `LatticeHalo.count` counts the windows of lattice
+    planes."""
 
     _TSPACE_FIELDS = frozenset(
         {"T", "T_prev", "Tf", "Tf_prev", "Tf_partial", "phi", "xi"})
-    is_dg = False
+    is_dg = is_q2 = False
 
     def __init__(self, mesh: Mesh, config: RunConfig,
                  device_mesh: DeviceMesh | None = None, *,
@@ -146,12 +162,11 @@ class GridShardedProblem:
             raise ValueError("GridShardedProblem needs a CG-1 sigma space")
         if mesh.structured is None:
             raise ValueError("GridShardedProblem needs a structured box mesh")
-        if fe.T_family == "CG" and fe.T_degree == 2:
-            raise _waits_for("7f", "CG-2 temperature (_init_q2)")
         self.is_dg = fe.T_family == "DG"
-        if self.is_dg and flux_marker is not None:
-            raise ValueError("GridShardedProblem: DG-1 T takes the flux of "
-                             "the whole boundary (no flux_marker)")
+        self.is_q2 = fe.T_family == "CG" and fe.T_degree == 2
+        if (self.is_dg or self.is_q2) and flux_marker is not None:
+            raise ValueError("GridShardedProblem: DG-1 and CG-2 T take the "
+                             "flux of the whole boundary (no flux_marker)")
         if config.solver.preconditioner == "auto":
             # structured degree 1: 'auto' is the grid-native (p-)multigrid
             config = dataclasses.replace(config, solver=dataclasses.replace(
@@ -186,8 +201,8 @@ class GridShardedProblem:
         self.last_mech_iters: list[int] = []
         self.last_mech_converged: list[bool] = []
         self.last_mech_collectives: list[int] = []
-        if self.is_dg:
-            self._init_dg(mesh, config, t0)
+        if self.is_dg or self.is_q2:
+            (self._init_dg if self.is_dg else self._init_q2)(mesh, config, t0)
             self._build_step()
             return
         assert self.engine.to_sigma.same_space("T"), \
@@ -287,8 +302,8 @@ class GridShardedProblem:
         Lc = (dims[0] + self.cell_pad0) // P
         self.cell_rows = [(r * Lc, (r + 1) * Lc) for r in range(P)]
         self.cell_shape = (Lc,) + dims[1:] + (self.nloc,)
-        c0 = self.cell_rows[rank][0]
-        self.n_real_cells = max(0, min(c0 + Lc, dims[0]) - c0)
+        self._t_layout(dims[0], self.cell_pad0, self.cell_rows,
+                       self.cell_shape)
         self.cell_halos = 0
 
         def heat_operator(dtype):
@@ -329,6 +344,76 @@ class GridShardedProblem:
         self.setup_seconds["mg"] = _time.perf_counter() - t1
         self._init_mech()
 
+    def _init_q2(self, mesh: Mesh, config: RunConfig, t0: float) -> None:
+        """CG-2 temperature (JAX's `_init_q2`): the lattice layout (module
+        docstring), GridHeatOperator2's slab, Q2MG's grid route with JAX's
+        keywords (nu_pre, nu_post, the coarse smoother alone, the node
+        grid's ghost planes) in its rank form; the sigma fields on the
+        padded node grid as in the CG-1 route."""
+        if config.mechanics == "equilibrium":
+            raise ValueError("equilibrium mechanics under sharded CG-2 "
+                             "is not wired yet — use the CG-1 path")
+        sc = config.solver
+        P, rank = self.n_devices, self.comm.rank
+        dims = tuple(mesh.structured["dims"])
+        self.lat_base = tuple(2 * n + 1 for n in dims)
+        self.lat_pad0 = (-self.lat_base[0]) % P
+        self._ngrid_base = tuple(n + 1 for n in dims)
+        self.pad0 = (-self._ngrid_base[0]) % P
+        self.grid = (self._ngrid_base[0] + self.pad0,) + self._ngrid_base[1:]
+        L = self.grid[0] // P
+        self.rows = [(r * L, (r + 1) * L) for r in range(P)]
+        self.slab_shape = (L,) + self.grid[1:]
+        Ll = (self.lat_base[0] + self.lat_pad0) // P
+        self.lat_rows = [(r * Ll, (r + 1) * Ll) for r in range(P)]
+        self._t_layout(self.lat_base[0], self.lat_pad0, self.lat_rows,
+                       (Ll,) + self.lat_base[1:])
+        self.heat = self._heat_operator(self.dtype, self.fs_T)
+        self.q2_op = GridHeatOperator2(self.heat)
+        self.slab = self.q2_op.slab(*self.lat_rows[rank])
+        self.q2_op32 = self.slab32 = None
+        if self._mixed:
+            self.q2_op32 = GridHeatOperator2(
+                self._heat_operator(torch.float32, self.fs_T))
+            self.slab32 = self.q2_op32.slab(*self.lat_rows[rank])
+        self.grid_op = self.grid_op32 = None
+        self.lattice_halo = LatticeHalo(self.lat_rows, self.lat_base[0],
+                                        self.comm)
+        # the sigma space's cross evaluation: the rank's lattice rows ->
+        # its rows of the node grid
+        self.to_nodes = LatticeNodeTransfers(dims, self.lat_rows, self.rows,
+                                             self.comm)
+        self.setup_seconds["operator"] = _time.perf_counter() - t0
+        t1 = _time.perf_counter()
+        self.q2_mg = self.rank_q2_mg = None
+        self.grid_mg = self.rank_mg = None
+        if sc.preconditioner == "mg":
+            mg_dtype = torch.float32 if self._mixed else self.dtype
+            self.q2_mg = Q2MG(
+                self.q2_op32 if self._mixed else self.q2_op,
+                lambda level_mesh: self._heat_operator(
+                    mg_dtype, FunctionSpace(level_mesh, "CG", 1)),
+                nu_pre=sc.mg_nu_pre, nu_post=sc.mg_nu_post,
+                mg_kwargs={"smoother": sc.mg_smoother},
+                coarse_pad0=self.pad0, coarse_kind="grid")
+            self.q2_mg.freeze_rhos(self.dt)
+            self.rank_q2_mg = RankQ2MG(self.q2_mg, self.comm, self.lat_rows,
+                                       self.rows)
+            # the CG-1 coarse chain's V-cycle and its rank form
+            self.grid_mg = self.q2_mg.gmg
+            self.rank_mg = self.rank_q2_mg.rank_mg
+        self.setup_seconds["mg"] = _time.perf_counter() - t1
+        self.mech = None
+
+    def _t_layout(self, n0: int, pad: int, rows, shape) -> None:
+        """The T-space grid of DG-1 / CG-2 T: `n0` physical planes along
+        axis 0 and `pad` ghost planes, every rank's rows `rows`, this
+        rank's rows of shape `shape`, of them `n_real_t` physical."""
+        self.t_n0, self.t_pad0, self.t_rows, self.t_shape = (
+            n0, pad, rows, tuple(shape))
+        lo = rows[self.comm.rank][0]
+        self.n_real_t = max(0, min(lo + shape[0], n0) - lo)
+
     # ---- layout ----------------------------------------------------------
     def _halo(self, x):
         return halo_exchange(x, self.comm)
@@ -339,24 +424,33 @@ class GridShardedProblem:
         self.cell_halos += halo_exchange.count - n0
         return out
 
+    def _real_t(self, x):
+        """The rows of a T-space vector (DG-1 / CG-2 T) on this rank's
+        physical planes, flattened."""
+        return x.reshape(self.t_shape[0], -1)[:self.n_real_t].reshape(-1)
+
     def _dot(self, a, b):
         """The global dot: this rank's partial sum, summed over the ranks
-        (of a T-space vector under DG-1, over its real cells)."""
-        if self.is_dg and self.n_real_cells < self.cell_shape[0]:
-            n, L = self.n_real_cells, self.cell_shape[0]
-            a, b = a.reshape(L, -1)[:n], b.reshape(L, -1)[:n]
+        (of a T-space vector under DG-1 or CG-2, over its real planes)."""
+        if self._tgrid and self.n_real_t < self.t_shape[0]:
+            a, b = self._real_t(a), self._real_t(b)
         return all_reduce_sum(torch.dot(a.reshape(-1), b.reshape(-1)),
                               self.comm)
 
+    @property
+    def _tgrid(self) -> bool:
+        """Whether the T space has its own grid (DG-1 cells, the CG-2
+        lattice)."""
+        return self.is_dg or self.is_q2
+
     def _is_cellgrid(self, name: str) -> bool:
-        return self.is_dg and name in self._TSPACE_FIELDS
+        return self._tgrid and name in self._TSPACE_FIELDS
 
     def _field_rows(self, name: str) -> tuple:
         """(physical planes, ghost planes, this rank's [lo, hi)) of the
         grid that field `name` lives on."""
         if self._is_cellgrid(name):
-            return (self.cell_dims[0], self.cell_pad0,
-                    self.cell_rows[self.comm.rank])
+            return self.t_n0, self.t_pad0, self.t_rows[self.comm.rank]
         return self._ngrid_base[0], self.pad0, self.rows[self.comm.rank]
 
     def shard_state(self, state: ViscoState) -> ViscoState:
@@ -382,7 +476,7 @@ class GridShardedProblem:
         stresses (the engine's, on the rank's rows; ghost rows alike)."""
         p = self.params
         n, d = int(np.prod(self.slab_shape)), self.mesh.tdim
-        nT = int(np.prod(self.cell_shape)) if self.is_dg else n
+        nT = int(np.prod(self.t_shape)) if self._tgrid else n
         f = lambda shape, v=0.0: torch.full(  # noqa: E731
             shape, v, dtype=self.dtype, device=self.device)
         tens = lambda: f((n, d, d))  # noqa: E731
@@ -410,15 +504,16 @@ class GridShardedProblem:
                              for k in ViscoState._fields})
 
     def _edge_fill(self, state: ViscoState) -> ViscoState:
-        """The ghost cell layers of the T-space fields, edge-padded from
-        cell layer cx - 1 (JAX's `pad_cs`): one summed all-gather of that
-        layer where a rank other than its holder holds ghost layers."""
-        if not self.cell_pad0:
+        """The ghost planes of the T-space fields (DG-1 cell layers, CG-2
+        lattice planes), edge-padded from physical plane cx - 1 (JAX's
+        `pad_cs`): one summed all-gather of that plane where a rank other
+        than its holder holds ghost planes."""
+        if not self.t_pad0:
             return state
-        cx, rank = self.cell_dims[0], self.comm.rank
-        Lc = self.cell_shape[0]
+        cx, rank = self.t_n0, self.comm.rank
+        Lc = self.t_shape[0]
         src = (cx - 1) // Lc
-        ghost_ranks = [q for q, (a, b) in enumerate(self.cell_rows)
+        ghost_ranks = [q for q, (a, b) in enumerate(self.t_rows)
                        if b > cx]
         names = [k for k in sorted(self._TSPACE_FIELDS)
                  if getattr(state, k) is not None]
@@ -493,6 +588,27 @@ class GridShardedProblem:
                 return self.to_nodes.to_nodes(arr.reshape(shape)).reshape(-1)
             if mech_fn is not None:
                 mech_fn = _DGMech(mech_fn, ident)
+        elif self.is_q2:
+            # the slab's views: its inputs carry a window of two halo
+            # lattice planes a side
+            shape, halo = self.t_shape, self.lattice_halo
+            rq = self.rank_q2_mg
+
+            def lin(T):
+                return halo(T.reshape(shape))
+
+            def residual_fn(state, dt):
+                Tp_ext = lin(state.T)
+                return lambda T: op_main.residual_r(
+                    lin(T), Tp_ext, dt).reshape(-1)
+
+            def precond(T, dt, mv):
+                pc = rq.preconditioner(T, dt)
+                return lambda r: pc(r.reshape(shape)).reshape(-1)
+
+            # the sigma space's cross evaluation: the even lattice points
+            def ident(name, arr):
+                return self.to_nodes.inject(arr.reshape(shape)).reshape(-1)
         else:
             shape, halo = self.slab_shape, self._halo
             rmg = self.rank_mg
@@ -583,7 +699,7 @@ class GridShardedProblem:
                              mech_fn(st, xi, th, precond=_p))
             new_state = engine.material_step_with(state, res.x, ident, dt,
                                                   mech=mech_call)
-            if self.is_dg:
+            if self._tgrid:
                 new_state = self._edge_fill(new_state)
             if self.mech is not None:
                 self.last_mech_iters.append(int(self.mech.last_cg_iters))
@@ -591,10 +707,8 @@ class GridShardedProblem:
                 self.last_mech_collectives.append(
                     self.mech.last_collectives)
             # Newton's test reads global norms (the same on every rank);
-            # finiteness is summed over the ranks (the real cells' alone)
-            x = res.x
-            if self.is_dg:
-                x = x.reshape(shape[0], -1)[:self.n_real_cells]
+            # finiteness is summed over the ranks (the real planes' alone)
+            x = self._real_t(res.x) if self._tgrid else res.x
             bad = (~torch.isfinite(x)).any().to(self.dtype)
             finite = bool(all_reduce_sum(bad, self.comm) == 0)
             return new_state, res.converged and finite, res.iters, \
@@ -697,14 +811,16 @@ class GridShardedProblem:
         return state
 
     def _cell_layout(self) -> dict:
-        """The writer's cell-grid keywords (JAX's `solve`): DG-1 T-space
-        fields on the padded cell grid with its local-dof axis."""
-        if not self.is_dg:
+        """The writer's T-grid keywords (JAX's `solve`): DG-1 T-space
+        fields on the padded cell grid with its local-dof axis, CG-2's on
+        the padded lattice."""
+        if not self._tgrid:
             return {}
-        return dict(cell_grid=(self.cell_dims[0] + self.cell_pad0,)
-                    + self.cell_dims[1:], cell_pad0=self.cell_pad0,
+        base = self.cell_dims if self.is_dg else self.lat_base
+        return dict(cell_grid=(base[0] + self.t_pad0,) + base[1:],
+                    cell_pad0=self.t_pad0,
                     cell_fields=tuple(sorted(self._TSPACE_FIELDS)),
-                    cell_local_axis=True)
+                    cell_local_axis=self.is_dg)
 
     def _layout(self) -> PlaneLayout:
         kw = self._cell_layout()

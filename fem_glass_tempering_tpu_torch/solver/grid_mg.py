@@ -65,7 +65,9 @@ small-block algebra is written as multiply + reduce and the 3x3 inverse as
 the closed-form adjugate, in the JAX version's order of operations.
 
 The CG-2 path's Q2MG (ops/grid2.py) runs GeometricMG, the flat form of
-GridMG's cycle, on its flattened coarse residual.
+GridMG's cycle, on its flattened coarse residual; its grid route
+(coarse_kind="grid", the grid-sharded CG-2 step's) runs GridMG over a
+node grid padded with ghost planes, and RankQ2MG this module's RankGridMG.
 """
 
 from __future__ import annotations

@@ -712,6 +712,38 @@ def test_grid_shard_dg_two_gloo_ranks_on_one_card(cuda):
             assert np.abs(got[f] - ref).max() <= tol * np.abs(ref).max()
 
 
+def test_grid_shard_q2_two_gloo_ranks_on_one_card(cuda):
+    """GridShardedProblem with CG-2 T over two gloo ranks on one card:
+    tests/test_grid2.py:237's config on a 5x4x3 plate (11 lattice planes
+    and one ghost plane, 6 node planes), 1 step, held to the unsharded
+    ThermoViscoProblem on the card at that test's tolerances (T 1e-9 and
+    sigma 1e-8 of their max), Newton equal, CG within max(5, 2%), the
+    ranks in lockstep."""
+    import torch_grid_shard_q2_ranks as R
+    from fem_glass_tempering_tpu_torch import config as tc
+    from fem_glass_tempering_tpu_torch.fem.mesh import box_mesh_3d
+    from fem_glass_tempering_tpu_torch.models.problem import (
+        ThermoViscoProblem,
+    )
+    from fem_glass_tempering_tpu_torch.parallel.comm import run_ranks
+
+    res = run_ranks(R.card_body, 2, "cuda:0", backend="gloo", timeout=600)
+    dims, cfg, steps = R.CASES["drift"]
+    prob = ThermoViscoProblem(mesh=box_mesh_3d(*dims), config=cfg(tc),
+                              device=cuda)
+    prob.setup()
+    st, ok, ni, ki = prob.multi_step(prob.state, steps)
+    assert ok
+    for r in res:
+        got = r["drift"]
+        assert got["ok"] and got["lat_pad0"] == 1 and got["newton"] == ni
+        assert abs(got["cg"] - ki) <= max(5, 0.02 * ki)
+        for f, tol in (("T", 1e-9), ("sigma", 1e-8)):
+            ref = getattr(st, f).cpu().numpy()
+            assert np.array_equal(got[f], res[0]["drift"][f])
+            assert np.abs(got[f] - ref).max() <= tol * np.abs(ref).max()
+
+
 def test_grid_shard_two_gloo_ranks_on_one_card(cuda):
     """GridShardedProblem over two gloo ranks on one card: the 12x6x4
     plate of tests/test_grid_mg.py (3 steps) held to the unsharded

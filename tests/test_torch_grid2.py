@@ -21,7 +21,7 @@ Held:
   Dirichlet rows (tests/test_grid2.py:62,82);
 - the degree-2 configurations off the lattice stencil path set up with the
   operators JAX's dispatch picks and take a converged step; a ghost-padded
-  coarse chain (coarse_pad0) waits for Slice 7.
+  coarse chain (coarse_pad0) takes the grid route (coarse_kind="grid").
 """
 
 import dataclasses
@@ -148,10 +148,15 @@ def test_table_form_matches_kron_and_jax(name, bc):
 
 
 def test_padded_coarse_chain_waits_for_slice7():
+    """A ghost-padded coarse chain (coarse_pad0, slice 7f) is JAX's GridMG
+    route, coarse_kind="grid" (tests/test_torch_grid_shard_q2.py holds it
+    to JAX's); the default GeometricMG route refuses the padding."""
     th, _ = _ops(MESHES["3d"])
     tg = GridHeatOperator2(th)
-    with pytest.raises(NotImplementedError, match="Slice 7"):
+    with pytest.raises(ValueError, match="coarse_kind='grid'"):
         Q2MG(tg, _level_op, coarse_pad0=1)
+    q = Q2MG(tg, _level_op, coarse_pad0=1, coarse_kind="grid")
+    assert q.gmg.pad0 == 1 and q.gmg.ops[0].grid[0] == tg.dims[0] + 2
     with pytest.raises(ValueError):
         GridHeatOperator2(th, matvec_form="dense")
 

@@ -379,18 +379,15 @@ def test_dryrun_gspmd_grid_counts_equal_jax(main, jax_side):
     (dict(T_family="CG", T_degree=2), "none", "7f")],
     ids=["dg1", "cg2"])
 def test_unported_routes_raise(fe, mechanics, slice_):
-    """CG-2 T waits for its slice of the port. DG-1 T (slice 7e) runs:
-    the 4x3x2 plate over a group of one rank in this process, 2 steps of
-    the default config, against the port's unsharded ThermoViscoProblem
-    at tests/test_grid_dg.py's tolerances (T 1e-9 and sigma 1e-8 of their
-    max, CG at most 2x + 8; its CG-1 correction is GeometricMG, the
-    sharded step's GridMG); tests/test_torch_grid_shard_dg.py holds it
-    to JAX's."""
+    """The T spaces beside CG-1 run: DG-1 T (slice 7e) and CG-2 T (slice
+    7f), each on the 4x3x2 plate over a group of one rank in this
+    process, 2 steps of the default config, against the port's unsharded
+    ThermoViscoProblem at tests/test_grid_dg.py's and tests/test_grid2.py:
+    237's tolerances (T 1e-9 and sigma 1e-8 of their max, CG at most 2x +
+    8: the sharded step's coarse chain is GridMG, the unsharded one's
+    GeometricMG or SA-AMG); tests/test_torch_grid_shard_dg.py and
+    tests/test_torch_grid_shard_q2.py hold them to JAX's."""
     cfg = RunConfig(fe=FEConfig(**fe), mechanics=mechanics)
-    if slice_ == "7f":
-        with pytest.raises(NotImplementedError, match=f"Slice {slice_}"):
-            GridShardedProblem(box_mesh_3d(4, 3, 2), cfg)
-        return
     from fem_glass_tempering_tpu_torch.config import TimeConfig
     from fem_glass_tempering_tpu_torch.models.problem import (
         ThermoViscoProblem,
@@ -408,7 +405,8 @@ def test_unported_routes_raise(fe, mechanics, slice_):
     un = ThermoViscoProblem(mesh=mesh, config=cfg, device="cpu")
     un.setup()
     st_u, ok_u, ni_u, ki_u = un.multi_step(un.state, 2)
-    assert ok and ok_u and gs.dg_mg is not None
+    assert ok and ok_u
+    assert (gs.dg_mg if slice_ == "7e" else gs.q2_mg) is not None
     assert ki <= 2 * ki_u + 8, (ki, ki_u)
     for f, tol in (("T", 1e-9), ("sigma", 1e-8)):
         a, b = getattr(flat, f).numpy(), getattr(st_u, f).numpy()

@@ -29,7 +29,7 @@ def _port_files():
             "parallel/sharding.py", "parallel/domain_cg.py",
             "parallel/domain.py", "parallel/grid_shard.py",
             "parallel/multihost.py", "io/sharded.py",
-            "solver/grid_dg.py"} <= names
+            "solver/grid_dg.py", "ops/grid2.py"} <= names
     return files
 
 
